@@ -1,0 +1,44 @@
+"""State carried between the reference package and the port.
+
+The interchange is the reference's ``api.save`` dict: numpy arrays
+with the integer ``layout`` tag (``repro/sketch/api.py:450, :497``).
+Both packages save and restore that layout, so a checkpoint written by
+either loads in the other and both compute the same thing from it.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+
+from .platform import DEFAULT_DEVICE
+from .sketch import api
+from .sketch.api import SketchSpec
+
+
+def spec_for(d: Dict[str, Any], variant: str = "sspm",
+             bits: Optional[int] = None) -> SketchSpec:
+    """The frequency spec whose layout a checkpoint dict holds.
+
+    The dict does not record the variant or the universe bound (the
+    state is the same for both), so the caller names them.
+    """
+    shards = int(np.asarray(d["shards"])) if "shards" in d else None
+    k = int(np.asarray(d["ids"]).size)
+    spec = SketchSpec(k=k, variant=variant, shards=shards or None, bits=bits)
+    return api.infer_spec(spec, d)
+
+
+def to_port(d: Dict[str, Any], spec: Optional[SketchSpec] = None,
+            device=DEFAULT_DEVICE) -> Tuple[SketchSpec, Any]:
+    """(spec, port state) from a checkpoint dict of either package."""
+    spec = spec_for(d) if spec is None else api.infer_spec(spec, d)
+    return spec, api.restore(spec, d, device)
+
+
+def to_reference(spec: SketchSpec, state) -> Dict[str, Any]:
+    """The tagged dict the reference's ``api.restore`` reads."""
+    return api.save(spec, state)
+
+
+__all__ = ["spec_for", "to_port", "to_reference"]

@@ -1,0 +1,389 @@
+"""One spec-driven front-end over the port's SpaceSaving± layouts.
+
+Counterpart of ``repro/sketch/api.py`` for the layouts this port has:
+``kind="frequency"`` with ``variant`` "sspm" or "lazy", plain
+(``shards=None``) or hash-sharded (``shards=S``), on the fused-kernel
+backend. ``SketchSpec`` keeps the reference's field names; every other
+value raises ``NotImplementedError`` naming the ROADMAP.md item that
+ports it. Checkpoints are the reference's tagged numpy dicts, so a
+state saved by either package restores in the other.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..core.spacesaving import capacity_for
+from ..kernels.sketch_update.ops import sketch_block_update_fused
+from ..platform import DEFAULT_DEVICE, resolve_device
+from . import sharded as shd
+from . import state as st
+from .bank import HashShardRouter
+from .state import VARIANT_LAZY, VARIANT_SSPM, SketchState
+
+KINDS = ("frequency", "quantile")
+VARIANTS = {"sspm": VARIANT_SSPM, "lazy": VARIANT_LAZY}
+BACKENDS = ("kernel",)
+
+# the reference's integer layout tags (api.py:79-82)
+LAYOUT_FREQUENCY = 1
+LAYOUT_QUANTILE = 2
+LAYOUT_DOUBLE = 3
+LAYOUT_CRPRECIS = 4
+
+_FAMILY = "ROADMAP.md Queue 1 item 11 (sketch/family.py)"
+_NOT_PORTED = {
+    "quantile": "ROADMAP.md Queue 1 item 9 (sketch/dyadic.py)",
+    "double": _FAMILY,
+    "unbiased": _FAMILY,
+    "crprecis": _FAMILY,
+    "tenants": "ROADMAP.md Queue 1 item 12 (sketch/tenant.py)",
+    "bank": "ROADMAP.md Queue 1 item 5 (bank.update_block_fused, the "
+            "partition core)",
+    "block": "ROADMAP.md Queue 1 item 4 (sketch/blocks.py)",
+    "serial": "ROADMAP.md Queue 1 item 4 (sketch/blocks.py)",
+}
+
+
+def _not_ported(what: str, key: str):
+    raise NotImplementedError(
+        f"{what} is not ported to repro_torch yet; {_NOT_PORTED[key]} ports it")
+
+
+@dataclasses.dataclass(frozen=True)
+class SketchSpec:
+    """Frozen description of one SpaceSaving± summary.
+
+    Size with exactly one of ``k`` (total live counters, split per shard)
+    or ``eps`` (+ ``alpha``, the paper's Thm 2/4 prescription).
+    ``bits`` bounds the item universe to [0, 2^bits) and enables the
+    packed single-sort router. ``backend`` is "kernel": the fused CUDA
+    kernel on the card, its plain PyTorch version on the CPU.
+    """
+
+    kind: str = "frequency"
+    k: Optional[int] = None
+    eps: Optional[float] = None
+    alpha: float = 2.0
+    variant: str = "sspm"
+    shards: Optional[int] = None
+    bits: Optional[int] = None
+    backend: str = "kernel"
+    tenants: Optional[int] = None
+    tenant_caps: Optional[Tuple[int, ...]] = None
+
+    def __post_init__(self):
+        if self.kind not in KINDS:
+            raise ValueError(
+                f"SketchSpec.kind must be one of {KINDS}, got {self.kind!r}")
+        if self.kind != "frequency":
+            _not_ported(f"kind={self.kind!r}", self.kind)
+        if self.variant in ("double", "unbiased"):
+            _not_ported(f"variant={self.variant!r}", self.variant)
+        if self.variant not in VARIANTS:
+            raise ValueError(
+                f"SketchSpec.variant must be one of {tuple(VARIANTS)}, got "
+                f"{self.variant!r}")
+        if self.backend in _NOT_PORTED:
+            _not_ported(f"backend={self.backend!r}", self.backend)
+        if self.backend not in BACKENDS:
+            raise ValueError(
+                f"SketchSpec.backend must be one of {BACKENDS}, got "
+                f"{self.backend!r}")
+        if self.tenants is not None or self.tenant_caps is not None:
+            _not_ported("the multi-tenant layout (tenants=)", "tenants")
+        if (self.k is None) == (self.eps is None):
+            raise ValueError(
+                "size the spec with exactly one of k (total counters) or "
+                f"eps (+ alpha); got k={self.k}, eps={self.eps}")
+        if self.shards is not None and self.shards < 1:
+            raise ValueError(f"shards must be >= 1 or None, got {self.shards}")
+
+    @property
+    def variant_id(self) -> int:
+        """The engine-layer integer variant (VARIANT_LAZY / VARIANT_SSPM)."""
+        return VARIANTS[self.variant]
+
+    @property
+    def capacity(self) -> int:
+        """Resolved total live-counter budget."""
+        if self.k is not None:
+            return int(self.k)
+        return capacity_for(self.eps, self.alpha,
+                            "lazy" if self.variant == "lazy" else "ss_pm")
+
+
+# ---------------------------------------------------------------------------
+# Input validation: one home for the block conventions (api.py:282)
+# ---------------------------------------------------------------------------
+
+def validate_block(spec: SketchSpec, items, weights, *,
+                   prior_mass: int = 0) -> int:
+    """Check one host (numpy) block against the package conventions.
+
+    Ids are non-negative ints (negative ids are sentinels) that fit
+    int32; weight > 0 inserts, < 0 deletes, 0 pads; the block's weight
+    magnitudes sum within int32, and no item's net weight could carry a
+    counter already holding up to ``prior_mass`` past int32. Returns the
+    block's positive mass.
+    """
+    i_shape = np.shape(items)
+    w_shape = np.shape(weights)
+    if len(i_shape) != 1:
+        raise ValueError(
+            f"items must be 1-D (one block of ids), got shape {i_shape}")
+    if i_shape != w_shape:
+        raise ValueError(
+            f"items/weights length mismatch: {i_shape} vs {w_shape}; pad "
+            f"the short side with weight-0 entries (the padding convention)")
+    i = np.asarray(items)
+    w = np.asarray(weights)
+    if i.dtype.kind not in "iu" or w.dtype.kind not in "iu":
+        raise ValueError(
+            f"items/weights must be integer arrays (ids and signed counts), "
+            f"got dtypes {i.dtype}/{w.dtype}")
+    real = w != 0
+    if (i[real] < 0).any():
+        bad = int(i[real][i[real] < 0][0])
+        raise ValueError(
+            f"negative item id {bad}: ids must be >= 0 (negative ids are "
+            f"the EMPTY/BLOCKED sentinels). To pad a block, keep any id "
+            f"and set its weight to 0.")
+    int32_max = np.iinfo(np.int32).max
+    if (i[real].astype(np.int64) > int32_max).any():
+        bad = int(i[real][i[real].astype(np.int64) > int32_max][0])
+        raise ValueError(
+            f"item id {bad} exceeds int32 (the device-side id dtype); "
+            f"hash or re-bucket ids into [0, 2^31) before ingest")
+    if np.abs(w.astype(np.int64)).max(initial=0) > int32_max:
+        raise ValueError("weights must fit int32 (the device-side count dtype)")
+    wsum = int(np.abs(w.astype(np.int64)).sum())
+    if wsum > int32_max:
+        raise ValueError(
+            f"block weight magnitudes sum to {wsum} > int32 max "
+            f"({int32_max}): split the block or rescale the weights")
+    pos_mass = int(w.astype(np.int64).clip(min=0).sum())
+    if prior_mass and pos_mass:
+        uniq, inv = np.unique(i[real], return_inverse=True)
+        net = np.zeros(uniq.size, dtype=np.int64)
+        np.add.at(net, inv, w[real].astype(np.int64))
+        worst = int(net.max(initial=0))
+        if worst > 0 and int(prior_mass) + worst > int32_max:
+            bad = int(uniq[int(np.argmax(net))])
+            raise ValueError(
+                f"item {bad} accumulates net weight {worst} in this block "
+                f"while the target state already holds up to "
+                f"{int(prior_mass)} positive mass: its counter could cross "
+                f"int32 max ({int32_max}). Split the block, rescale "
+                f"weights, or checkpoint-and-reset the session.")
+    return pos_mass
+
+
+# ---------------------------------------------------------------------------
+# Adapters: the plain and the hash-sharded frequency layouts
+# ---------------------------------------------------------------------------
+
+def _fields(d, device) -> SketchState:
+    return SketchState(*(torch.as_tensor(np.asarray(d[key]).astype(np.int32),
+                                         device=device)
+                         for key in ("ids", "counts", "errors")))
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+class _FrequencyAdapter:
+    """shards=None: the flat (k,) SketchState."""
+
+    def make(self, spec, device) -> SketchState:
+        return st.init(spec.capacity, device=device)
+
+    def device_of(self, state) -> torch.device:
+        return state.ids.device
+
+    def update(self, spec, state, items, weights):
+        # the flat sketch as a one-row bank, routed like the reference
+        # (api.py:419-431)
+        row_items, row_weights = HashShardRouter(1, spec.bits).route_dense(
+            items, weights)
+        bank1 = SketchState(*(t[None] for t in state))
+        out = sketch_block_update_fused(bank1, row_items, row_weights,
+                                        spec.variant_id)
+        return SketchState(*(t[0] for t in out))
+
+    def query_many(self, spec, state, items):
+        return st.query_many(state, items)
+
+    def topk(self, spec, state, m):
+        return st.topk(state, m)
+
+    def save(self, spec, state) -> Dict[str, Any]:
+        return {"layout": np.int32(LAYOUT_FREQUENCY),
+                "ids": _to_numpy(state.ids),
+                "counts": _to_numpy(state.counts),
+                "errors": _to_numpy(state.errors)}
+
+    def restore(self, spec, d, device) -> SketchState:
+        return _fields(d, device)
+
+
+class _ShardedFrequencyAdapter:
+    """shards=S: the hash-partitioned ShardedSketch bank."""
+
+    def make(self, spec, device) -> shd.ShardedSketch:
+        return shd.init(spec.capacity, spec.shards, device=device)
+
+    def device_of(self, state) -> torch.device:
+        return state.bank.ids.device
+
+    def update(self, spec, state, items, weights):
+        return shd.update_block(state, items, weights, spec.variant_id,
+                                universe_bits=spec.bits)
+
+    def query_many(self, spec, state, items):
+        return shd.query_many(state, items)
+
+    def topk(self, spec, state, m):
+        return shd.topk(state, m)
+
+    def save(self, spec, state) -> Dict[str, Any]:
+        return {"layout": np.int32(LAYOUT_FREQUENCY),
+                "ids": _to_numpy(state.bank.ids),
+                "counts": _to_numpy(state.bank.counts),
+                "errors": _to_numpy(state.bank.errors),
+                "shards": np.int32(spec.shards)}
+
+    def restore(self, spec, d, device) -> shd.ShardedSketch:
+        fields = _fields(d, device)
+        if fields.ids.shape[0] != spec.shards:
+            raise ValueError(
+                f"checkpoint has {fields.ids.shape[0]} shards, spec asks for "
+                f"{spec.shards}; restore with a matching spec")
+        return shd.ShardedSketch(bank=fields)
+
+
+_PLAIN = _FrequencyAdapter()
+_SHARDED = _ShardedFrequencyAdapter()
+
+
+def adapter_for(spec: SketchSpec):
+    return _PLAIN if spec.shards is None else _SHARDED
+
+
+# ---------------------------------------------------------------------------
+# The uniform functional surface
+# ---------------------------------------------------------------------------
+
+def make(spec: SketchSpec, device=DEFAULT_DEVICE):
+    """Empty state for ``spec`` on ``device`` (CUDA unless asked)."""
+    return adapter_for(spec).make(spec, resolve_device(device))
+
+
+def _as_ids(x, device) -> torch.Tensor:
+    """int32 tensor on ``device`` from a tensor or a host array."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.int32)
+    return torch.as_tensor(np.asarray(x).astype(np.int32), device=device)
+
+
+def update(spec: SketchSpec, state, items, weights=None):
+    """Ingest one block of signed weighted updates; returns the new state.
+
+    ``weights=None`` means unit inserts. Host inputs are validated
+    (``validate_block``) before they are cast to int32 and moved to the
+    state's device; tensors pass through as they are.
+    """
+    ad = adapter_for(spec)
+    dev = ad.device_of(state)
+    if weights is None:
+        weights = np.ones(np.shape(items), np.int32)
+    if not isinstance(items, torch.Tensor):
+        validate_block(spec, items, weights)
+    return ad.update(spec, state, _as_ids(items, dev), _as_ids(weights, dev))
+
+
+def query_many(spec: SketchSpec, state, items) -> torch.Tensor:
+    """Estimated frequency per query id."""
+    ad = adapter_for(spec)
+    return ad.query_many(spec, state, _as_ids(items, ad.device_of(state)))
+
+
+def query(spec: SketchSpec, state, item) -> torch.Tensor:
+    return query_many(spec, state, [item])[0]
+
+
+def topk(spec: SketchSpec, state, m: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-m (ids, counts) heavy hitters by estimated count."""
+    return adapter_for(spec).topk(spec, state, m)
+
+
+# ---------------------------------------------------------------------------
+# Checkpointing: the reference's tagged flat dicts
+# ---------------------------------------------------------------------------
+
+def save(spec: SketchSpec, state) -> Dict[str, Any]:
+    """Flat numpy dict with the reference's integer layout tag."""
+    return adapter_for(spec).save(spec, state)
+
+
+def infer_spec(spec: SketchSpec, d: Dict[str, Any]) -> SketchSpec:
+    """Adapt ``spec``'s shard count to a checkpoint dict (reference
+    ``api.py:812``); layouts this port lacks raise NotImplementedError."""
+    tag = int(np.asarray(d["layout"])) if "layout" in d else None
+    if tag == LAYOUT_QUANTILE or (tag is None and "mass" in d):
+        _not_ported("a quantile checkpoint", "quantile")
+    if tag in (LAYOUT_DOUBLE, LAYOUT_CRPRECIS):
+        _not_ported(f"a checkpoint with layout tag {tag}", "double")
+    if tag not in (None, LAYOUT_FREQUENCY):
+        raise ValueError(
+            f"unknown checkpoint layout tag {tag}; the dict is corrupted or "
+            f"written by a newer layout")
+    if d.get("tenants") is not None:
+        _not_ported("a multi-tenant checkpoint", "tenants")
+    shards = int(np.asarray(d["shards"])) if "shards" in d else 0
+    shards = shards or None
+    if shards != spec.shards:
+        return dataclasses.replace(spec, shards=shards)
+    return spec
+
+
+def _validate_checkpoint(d: Dict[str, Any]) -> None:
+    """Reject truncated or corrupted dicts before any state is built."""
+    keys = ("ids", "counts", "errors")
+    missing = [k for k in keys if k not in d]
+    if missing:
+        raise ValueError(
+            f"checkpoint dict is missing key(s) {missing} (truncated write?)")
+    shapes = {}
+    for key in keys:
+        arr = np.asarray(d[key])
+        if arr.dtype.kind not in "iu":
+            raise ValueError(
+                f"checkpoint field {key!r} has dtype {arr.dtype}; sketch "
+                f"counters are integer arrays")
+        shapes[key] = arr.shape
+    if len(set(shapes.values())) != 1:
+        raise ValueError(f"checkpoint counter fields disagree in shape: {shapes}")
+
+
+def restore(spec: SketchSpec, d: Dict[str, Any], device=DEFAULT_DEVICE):
+    """State from a ``save`` dict of either package (or the untagged
+    pre-redesign frequency layout), on ``device``."""
+    inferred = infer_spec(spec, d)
+    if inferred.shards != spec.shards:
+        raise ValueError(
+            f"checkpoint layout has shards={inferred.shards}, the spec says "
+            f"shards={spec.shards}; restore through infer_spec(spec, d) "
+            f"(StreamSession.load does)")
+    _validate_checkpoint(d)
+    return adapter_for(spec).restore(spec, d, resolve_device(device))
+
+
+__all__ = ["KINDS", "VARIANTS", "BACKENDS", "LAYOUT_FREQUENCY",
+           "LAYOUT_QUANTILE", "LAYOUT_DOUBLE", "LAYOUT_CRPRECIS",
+           "SketchSpec", "validate_block", "adapter_for", "make", "update",
+           "query_many", "query", "topk", "save", "infer_spec", "restore"]

@@ -1,0 +1,71 @@
+"""Hash-sharded SpaceSaving± bank: S per-shard sketches, one launch/block.
+
+Counterpart of ``repro/sketch/sharded.py``, kernel path only: shard s
+of the stacked (S, k) bank monitors the ids with ``shard_of(id, S) ==
+s``. A block is routed with one shared sort (the sorted block broadcast
+to every row, foreign weights masked to 0) and ingested by one fused
+launch; queries read the owner shard, so there is no merge error.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from ..kernels.sketch_update.ops import sketch_block_update_fused
+from ..platform import DEFAULT_DEVICE
+from . import bank as bk
+from .bank import HashShardRouter, shard_of
+from .state import VARIANT_SSPM, SketchState
+
+
+class ShardedSketch(NamedTuple):
+    """Stacked per-shard states; shard s owns ids with shard_of(id) == s."""
+
+    bank: SketchState  # each field (S, k) int32
+
+    @property
+    def num_shards(self) -> int:
+        return self.bank.ids.shape[0]
+
+
+def init(total_capacity: int, num_shards: int,
+         device=DEFAULT_DEVICE) -> ShardedSketch:
+    """Empty bank of ceil(total / S) counters per shard."""
+    if num_shards < 1:
+        raise ValueError(f"num_shards must be >= 1, got {num_shards}")
+    k = -(-total_capacity // num_shards)
+    return ShardedSketch(bank=bk.init(k, num_shards, device=device))
+
+
+def route_block(items: torch.Tensor, weights: torch.Tensor, num_shards: int,
+                universe_bits: Optional[int] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One-sort hash routing: (B,) block -> (S, B) per-shard views."""
+    return HashShardRouter(num_shards, universe_bits).route_dense(items, weights)
+
+
+def update_block(state: ShardedSketch, items: torch.Tensor,
+                 weights: torch.Tensor, variant: int = VARIANT_SSPM, *,
+                 universe_bits: Optional[int] = None) -> ShardedSketch:
+    """Route one block shard-by-hash and ingest it with one fused launch
+    (the reference's ``path='kernel'``, ``sharded.py:174``)."""
+    items_b, w_routed = route_block(items, weights, state.num_shards,
+                                    universe_bits)
+    return ShardedSketch(bank=sketch_block_update_fused(
+        state.bank, items_b, w_routed, variant))
+
+
+def query_many(state: ShardedSketch, items: torch.Tensor) -> torch.Tensor:
+    """Estimated frequency per query id, answered by its owner shard."""
+    items = items.to(torch.int32)
+    return bk.query_rows(state.bank, shard_of(items, state.num_shards), items)
+
+
+def topk(state: ShardedSketch, m: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Global top-m (ids, counts): flat top-k over all S·k slots."""
+    return bk.topk_bank(state.bank, m)
+
+
+__all__ = ["ShardedSketch", "init", "shard_of", "route_block",
+           "update_block", "query_many", "topk"]

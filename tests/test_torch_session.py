@@ -1,0 +1,243 @@
+"""The port's slice end to end against the reference package.
+
+``repro_torch``'s ``StreamSession`` (spec -> session -> adapter -> fused
+update, run on the CPU through the kernel's plain version) against
+``repro``'s ``StreamSession`` with ``backend='kernel'`` (the Pallas
+kernel in interpret mode) on bounded-deletion streams made with numpy,
+plus checkpoints carried across in both directions, the spec's scope,
+block validation, the default device and the stream helpers.
+"""
+from __future__ import annotations
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+from repro.core import streams as jstreams
+from repro.core.spacesaving import capacity_for as jcapacity_for
+from repro.sketch import api as japi
+from repro.sketch.session import StreamSession as JSession
+from repro_torch import convert
+from repro_torch.core import streams as tstreams
+from repro_torch.core.spacesaving import capacity_for
+from repro_torch.sketch import api as tapi
+from repro_torch.sketch import bank as tbk
+from repro_torch.sketch import sharded as tshd
+from repro_torch.sketch import state as tst
+from repro_torch.sketch.session import StreamSession as TSession
+
+BITS = 12
+BLOCK = 256
+
+
+def _stream(seed=0, n_insert=1500, ratio=0.5):
+    s = tstreams.bounded_stream(n_insert, ratio, universe=1 << BITS,
+                                skew=1.1, seed=seed)
+    return s[:, 0], s[:, 1]
+
+
+def _specs(shards, variant, **size):
+    size = size or {"k": 96}
+    return (japi.SketchSpec(variant=variant, shards=shards, bits=BITS,
+                            backend="kernel", **size),
+            tapi.SketchSpec(variant=variant, shards=shards, bits=BITS, **size))
+
+
+def _assert_same(jd, td, msg=""):
+    for key in ("ids", "counts", "errors"):
+        np.testing.assert_array_equal(np.asarray(jd[key]), td[key],
+                                      err_msg=f"{msg}: {key}")
+
+
+def _state_dicts(js, ts):
+    return japi.save(js.spec, js.state), tapi.save(ts.spec, ts.state)
+
+
+@pytest.mark.parametrize("shards", [None, 4])
+@pytest.mark.parametrize("variant", ["sspm", "lazy"])
+def test_session_extend_matches_reference(shards, variant):
+    jspec, tspec = _specs(shards, variant)
+    js, ts = JSession(jspec, block=BLOCK), TSession(tspec, block=BLOCK,
+                                                    device="cpu")
+    items, weights = _stream(seed=1 if shards else 2)
+    cuts = np.sort(np.random.default_rng(0).integers(0, len(items), 9))
+    for lo, hi in zip(np.r_[0, cuts], np.r_[cuts, len(items)]):
+        js.extend(items[lo:hi], weights[lo:hi])
+        ts.extend(items[lo:hi], weights[lo:hi])
+    probe = np.arange(1 << BITS)
+    np.testing.assert_array_equal(np.asarray(js.query_many(probe)),
+                                  ts.query_many(probe).numpy())
+    for a, b in zip(js.topk(20), ts.topk(20)):
+        np.testing.assert_array_equal(np.asarray(a), b.numpy())
+    _assert_same(*_state_dicts(js, ts), f"{shards}/{variant}")
+    assert ts.ingested_mass == js.ingested_mass
+
+
+@pytest.mark.parametrize("shards", [None, 4])
+def test_windowed_observe_and_push_match_reference(shards):
+    jspec, tspec = _specs(shards, "sspm")
+    rng = np.random.default_rng(5)
+    js = JSession(jspec, block=64, window=40)
+    ts = TSession(tspec, block=64, window=40, device="cpu")
+    for x in rng.zipf(1.3, 300) % (1 << BITS):
+        js.observe(int(x))
+        ts.observe(int(x))
+    _assert_same(*_state_dicts(js, ts), "observe")
+    jp = JSession(jspec, block=64, window=3)
+    tp = TSession(tspec, block=64, window=3, device="cpu")
+    for _ in range(8):
+        batch = rng.integers(0, 1 << BITS, 50)
+        w = rng.integers(1, 4, 50)
+        jp.push(batch, w)
+        tp.push(batch, w)
+    _assert_same(*_state_dicts(jp, tp), "push")
+    assert (tp.insertions, tp.deletions) == (jp.insertions, jp.deletions)
+    assert tp.alpha_bound == jp.alpha_bound
+
+
+@pytest.mark.parametrize("shards", [None, 4])
+@pytest.mark.parametrize("variant", ["sspm", "lazy"])
+def test_api_update_and_queries_match_reference(shards, variant):
+    """The functional surface: update (host arrays, unit weights when
+    omitted), query, query_many, topk."""
+    jspec, tspec = _specs(shards, variant)
+    js, ts = japi.make(jspec), tapi.make(tspec, device="cpu")
+    items, weights = _stream(seed=11)
+    for b in range(3):
+        sl = slice(b * BLOCK, (b + 1) * BLOCK)
+        w = None if b == 0 else weights[sl]
+        js = japi.update(jspec, js, items[sl], w)
+        ts = tapi.update(tspec, ts, items[sl], w)
+    _assert_same(japi.save(jspec, js), tapi.save(tspec, ts), "update")
+    probe = np.arange(0, 1 << BITS, 7)
+    np.testing.assert_array_equal(np.asarray(japi.query_many(jspec, js, probe)),
+                                  tapi.query_many(tspec, ts, probe).numpy())
+    assert int(japi.query(jspec, js, int(items[0]))) == \
+        int(tapi.query(tspec, ts, int(items[0])))
+    for a, b in zip(japi.topk(jspec, js, 10), tapi.topk(tspec, ts, 10)):
+        np.testing.assert_array_equal(np.asarray(a), b.numpy())
+
+
+@pytest.mark.parametrize("direction", ["jax_to_torch", "torch_to_jax"])
+@pytest.mark.parametrize("shards", [None, 4])
+def test_checkpoint_cross_load(direction, shards):
+    """Save mid-stream (scheduling snapshot included) in one package,
+    load in the other, finish the stream in both: same state."""
+    jspec, tspec = _specs(shards, "sspm")
+    items, weights = _stream(seed=7)
+    half = len(items) // 2 + 13   # leaves a partial block buffered
+    js = JSession(jspec, block=BLOCK)
+    ts = TSession(tspec, block=BLOCK, device="cpu")
+    if direction == "jax_to_torch":
+        js.extend(items[:half], weights[:half])
+        d = js.save(include_schedule=True)
+        ts.load(d)
+    else:
+        ts.extend(items[:half], weights[:half])
+        d = ts.save(include_schedule=True)
+        js.load(d)
+    js.extend(items[half:], weights[half:])
+    ts.extend(items[half:], weights[half:])
+    _assert_same(*_state_dicts(js, ts), direction)
+    # plain state dicts carry across through convert as well
+    spec, state = convert.to_port(japi.save(js.spec, js.state), device="cpu")
+    assert spec.shards == shards
+    _assert_same(japi.save(js.spec, js.state), tapi.save(spec, state),
+                 "to_port")
+    back = japi.restore(js.spec, convert.to_reference(spec, state))
+    _assert_same(japi.save(js.spec, back), tapi.save(spec, state),
+                 "to_reference")
+
+
+@pytest.mark.parametrize("eps,alpha,variant",
+                         [(1e-3, 2.0, "lazy"), (1e-3, 2.0, "sspm"),
+                          (0.01, 4.0, "sspm")])
+def test_eps_sizing_matches_reference(eps, alpha, variant):
+    jspec, tspec = _specs(8, variant, eps=eps)
+    assert tspec.capacity == jspec.capacity
+    assert tapi.SketchSpec(eps=eps, alpha=alpha, variant=variant).capacity \
+        == japi.SketchSpec(eps=eps, alpha=alpha, variant=variant).capacity
+    for name in ("lazy", "ss_pm"):
+        assert capacity_for(eps, alpha, name) == jcapacity_for(eps, alpha, name)
+
+
+@pytest.mark.parametrize("fields,item", [
+    (dict(kind="quantile", k=64, bits=8), "item 9"),
+    (dict(k=64, variant="double"), "item 11"),
+    (dict(k=64, variant="unbiased"), "item 11"),
+    (dict(k=64, backend="crprecis"), "item 11"),
+    (dict(k=64, bits=8, tenants=2), "item 12"),
+    (dict(k=64, backend="bank"), "item 5"),
+    (dict(k=64, backend="block"), "item 4"),
+    (dict(k=64, backend="serial"), "item 4"),
+])
+def test_unported_spec_values_name_their_roadmap_item(fields, item):
+    with pytest.raises(NotImplementedError, match=item):
+        tapi.SketchSpec(**fields)
+
+
+@pytest.mark.parametrize("fields", [
+    dict(kind="cardinality", k=8), dict(k=8, variant="fast"),
+    dict(k=8, eps=0.1), dict(), dict(k=8, shards=0)])
+def test_bad_spec_values_raise_like_the_reference(fields):
+    with pytest.raises(ValueError):
+        japi.SketchSpec(**fields)
+    with pytest.raises(ValueError):
+        tapi.SketchSpec(**fields)
+
+
+@pytest.mark.parametrize("items,weights", [
+    (np.array([1, -1]), np.array([1, 1])),                 # negative id
+    (np.array([1, 2]), np.array([1])),                     # length mismatch
+    (np.array([1.0, 2.0]), np.array([1, 1])),              # float ids
+    (np.array([2**31]), np.array([1])),                    # id past int32
+    (np.array([1, 2]), np.array([2**31 - 1, 2])),          # weight sum
+    (np.array([[1, 2]]), np.array([[1, 1]])),              # not 1-D
+])
+def test_validate_block_rejects_what_the_reference_rejects(items, weights):
+    jspec, tspec = _specs(None, "sspm")
+    with pytest.raises(ValueError):
+        japi.validate_block(jspec, items, weights)
+    with pytest.raises(ValueError):
+        tapi.validate_block(tspec, items, weights)
+
+
+def test_validate_block_prior_mass_bound():
+    jspec, tspec = _specs(None, "sspm")
+    items, weights = np.array([3, 3]), np.array([5, 6])
+    for api, spec in ((japi, jspec), (tapi, tspec)):
+        assert api.validate_block(spec, items, weights) == 11
+        with pytest.raises(ValueError):
+            api.validate_block(spec, items, weights, prior_mass=2**31 - 5)
+
+
+def test_entry_points_default_to_cuda():
+    """Without device=, entry points ask for the card and raise without one
+    instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is usable here")
+    spec = tapi.SketchSpec(k=64)
+    for call in (lambda: tapi.make(spec), lambda: TSession(spec),
+                 lambda: tshd.init(64, 4), lambda: tbk.init(64, 4),
+                 lambda: tst.init(64),
+                 lambda: tapi.restore(spec, tapi.save(
+                     spec, tapi.make(spec, device="cpu")))):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+
+
+def test_port_streams_are_valid_and_counted_like_the_reference():
+    s = tstreams.bounded_stream(3000, 0.5, universe=1 << 10, seed=4)
+    got = tstreams.exact_stats(s)           # raises if not strict turnstile
+    want = jstreams.exact_stats(s)
+    assert (got.insertions, got.deletions) == (3000, 1500)
+    assert got.alpha == want.alpha == 2.0
+    ref = {k: v for k, v in want.frequencies.items() if v}
+    assert dict(zip(got.items.tolist(), got.freqs.tolist())) == ref
+    assert set(tstreams.heavy_hitters(got, 0.01).tolist()) == \
+        jstreams.heavy_hitters(want, 0.01)
+    bad = np.array([[1, 1], [2, -1]])
+    with pytest.raises(ValueError):
+        tstreams.exact_stats(bad)
