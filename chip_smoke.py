@@ -7,26 +7,46 @@ Phases, each fatal on failure (the script exits non-zero and prints no
 result):
 
 1. device: require CUDA; print the card's name and power limit;
-2. build the CUDA kernel from ``src/repro_torch/kernels/**/csrc`` with
-   nvcc (sm_90a);
+2. build the CUDA kernels from ``src/repro_torch/kernels/**/csrc`` with
+   nvcc (sm_90a), one nvcc per source, all started together;
 3. hold every kernel against its plain PyTorch version on the card, with
    ``torch.equal`` (the sketch state is int32: tolerance 0), over cold,
-   warm and near-rail banks, K values that are not multiples of 32 or
-   128, R in {1, 7, 128} and all-padding blocks;
-4. the main path at a real size: a flow-monitoring deployment of
-   SpaceSaving± in the paper's alpha = 2 bounded-deletion regime,
-   ``SketchSpec(eps=1e-5, alpha=2, shards=128, bits=24)`` = 400,000
-   counters, fed through ``StreamSession(block=65536).ingest`` with 64
-   blocks of a Zipf(1.0) stream over 2^24 ids at delete ratio 0.5; then a
-   smaller unsharded Lazy SpaceSaving± run (eps=1e-3, k=2,000). Each run
-   must launch the kernel once per block, equal the same blocks run
-   through the plain version on the card, and hold the per-shard error
-   bound of Thm 4 (SS±) / Thm 2 (Lazy) against the exact frequencies,
-   with every item above the bound monitored;
-5. times: per-block ms and updates/s of each run; the kernel's ms at the
-   main path's shapes beside its bound and the plain version's ms; a
-   ``torch.profiler`` window over main-path blocks (device busy share and
-   the ops that take the device time).
+   warm and near-rail (+ and -) states, K values that are not multiples
+   of 32 or 128, R and E in {1, 7, 128}, k = 400,000 for the
+   single-sketch residual kernel, and all-padding blocks: the fused
+   update (kernel 1), the banked residual (kernel 2), the stacked
+   single-sketch residual (kernel 3) and the serial baseline (kernel 4,
+   on the first 4,096 items of each case);
+4. runs at a real size, each on a Zipf(1.0) stream over 2^24 ids at
+   delete ratio 0.5, interleaved, in blocks of 65,536:
+   - main: a flow-monitoring deployment of SpaceSaving± in the paper's
+     alpha = 2 bounded-deletion regime, ``SketchSpec(eps=1e-5, alpha=2,
+     shards=128, bits=24)`` = 400,000 counters, through
+     ``StreamSession.ingest``, 64 blocks, kernel 1;
+   - lazy: unsharded Lazy SpaceSaving±, eps=1e-3 (k = 2,000), 16 blocks,
+     kernel 1;
+   - block sspm k=400000: the main spec unsharded on
+     ``backend="block"`` (path A), 32 blocks, kernel 3;
+   - block lazy k=2000: the lazy run on ``backend="block"``, kernel 3;
+     its bank must equal the lazy run's;
+   - block sspm shards=128: the main run on ``backend="block"`` (path B,
+     the masked-row vmap path), kernel 3; its bank must equal the main
+     run's;
+   - banked sspm shards=128: ``ops.sketch_block_update_banked`` over the
+     main run's blocks, kernel 2; its bank must equal the main run's;
+   - serial sspm k=4000: ``ops.sketch_block_update_serial`` on one
+     sketch of ``capacity_for(1e-3, 2)`` counters, 8 blocks, kernel 4.
+   Every counter is set to 0 before a run and read after it: each run
+   must launch its kernel once per block and no other kernel. Each run
+   but the serial one must equal the same blocks run through the plain
+   versions on the card; each must hold the error bound of Thm 4 (SS±)
+   or Thm 2 (Lazy) against the exact frequencies, with every item above
+   the bound monitored;
+5. times: per-block ms and updates/s of each run; each kernel's ms at
+   its run's shapes beside its bound and the plain version's ms; a
+   ``torch.profiler`` window over blocks of the main, lazy, path A and
+   path B sessions (device busy share and the ops that take the device
+   time).
 
 The line before the last two is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. A summary also goes to
@@ -55,12 +75,30 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+
+KERNELS = ("sketch_update_kernel_fused", "sketch_residual_kernel_banked",
+           "sketch_residual_kernel", "sketch_update_kernel_serial")
+
+
+def reset_counts() -> None:
+    from repro_torch.kernels.sketch_update import kernel
+
+    for name in KERNELS:
+        getattr(kernel, name).launches = 0
+
+
+def read_counts() -> dict:
+    from repro_torch.kernels.sketch_update import kernel
+
+    return {name: getattr(kernel, name).launches for name in KERNELS}
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: every kernel against its plain version
 # ---------------------------------------------------------------------------
 
 def kernel_cases():
-    """(name, R, K, variant, bank state, block kind) grid of phase 3."""
+    """(name, R, K, variant, bank state, block kind) grid of kernel 1."""
     cases = []
     for v in (2, 1):
         cases += [
@@ -79,14 +117,68 @@ def kernel_cases():
     return cases
 
 
+def banked_cases():
+    """(name, R, K, variant, bank state, block kind) grid of kernel 2."""
+    cases = []
+    for v in (2, 1):
+        cases += [
+            ("cold R=1 K=77", 1, 77, v, "cold", "stream"),
+            ("warm R=7 K=200", 7, 200, v, "warm", "stream"),
+            ("warm R=128 K=3125", 128, 3125, v, "warm", "stream"),
+            ("rail+ R=7 K=1000", 7, 1000, v, "rail+", "stream"),
+            ("rail- R=7 K=301", 7, 301, v, "rail-", "stream"),
+            ("warm R=128 K=3125 padding", 128, 3125, v, "warm", "padding"),
+        ]
+    return cases
+
+
+def split_cases():
+    """(name, E, k, variant, state, block kind) grid of kernel 3: E > 1
+    sketches take the rows' routed (sorted) views, E = 1 the raw block."""
+    cases = []
+    for v in (2, 1):
+        cases += [
+            ("cold E=1 k=77", 1, 77, v, "cold", "stream"),
+            ("warm E=7 k=200", 7, 200, v, "warm", "stream"),
+            ("warm E=128 k=3125", 128, 3125, v, "warm", "stream"),
+            ("rail+ E=7 k=1000", 7, 1000, v, "rail+", "stream"),
+            ("rail- E=7 k=301", 7, 301, v, "rail-", "stream"),
+            ("warm E=128 k=3125 padding", 128, 3125, v, "warm", "padding"),
+            ("warm E=1 k=3125", 1, 3125, v, "warm", "stream"),
+            ("warm E=1 k=400000", 1, 400000, v, "warm", "stream"),
+        ]
+    return cases
+
+
+SERIAL_ITEMS = 4096   # the plain serial version is a Python loop per item
+
+
+def serial_cases():
+    """(name, 1, k, variant, state, block kind) grid of kernel 4, each on
+    the first SERIAL_ITEMS items of its block."""
+    cases = []
+    for v in (2, 1):
+        cases += [
+            ("cold k=77", 1, 77, v, "cold", "stream"),
+            ("warm k=200", 1, 200, v, "warm", "stream"),
+            ("rail+ k=1000", 1, 1000, v, "rail+", "stream"),
+            ("rail- k=301", 1, 301, v, "rail-", "stream"),
+            ("warm k=3125", 1, 3125, v, "warm", "stream"),
+            ("warm k=4000", 1, 4000, v, "warm", "stream"),
+            ("warm k=200 padding", 1, 200, v, "warm", "padding"),
+        ]
+    return cases
+
+
 def _block(stream, lo, n, torch, device):
     part = stream[lo:lo + n]
     return (torch.as_tensor(part[:, 0], dtype=torch.int32, device=device),
             torch.as_tensor(part[:, 1], dtype=torch.int32, device=device))
 
 
-def case_inputs(R, K, variant, state, block, device, seed, B=65536):
-    """Bank + prepped block for one case, built with the plain version."""
+def case_block(R, K, variant, state, block, device, seed, B=65536):
+    """An (R, K) bank and a raw block for one case, built with the plain
+    version. Returns ``(bank, items, weights, router)``."""
     import torch
     from repro_torch.core.streams import bounded_stream
     from repro_torch.kernels.sketch_update.ops import block_update_with
@@ -130,39 +222,118 @@ def case_inputs(R, K, variant, state, block, device, seed, B=65536):
     it, w = _block(stream, n_warm * B, B, torch, device)
     if block == "padding":
         w = torch.zeros_like(w)
+    return SketchState(*(t.contiguous() for t in bank)), it, w, router
+
+
+def fused_case(R, K, variant, state, block, device, seed):
+    """Kernel 1's operands: the bank and its prep."""
+    from repro_torch.sketch import bank as bk
+
+    bank, it, w, router = case_block(R, K, variant, state, block, device,
+                                     seed)
     ri, rw = router.route_dense(it, w)
-    prep = bk.phase1_dense_prep(bank, ri, rw, variant)
-    return SketchState(*(t.contiguous() for t in bank)), prep
+    return list(bank), list(bk.phase1_dense_prep(bank, ri, rw, variant))
+
+
+def banked_case(R, K, variant, state, block, device, seed):
+    """Kernel 2's operands: the padded bank after ``bank.phase1_dense``."""
+    bank, it, w, router = case_block(R, K, variant, state, block, device,
+                                     seed)
+    return banked_operands(bank, *router.route_dense(it, w), variant)
+
+
+def split_case(E, k, variant, state, block, device, seed):
+    """Kernel 3's operands: E sketches' row view after ``_phase1``."""
+    bank, it, w, router = case_block(E, k, variant, state, block, device,
+                                     seed)
+    if E == 1:
+        return split_operands(bank, it[None], w[None], variant, False)
+    return split_operands(bank, *router.route_dense(it, w), variant, True)
+
+
+def serial_case(_, k, variant, state, block, device, seed):
+    """Kernel 4's operands: one sketch's row view and the block's first
+    SERIAL_ITEMS items."""
+    bank, it, w, _ = case_block(1, k, variant, state, block, device, seed)
+    return serial_operands(bank, it[:SERIAL_ITEMS], w[:SERIAL_ITEMS])
+
+
+def banked_operands(bank, row_items, row_weights, variant):
+    from repro_torch.kernels.sketch_update.ops import _pad_bank
+    from repro_torch.sketch.bank import phase1_dense
+    from repro_torch.sketch.state import SketchState
+
+    ids1, cnt1, err1, h_uids, h_net, uoff, mu, nnu, w_del = phase1_dense(
+        bank, row_items, row_weights, variant)
+    return (list(_pad_bank(SketchState(ids1, cnt1, err1))),
+            [h_uids, h_net, uoff, mu, mu + nnu, w_del])
+
+
+def split_operands(bank, items, weights, variant, assume_sorted):
+    from repro_torch.sketch.blocks import _phase1
+    from repro_torch.sketch.phases import pad_rows
+
+    ph = _phase1(bank, items, weights, variant, assume_sorted)
+    return list(pad_rows(*ph[:3])), list(ph[3:])
+
+
+def serial_operands(bank, items, weights):
+    from repro_torch.sketch.phases import pad_rows
+
+    return list(pad_rows(*(t[0] for t in bank))), [items, weights]
 
 
 def max_abs_err(want, got) -> int:
     return max(int((a.long() - b.long()).abs().max()) for a, b in zip(want, got))
 
 
-def check_kernel_cases(device) -> int:
+def check_cases(label, kernel, plain, cases, operands, device, seed0) -> int:
+    """Each case's operands through the kernel (on copies, as it updates
+    in place) and through its plain version; equal or fatal."""
     import torch
-    from repro_torch.kernels.sketch_update.kernel import sketch_update_kernel_fused
-    from repro_torch.kernels.sketch_update.ref import fused_update_ref
 
     worst = 0
-    for i, (name, R, K, v, state, block) in enumerate(kernel_cases()):
-        bank, prep = case_inputs(R, K, v, state, block, device, seed=100 + i)
-        want = fused_update_ref(*bank, *prep, variant=v)
-        got = sketch_update_kernel_fused(*(t.clone() for t in bank), *prep,
-                                         variant=v)
+    for i, (name, R, K, v, state, block) in enumerate(cases):
+        st, args = operands(R, K, v, state, block, device, seed0 + i)
+        want = plain(*st, *args, variant=v)
+        got = kernel(*(t.clone() for t in st), *args, variant=v)
         torch.cuda.synchronize()
         err = max_abs_err(want, got)
         same = all(torch.equal(a, b) for a, b in zip(want, got))
-        log(f"kernel vs plain [{name} variant={v}]: "
+        log(f"{label} vs plain [{name} variant={v}]: "
             f"{'equal' if same else 'DIFFERENT'} (max_abs_err {err})")
         if not same:
-            raise SystemExit(f"kernel disagrees with its plain version: {name}")
+            raise SystemExit(f"{label} disagrees with its plain version: "
+                             f"{name}")
         worst = max(worst, err)
     return worst
 
 
+def check_all_cases(device) -> dict:
+    from repro_torch.kernels.sketch_update import kernel, ref
+
+    grid = (
+        ("sketch_update_kernel_fused", ref.fused_update_ref, kernel_cases(),
+         fused_case, 100),
+        ("sketch_residual_kernel_banked", ref.residual_phase_banked,
+         banked_cases(), banked_case, 200),
+        ("sketch_residual_kernel", ref.residual_phase, split_cases(),
+         split_case, 300),
+        ("sketch_update_kernel_serial", ref.serial_update_ref,
+         serial_cases(), serial_case, 400),
+    )
+    worst = {}
+    for name, plain, cases, operands, seed0 in grid:
+        t0 = time.perf_counter()
+        worst[name] = check_cases(name, getattr(kernel, name), plain, cases,
+                                  operands, device, seed0)
+        log(f"{name} vs plain: {len(cases)} cases equal "
+            f"({time.perf_counter() - t0:.1f} s)")
+    return worst
+
+
 # ---------------------------------------------------------------------------
-# Phase 4: the main path
+# Phase 4: the runs
 # ---------------------------------------------------------------------------
 
 def make_stream(n_blocks, block, seed):
@@ -172,6 +343,87 @@ def make_stream(n_blocks, block, seed):
 
     n_insert = (n_blocks * block) * 2 // 3
     return bounded_stream(n_insert, 0.5, universe=1 << 24, skew=1.0, seed=seed)
+
+
+def padded_blocks(stream, block):
+    """The stream as (NB, block) int32 items and weights, the last block
+    padded with weight 0, as ``StreamSession.ingest`` pads it."""
+    import numpy as np
+
+    n = len(stream)
+    nb = -(-n // block)
+    items = np.zeros(nb * block, np.int32)
+    weights = np.zeros(nb * block, np.int32)
+    items[:n], weights[:n] = stream[:, 0], stream[:, 1]
+    return items.reshape(nb, block), weights.reshape(nb, block)
+
+
+def initial_bank(spec, device):
+    """The spec's empty state as an (R, k) bank (R = 1 when unsharded)."""
+    from repro_torch.sketch import api
+    from repro_torch.sketch.state import SketchState
+
+    state = api.make(spec, device)
+    return state.bank if spec.shards else SketchState(*(t[None] for t in state))
+
+
+def _router(spec, bank):
+    from repro_torch.sketch.bank import HashShardRouter
+
+    return HashShardRouter(bank.ids.shape[0], spec.bits)
+
+
+# Each path's kernel operands for one raw block (it, w) on the (R, k) bank.
+
+def fused_path(spec, bank, it, w):
+    from repro_torch.kernels.sketch_update.ops import prep_block
+
+    padded, prep = prep_block(bank, *_router(spec, bank).route_dense(it, w),
+                              spec.variant_id)
+    return list(padded), list(prep)
+
+
+def banked_path(spec, bank, it, w):
+    return banked_operands(bank, *_router(spec, bank).route_dense(it, w),
+                           spec.variant_id)
+
+
+def split_path(spec, bank, it, w):
+    if spec.shards:
+        return split_operands(bank, *_router(spec, bank).route_dense(it, w),
+                              spec.variant_id, True)
+    return split_operands(bank, it[None], w[None], spec.variant_id, False)
+
+
+def serial_path(spec, bank, it, w):
+    return serial_operands(bank, it, w)
+
+
+def _unpad(out, bank):
+    from repro_torch.sketch.state import SketchState
+
+    R, k = bank.ids.shape
+    return SketchState(*(t.reshape(R, -1)[:, :k] for t in out))
+
+
+def run_plain(spec, stream, block, device, path, plain):
+    """The same padded blocks through the path's framework side and the
+    kernel's plain version in place of the kernel. Returns the final
+    bank, the last block's kernel operands and the time."""
+    import torch
+
+    bank = initial_bank(spec, device)
+    items, weights = padded_blocks(stream, block)
+    t0 = time.perf_counter()
+    for b in range(len(items)):
+        it = torch.as_tensor(items[b], device=device)
+        w = torch.as_tensor(weights[b], device=device)
+        st, args = path(spec, bank, it, w)
+        if b == len(items) - 1:
+            last = (st, args)
+        bank = _unpad(plain(*st, *args, variant=spec.variant_id), bank)
+    torch.cuda.synchronize()
+    return bank, last, time.perf_counter() - t0
 
 
 def run_session(spec, stream, block, device):
@@ -187,38 +439,12 @@ def run_session(spec, stream, block, device):
     return sess, time.perf_counter() - t0
 
 
-def run_plain(spec, stream, block, device):
-    """The same padded blocks through the same route and prep, with the
-    plain version in place of the kernel. Returns the final bank, the
-    last block's kernel inputs (bank before it, prep) and the time."""
-    import numpy as np
-    import torch
-    from repro_torch.kernels.sketch_update.ops import block_update_with, prep_block
-    from repro_torch.kernels.sketch_update.ref import fused_update_ref
-    from repro_torch.sketch import api
-    from repro_torch.sketch import bank as bk
-    from repro_torch.sketch.state import SketchState
-
-    S = spec.shards or 1
-    router = bk.HashShardRouter(S, spec.bits)
-    state = api.make(spec, device)
-    bank = state.bank if spec.shards else SketchState(*(t[None] for t in state))
-    n = len(stream)
-    nb = -(-n // block)
-    items = np.zeros(nb * block, np.int32)
-    weights = np.zeros(nb * block, np.int32)
-    items[:n], weights[:n] = stream[:, 0], stream[:, 1]
-    t0 = time.perf_counter()
-    for b in range(nb):
-        it = torch.as_tensor(items[b * block:(b + 1) * block], device=device)
-        w = torch.as_tensor(weights[b * block:(b + 1) * block], device=device)
-        ri, rw = router.route_dense(it, w)
-        if b == nb - 1:
-            last = prep_block(bank, ri, rw, spec.variant_id)
-        bank = block_update_with(fused_update_ref, bank, ri, rw,
-                                 spec.variant_id)
-    torch.cuda.synchronize()
-    return bank, last, time.perf_counter() - t0
+def check_launches(label, counts, name, blocks) -> int:
+    others = {k: v for k, v in counts.items() if k != name and v}
+    if counts[name] != blocks or blocks == 0 or others:
+        raise SystemExit(f"{label}: {counts[name]} launches of {name} for "
+                         f"{blocks} blocks; other kernels launched: {others}")
+    return counts[name]
 
 
 def check_truth(spec, bank, stream, device, factor):
@@ -265,39 +491,128 @@ def check_truth(spec, bank, stream, device, factor):
     return float((worst / bound).max()), int(hot.sum())
 
 
-def time_kernel(last, variant, reps=20, plain_reps=3):
-    """Kernel and plain-version ms on the main path's last block, each
-    launch on its own copy of the bank (the kernel updates in place)."""
+def _same(a, b) -> bool:
     import torch
-    from repro_torch.kernels.sketch_update.kernel import sketch_update_kernel_fused
-    from repro_torch.kernels.sketch_update.ref import fused_update_ref
 
-    bank, prep = last
-    copies = [[t.clone() for t in bank] for _ in range(reps + 1)]
-    sketch_update_kernel_fused(*copies[0], *prep, variant=variant)  # warm-up
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def run_path(label, spec, stream, block, device, factor, kernel, path, plain):
+    """One session run: ``StreamSession.ingest`` of the stream, its
+    launches of ``kernel`` (one per block, no other kernel), equality with
+    the plain version's run, the error bound, and the read path."""
+    import torch
+
+    reset_counts()
+    sess, secs = run_session(spec, stream, block, device)
+    launches = check_launches(label, read_counts(), kernel,
+                              sess.blocks_ingested)
+    bank, last, plain_secs = run_plain(spec, stream, block, device, path,
+                                       plain)
+    live = sess.state.bank if spec.shards else type(bank)(
+        *(t[None] for t in sess.state))
+    if not _same(live, bank):
+        raise SystemExit(f"{label}: the session's bank differs from the "
+                         f"plain version's")
+    ratio, n_hot = check_truth(spec, live, stream, device, factor)
+    # the user's read path agrees with the bank
+    hot_ids, hot_counts = sess.topk(16)
+    if not torch.equal(sess.query_many(hot_ids.cpu().numpy()), hot_counts):
+        raise SystemExit(f"{label}: query_many disagrees with topk")
+    out = dict(label=label, kernel=kernel, blocks=sess.blocks_ingested,
+               launches=launches, events=len(stream), rows=live.ids.shape[0],
+               k_per_row=live.ids.shape[1],
+               ms_per_block=secs * 1e3 / sess.blocks_ingested,
+               updates_per_s=len(stream) / secs,
+               plain_ms_per_block=plain_secs * 1e3 / sess.blocks_ingested,
+               worst_err_over_bound=ratio, items_above_bound=n_hot)
+    log(f"{label}: {json.dumps(out)}")
+    return out, last, live
+
+
+def run_ops_path(label, spec, stream, block, device, factor, kernel, path,
+                 update, plain=None):
+    """One run of an ``ops`` entry point, ``update(bank, it, w)``, over
+    the padded blocks, staged on the card before the timed loop; checked
+    as ``run_path`` checks a session run (the plain run only where
+    ``plain`` is given)."""
+    import torch
+
+    bank = initial_bank(spec, device)
+    items, weights = padded_blocks(stream, block)
+    blocks = [(torch.as_tensor(i, device=device),
+               torch.as_tensor(w, device=device))
+              for i, w in zip(items, weights)]
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for it, w in blocks:
+        before_last = bank
+        bank = update(bank, it, w)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    last = path(spec, before_last, *blocks[-1])
+    launches = check_launches(label, read_counts(), kernel, len(blocks))
+    out = dict(label=label, kernel=kernel, blocks=len(blocks),
+               launches=launches, events=len(stream), rows=bank.ids.shape[0],
+               k_per_row=bank.ids.shape[1],
+               ms_per_block=secs * 1e3 / len(blocks),
+               updates_per_s=len(stream) / secs)
+    if plain is not None:
+        want, _, plain_secs = run_plain(spec, stream, block, device, path,
+                                        plain)
+        if not _same(bank, want):
+            raise SystemExit(f"{label}: the bank differs from the plain "
+                             f"version's")
+        out["plain_ms_per_block"] = plain_secs * 1e3 / len(blocks)
+    out["worst_err_over_bound"], out["items_above_bound"] = check_truth(
+        spec, bank, stream, device, factor)
+    log(f"{label}: {json.dumps(out)}")
+    return out, last, bank
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: kernel times and their bounds
+# ---------------------------------------------------------------------------
+
+def time_kernel(kernel, plain, last, variant, bound, reps, plain_reps):
+    """Kernel and plain-version ms on a run's last block, each launch on
+    its own copy of the state (the kernel updates in place), beside the
+    bound ``bound(state, args, out, variant) -> (bytes, ops)`` gives."""
+    import torch
+
+    st, args = last
+    copies = [[t.clone() for t in st] for _ in range(reps + 1)]
+    first = kernel(*copies[0], *args, variant=variant)  # warm-up
     start, end = torch.cuda.Event(True), torch.cuda.Event(True)
     torch.cuda.synchronize()
     start.record()
     for c in copies[1:]:
-        sketch_update_kernel_fused(*c, *prep, variant=variant)
+        kernel(*c, *args, variant=variant)
     end.record()
     torch.cuda.synchronize()
     ms = start.elapsed_time(end) / reps
-    want = fused_update_ref(*bank, *prep, variant=variant)  # warm-up
+    if plain_reps > 1:
+        plain(*st, *args, variant=variant)  # warm-up
     torch.cuda.synchronize()
     start.record()
     for _ in range(plain_reps):
-        fused_update_ref(*bank, *prep, variant=variant)
+        want = plain(*st, *args, variant=variant)
     end.record()
     torch.cuda.synchronize()
     plain_ms = start.elapsed_time(end) / plain_reps
-    nbytes = least_bytes(bank, prep, want, variant)
-    nops = least_ops(bank, prep)
+    if not _same(want, first):
+        raise SystemExit("a timed kernel launch differs from its plain version")
+    nbytes, nops = bound(st, args, want, variant)
+    by_bytes = nbytes / HBM_BYTES_PER_S >= nops / INT32_OPS_PER_S
     bound_s = max(nbytes / HBM_BYTES_PER_S, nops / INT32_OPS_PER_S)
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_s * 1e3,
-                bound_by=("bytes" if nbytes / HBM_BYTES_PER_S >=
-                          nops / INT32_OPS_PER_S else "operations"),
+                bound_by="bytes" if by_bytes else "operations",
                 bytes=nbytes, ops=nops)
+
+
+def fused_bound(bank, prep, out, variant):
+    return least_bytes(bank, prep, out, variant), least_ops(bank, prep)
 
 
 def least_bytes(bank, prep, out, variant) -> int:
@@ -310,7 +625,7 @@ def least_bytes(bank, prep, out, variant) -> int:
     errors that the update changes, written once; the grouped (uid, net)
     entries the rows use and the four per-row scalars, read once."""
     delta, h_uids, h_net, i0, mu, nnu, w_del = prep
-    R, K = bank.ids.shape
+    R, K = bank[0].shape
     changed = [a != b for a, b in zip(bank, out)]
     scans = (mu + nnu) > 0
     counts_read = (K * int(scans.sum())
@@ -332,48 +647,70 @@ def least_ops(bank, prep) -> int:
     import torch
 
     delta, h_uids, h_net, i0, mu, nnu, w_del = prep
-    R, K = bank.ids.shape
+    R, K = bank[0].shape
     fill = mu[mu > 0].double()
     probes = int((torch.ceil(torch.log2(fill + 1)) + 1).sum())
     passes = R + int((i0 > 0).sum()) + probes + int(nnu.long().sum())
     return K * passes
 
 
-def run_path(label, spec, n_blocks, block, seed, device, factor):
-    import torch
-    from repro_torch.kernels.sketch_update import kernel
+def _spread_slots(st, out, variant):
+    """Per row: the slots the SS± spread drained (same id, smaller error)."""
+    if variant != 2:
+        return st[0].new_zeros(st[0].shape[0]).long()
+    hit = (out[0] == st[0]) & (out[2] < st[2])
+    return hit.reshape(hit.shape[0], -1).sum(dim=1)
 
-    stream = make_stream(n_blocks, block, seed)
-    kernel.sketch_update_kernel_fused.launches = 0
-    sess, secs = run_session(spec, stream, block, device)
-    launches = kernel.sketch_update_kernel_fused.launches
-    if launches != sess.blocks_ingested or launches == 0:
-        raise SystemExit(f"{label}: {launches} kernel launches for "
-                         f"{sess.blocks_ingested} blocks")
-    bank, last, plain_secs = run_plain(spec, stream, block, device)
-    live = sess.state.bank if spec.shards else type(bank)(
-        *(t[None] for t in sess.state))
-    if not all(torch.equal(a, b) for a, b in zip(live, bank)):
-        raise SystemExit(f"{label}: the session's bank differs from the "
-                         f"plain version's")
-    ratio, n_hot = check_truth(spec, live, stream, device, factor)
-    # the user's read path agrees with the bank
-    hot_ids, hot_counts = sess.topk(16)
-    if not torch.equal(sess.query_many(hot_ids.cpu().numpy()), hot_counts):
-        raise SystemExit(f"{label}: query_many disagrees with topk")
-    out = dict(label=label, blocks=sess.blocks_ingested, launches=launches,
-               events=len(stream), rows=live.ids.shape[0],
-               k_per_row=live.ids.shape[1],
-               ms_per_block=secs * 1e3 / sess.blocks_ingested,
-               updates_per_s=len(stream) / secs,
-               plain_ms_per_block=plain_secs * 1e3 / sess.blocks_ingested,
-               worst_err_over_bound=ratio, items_above_bound=n_hot)
-    log(f"{label}: {json.dumps(out)}")
-    return out, last
+
+def banked_bound(st, args, out, variant):
+    """Kernel 2 at the least: a row's counts in full where it evicts, its
+    errors in full where it spreads; each changed element written once;
+    the (uid, net) entries used and four scalars per row read once. One
+    operation per slot per eviction and per drained slot (each finds a
+    row minimum or maximum)."""
+    h_uids, h_net, uoff, start, n_ins, w_del = args
+    R, K = st[0].shape
+    ev = (n_ins - start).clamp(min=0).long()
+    spread = _spread_slots(st, out, variant)
+    writes = sum(int((a != b).sum()) for a, b in zip(st, out))
+    reads = K * int((ev > 0).sum()) + K * int((spread > 0).sum())
+    nbytes = 4 * (reads + writes + 2 * int(ev.sum()) + 4 * R)
+    return nbytes, K * int((ev + spread).sum())
+
+
+def split_bound(st, args, out, variant):
+    """Kernel 3 at the least: a sketch's ids and counts in full where it
+    evicts (the tournament needs its EMPTY slots and minima), its errors
+    in full where it spreads; each changed element written once; the
+    (uid, net) entries used and three scalars per sketch read once. One
+    operation per slot of each sketch with work, then R + 128 per
+    eviction and per drained slot (a row pick and a column pick)."""
+    r_uids, r_net, start, n_ins, w_del = args
+    E, R, lanes = st[0].shape
+    n = R * lanes
+    ev = (n_ins - start).clamp(min=0).long()
+    spread = _spread_slots(st, out, variant)
+    writes = sum(int((a != b).sum()) for a, b in zip(st, out))
+    reads = 2 * n * int((ev > 0).sum()) + n * int((spread > 0).sum())
+    nbytes = 4 * (reads + writes + 2 * int(ev.sum()) + 3 * E)
+    nops = n * int(((ev > 0) | (spread > 0)).sum()) \
+        + (R + lanes) * int((ev + spread).sum())
+    return nbytes, nops
+
+
+def serial_bound(st, args, out, variant):
+    """Kernel 4 at the least: the sketch read once, each changed element
+    written once, the items and weights read once; every update of
+    nonzero weight looks at every slot once."""
+    items, weights = args
+    n = st[0].numel()
+    writes = sum(int((a != b).sum()) for a, b in zip(st, out))
+    nbytes = 4 * (3 * n + writes + 2 * items.numel())
+    return nbytes, n * int((weights != 0).sum())
 
 
 def profile_blocks(spec, block, n_blocks, seed, device):
-    """Profile ``n_blocks`` main-path blocks (after one warm-up block):
+    """Profile ``n_blocks`` session blocks (after one warm-up block):
     wall and device-busy ms per block and the ops by device time."""
     import numpy as np
     import torch
@@ -381,10 +718,7 @@ def profile_blocks(spec, block, n_blocks, seed, device):
     from repro_torch.sketch.session import StreamSession
 
     stream = make_stream(n_blocks + 1, block, seed)
-    items = np.zeros((n_blocks + 1) * block, np.int32)
-    weights = np.zeros_like(items)
-    items[:len(stream)], weights[:len(stream)] = stream[:, 0], stream[:, 1]
-    items, weights = items.reshape(-1, block), weights.reshape(-1, block)
+    items, weights = padded_blocks(stream, block)
     sess = StreamSession(spec, block=block, device=device)
     sess.ingest_block(items[0], weights[0])
     torch.cuda.synchronize()
@@ -426,61 +760,137 @@ def gpu_line() -> str:
 
 
 def main() -> int:
+    import dataclasses
+
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one",
               file=sys.stderr)
         return 1
-    from repro_torch.kernels.sketch_update.kernel import entry_point
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.sketch_update import kernel, ops, ref
     from repro_torch.sketch.api import SketchSpec
+    from repro_torch.sketch.state import SketchState
 
     device = torch.device("cuda")
     card = gpu_line()
     log(f"device: {card}")
     t0 = time.perf_counter()
-    entry_point()
-    log(f"build: {time.perf_counter() - t0:.1f} s")
+    _build.build(kernel.SOURCES)
+    log(f"build: {time.perf_counter() - t0:.1f} s "
+        f"({len(kernel.SOURCES)} sources in parallel)")
 
-    t0 = time.perf_counter()
-    worst = check_kernel_cases(device)
-    log(f"kernel vs plain: {len(kernel_cases())} cases equal "
-        f"({time.perf_counter() - t0:.1f} s)")
+    worst = check_all_cases(device)
 
+    B = 65536
     main_spec = SketchSpec(kind="frequency", eps=1e-5, alpha=2.0,
                            variant="sspm", shards=128, bits=24,
                            backend="kernel")
-    main_run, last = run_path("main sspm shards=128", main_spec, 64, 65536,
-                              seed=1, device=device, factor=2.0)
     lazy_spec = SketchSpec(kind="frequency", eps=1e-3, alpha=2.0,
                            variant="lazy", bits=24, backend="kernel")
-    lazy_run, _ = run_path("lazy k=2000", lazy_spec, 16, 65536, seed=2,
-                           device=device, factor=1.0)
+    a_spec = dataclasses.replace(main_spec, shards=None, backend="block")
+    b_spec = dataclasses.replace(main_spec, backend="block")
+    lazy_block_spec = dataclasses.replace(lazy_spec, backend="block")
+    serial_spec = SketchSpec(kind="frequency", eps=1e-3, alpha=2.0,
+                             variant="sspm", bits=24)
+    main_stream = make_stream(64, B, seed=1)
+    lazy_stream = make_stream(16, B, seed=2)
 
-    times = time_kernel(last, main_spec.variant_id)
-    log(f"sketch_update_kernel_fused at the main path's shapes: "
-        f"{json.dumps(times)}")
-    prof = {label: profile_blocks(spec, 65536, 8, seed=3, device=device)
-            for label, spec in (("main", main_spec), ("lazy", lazy_spec))}
-    log(f"profile of the main path: {json.dumps(prof)}")
+    runs, last = {}, {}
+    fused, split = "sketch_update_kernel_fused", "sketch_residual_kernel"
+    runs["main"], last["main"], main_bank = run_path(
+        "main sspm shards=128", main_spec, main_stream, B, device, 2.0,
+        fused, fused_path, ref.fused_update_ref)
+    runs["lazy"], _, lazy_bank = run_path(
+        "lazy k=2000", lazy_spec, lazy_stream, B, device, 1.0, fused,
+        fused_path, ref.fused_update_ref)
+    runs["path_a"], last["path_a"], _ = run_path(
+        "block sspm k=400000", a_spec, make_stream(32, B, seed=4), B, device,
+        2.0, split, split_path, ref.residual_phase)
+    runs["lazy_block"], _, bank = run_path(
+        "block lazy k=2000", lazy_block_spec, lazy_stream, B, device, 1.0,
+        split, split_path, ref.residual_phase)
+    if not _same(bank, lazy_bank):
+        raise SystemExit("the block backend's lazy bank differs from the "
+                         "kernel backend's")
+    runs["path_b"], last["path_b"], bank = run_path(
+        "block sspm shards=128", b_spec, main_stream, B, device, 2.0, split,
+        split_path, ref.residual_phase)
+    if not _same(bank, main_bank):
+        raise SystemExit("path B's bank differs from the kernel backend's")
+
+    def banked(bank, it, w):
+        return ops.sketch_block_update_banked(
+            bank, *_router(main_spec, bank).route_dense(it, w), 2)
+
+    runs["banked"], last["banked"], bank = run_ops_path(
+        "banked sspm shards=128", main_spec, main_stream, B, device, 2.0,
+        "sketch_residual_kernel_banked", banked_path, banked,
+        ref.residual_phase_banked)
+    if not _same(bank, main_bank):
+        raise SystemExit("the banked split path's bank differs from the "
+                         "fused path's")
+
+    def serial(bank, it, w):
+        out = ops.sketch_block_update_serial(
+            SketchState(*(t[0] for t in bank)), it, w, 2)
+        return SketchState(*(t[None] for t in out))
+
+    runs["serial"], last["serial"], _ = run_ops_path(
+        "serial sspm k=4000", serial_spec, make_stream(8, B, seed=5), B,
+        device, 2.0, "sketch_update_kernel_serial", serial_path, serial)
+
+    times = {
+        fused: time_kernel(kernel.sketch_update_kernel_fused,
+                           ref.fused_update_ref, last["main"], 2,
+                           fused_bound, 20, 3),
+        "sketch_residual_kernel_banked": time_kernel(
+            kernel.sketch_residual_kernel_banked, ref.residual_phase_banked,
+            last["banked"], 2, banked_bound, 20, 3),
+        split: time_kernel(kernel.sketch_residual_kernel,
+                           ref.residual_phase, last["path_a"], 2,
+                           split_bound, 10, 1),
+        "sketch_update_kernel_serial": time_kernel(
+            kernel.sketch_update_kernel_serial, ref.serial_update_ref,
+            last["serial"], 2, serial_bound, 3, 1),
+    }
+    times_b = time_kernel(kernel.sketch_residual_kernel, ref.residual_phase,
+                          last["path_b"], 2, split_bound, 10, 1)
+    for name, t in times.items():
+        log(f"{name} at its run's shapes: {json.dumps(t)}")
+    log(f"sketch_residual_kernel at path B's shapes: {json.dumps(times_b)}")
+    prof = {label: profile_blocks(spec, B, 8, seed=3, device=device)
+            for label, spec in (("main", main_spec), ("lazy", lazy_spec),
+                                ("path_a", a_spec), ("path_b", b_spec))}
+    log(f"profile of the sessions: {json.dumps(prof)}")
+
+    replaces = {fused: 144, "sketch_residual_kernel_banked": 278,
+                split: 220, "sketch_update_kernel_serial": 396}
+    source = {fused: "fused_update.cu",
+              "sketch_residual_kernel_banked": "fused_update.cu",
+              split: "residual.cu",
+              "sketch_update_kernel_serial": "serial_update.cu"}
     kernels = [{
-        "name": "sketch_update_kernel_fused",
+        "name": name,
         "route": "cuda",
-        "source": "src/repro_torch/kernels/sketch_update/csrc/fused_update.cu",
-        "replaces": "src/repro/kernels/sketch_update/kernel.py:144",
-        "launches": main_run["launches"] + lazy_run["launches"],
-        "max_abs_err": worst,
-        "ms": times["ms"],
-        "plain_ms": times["plain_ms"],
-        "bound_ms": times["bound_ms"],
-        "bound_by": times["bound_by"],
-        "library_ms": None,
-    }]
+        "source": f"src/repro_torch/kernels/sketch_update/csrc/{source[name]}",
+        "replaces": f"src/repro/kernels/sketch_update/kernel.py:{replaces[name]}",
+        "launches": sum(r["launches"] for r in runs.values()
+                        if r["kernel"] == name),
+        "max_abs_err": worst[name],
+        "ms": times[name]["ms"],
+        "plain_ms": times[name]["plain_ms"],
+        "bound_ms": times[name]["bound_ms"],
+        "bound_by": times[name]["bound_by"],
+        "library_ms": None,   # no PyTorch call computes these chains
+    } for name in KERNELS]
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
-        card=card, runs=[main_run, lazy_run], kernel_times=times,
-        profile=prof, kernels=kernels), indent=1))
+        card=card, runs=runs, kernel_times=times,
+        residual_times_path_b=times_b, profile=prof, kernels=kernels),
+        indent=1))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

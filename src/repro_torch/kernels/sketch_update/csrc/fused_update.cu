@@ -11,6 +11,12 @@
 //   5. (SS±, variant 2) the unmonitored deletion weight drains greedily
 //      from the maximum-error slots.
 //
+// The same file holds kernel 2, residual_banked_kernel: steps 4-5 alone,
+// for the split path whose phase 1 ran in torch. It replaces the Pallas
+// TPU kernel sketch_residual_kernel_banked (kernel.py:278, body
+// _residual_kernel_banked at :258 -> bank.residual_phase_banked). Both
+// kernels run steps 4-5 through one device function, evict_then_spread.
+//
 // Rows never read each other, so the TPU grid over row tiles and its
 // lockstep "frozen lane" masks become independent CTAs, each running its
 // own row's trip counts. The row stays in global memory (L2-resident), so
@@ -25,44 +31,14 @@
 // thread keeps the running min/max of its own slots so a trip rescans only
 // the one slot's owner.
 //
-// Integer semantics follow the reference exactly: sat_add clamps at
-// +-(2^31-1); sums that JAX takes in int32 (and may wrap) are taken in
-// unsigned 32-bit here, where wrapping is defined.
-#include <cuda_runtime.h>
+// Integer semantics and the reductions are common.cuh's.
+#include "common.cuh"
 
 namespace {
 
-constexpr int kIntMax = 2147483647;
-constexpr int kIntMin = -2147483647 - 1;
 // threads per CTA: one pass covers 256 slots of the row (13 passes at the
 // main path's K = 3200). Chosen, not tuned: no other width was timed.
 constexpr int kThreads = 256;
-constexpr int kMaxWarps = kThreads / 32;
-constexpr unsigned kFull = 0xffffffffu;
-
-struct Scratch {
-  int val[kMaxWarps];
-  int idx[kMaxWarps];
-  unsigned long long scan[kMaxWarps];
-};
-
-__device__ __forceinline__ int sat_add(int a, int b) {
-  const int lo = -kIntMax - min(a, 0);
-  const int hi = kIntMax - max(a, 0);
-  return a + min(max(b, lo), hi);
-}
-
-__device__ __forceinline__ int wrap_add(int a, int b) {
-  return static_cast<int>(static_cast<unsigned>(a) + static_cast<unsigned>(b));
-}
-
-__device__ __forceinline__ int wrap_sub(int a, int b) {
-  return static_cast<int>(static_cast<unsigned>(a) - static_cast<unsigned>(b));
-}
-
-__device__ __forceinline__ int clip(int x, int lo, int hi) {
-  return min(max(x, lo), hi);
-}
 
 // x // 2 with floor rounding (jnp's //), for x >= -(2^31-1)
 __device__ __forceinline__ int floor_half(int x) {
@@ -75,66 +51,55 @@ __device__ __forceinline__ unsigned n_leq(int c, int x, int m) {
   return static_cast<unsigned>(clip(sat_add(x, -c), 0, m)) + 1u;
 }
 
-__device__ __forceinline__ void take_min(int& v, int& i, int v2, int i2) {
-  if (v2 < v || (v2 == v && i2 < i)) { v = v2; i = i2; }
-}
-
-__device__ __forceinline__ void take_max(int& v, int& i, int v2, int i2) {
-  if (v2 > v || (v2 == v && i2 < i)) { v = v2; i = i2; }
-}
-
-// Block-wide wrapping sum; every thread gets the total.
-__device__ unsigned block_sum(unsigned v, Scratch& sh) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  const int warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) sh.val[warp] = static_cast<int>(v);
-  __syncthreads();
-  unsigned t = 0;
-  for (int w = 0; w < nw; ++w) t += static_cast<unsigned>(sh.val[w]);
-  return t;
-}
-
-// Block-wide (value, index) argmin or argmax, lowest index among equals.
-template <bool kMax>
-__device__ void block_arg(int& v, int& i, Scratch& sh) {
-  for (int o = 16; o > 0; o >>= 1) {
-    const int v2 = __shfl_xor_sync(kFull, v, o);
-    const int i2 = __shfl_xor_sync(kFull, i, o);
-    if (kMax) take_max(v, i, v2, i2); else take_min(v, i, v2, i2);
+// Steps 4-5 on one row of K slots: the inserts i in [i_begin, i_end),
+// read at h[clip(off + i, 0, g_last)], each evict the minimum-count slot;
+// then (SS±) the deletion weight rem drains from the maximum-error slots.
+// The fused kernel runs it after steps 1-3; residual_banked_kernel alone.
+__device__ void evict_then_spread(int* __restrict__ rid, int* __restrict__ rc,
+                                  int* __restrict__ re, int K,
+                                  const int* __restrict__ h_uids,
+                                  const int* __restrict__ h_net, int off,
+                                  int i_begin, int i_end, int g_last, int rem,
+                                  int variant, Scratch& sh) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  // 4. non-unit inserts: evict the minimum count
+  if (i_begin < i_end) {
+    int lv = kIntMax, li = kIntMax;
+    for (int j = tid; j < K; j += nt) take_min(lv, li, rc[j], j);
+    for (int i = i_begin; i < i_end; ++i) {
+      int v = lv, sel = li;
+      block_arg<false>(v, sel, sh);
+      if (sel % nt == tid) {
+        const int g = clip(wrap_add(off, i), 0, g_last);
+        rid[sel] = h_uids[g];
+        rc[sel] = sat_add(v, h_net[g]);
+        re[sel] = v;
+        lv = kIntMax;
+        li = kIntMax;
+        for (int j = tid; j < K; j += nt) take_min(lv, li, rc[j], j);
+      }
+    }
   }
-  const int warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) { sh.val[warp] = v; sh.idx[warp] = i; }
-  __syncthreads();
-  v = sh.val[0];
-  i = sh.idx[0];
-  for (int w = 1; w < nw; ++w) {
-    if (kMax) take_max(v, i, sh.val[w], sh.idx[w]);
-    else take_min(v, i, sh.val[w], sh.idx[w]);
-  }
-}
 
-// Block-wide inclusive scan of one value per thread; *total = block sum.
-__device__ unsigned long long block_scan(unsigned long long x,
-                                         unsigned long long* total,
-                                         Scratch& sh) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
-  for (int o = 1; o < 32; o <<= 1) {
-    const unsigned long long y = __shfl_up_sync(kFull, x, o);
-    if (lane >= o) x += y;
+  // 5. SS± only: drain rem from the maximum-error slots
+  if (variant != 1 && rem > 0) {
+    int lv = kIntMin, li = kIntMax;
+    for (int j = tid; j < K; j += nt) take_max(lv, li, re[j], j);
+    for (;;) {
+      int v = lv, sel = li;
+      block_arg<true>(v, sel, sh);
+      if (!(rem > 0 && v > 0)) break;
+      const int d = min(rem, v);
+      if (sel % nt == tid) {
+        rc[sel] = sat_add(rc[sel], -d);
+        re[sel] = sat_add(re[sel], -d);
+        lv = kIntMin;
+        li = kIntMax;
+        for (int j = tid; j < K; j += nt) take_max(lv, li, re[j], j);
+      }
+      rem = sat_add(rem, -d);
+    }
   }
-  __syncthreads();
-  if (lane == 31) sh.scan[warp] = x;
-  __syncthreads();
-  unsigned long long before = 0, all = 0;
-  for (int w = 0; w < nw; ++w) {
-    if (w < warp) before += sh.scan[w];
-    all += sh.scan[w];
-  }
-  *total = all;
-  return x + before;
 }
 
 __global__ void __launch_bounds__(kThreads) fused_update_kernel(int* __restrict__ ids,
@@ -243,45 +208,26 @@ __global__ void __launch_bounds__(kThreads) fused_update_kernel(int* __restrict_
     }
   }
 
-  // 4. non-unit inserts [mu, mu + nnu): evict the minimum count
-  if (nn > 0) {
-    int lv = kIntMax, li = kIntMax;
-    for (int j = tid; j < K; j += nt) take_min(lv, li, rc[j], j);
-    for (int i = m; i < m + nn; ++i) {
-      int v = lv, sel = li;
-      block_arg<false>(v, sel, sh);
-      if (sel % nt == tid) {
-        const int g = clip(row0 + i, 0, g_last);
-        rid[sel] = h_uids[g];
-        rc[sel] = sat_add(v, h_net[g]);
-        re[sel] = v;
-        lv = kIntMax;
-        li = kIntMax;
-        for (int j = tid; j < K; j += nt) take_min(lv, li, rc[j], j);
-      }
-    }
-  }
+  // 4-5. non-unit inserts [mu, mu + nnu), then the SS± spread of w_del
+  evict_then_spread(rid, rc, re, K, h_uids, h_net, row0, m, m + nn, g_last,
+                    w_del[r], variant, sh);
+}
 
-  // 5. SS± only: drain w_del from the maximum-error slots
-  int rem = w_del[r];
-  if (variant != 1 && rem > 0) {
-    int lv = kIntMin, li = kIntMax;
-    for (int j = tid; j < K; j += nt) take_max(lv, li, re[j], j);
-    for (;;) {
-      int v = lv, sel = li;
-      block_arg<true>(v, sel, sh);
-      if (!(rem > 0 && v > 0)) break;
-      const int d = min(rem, v);
-      if (sel % nt == tid) {
-        rc[sel] = sat_add(rc[sel], -d);
-        re[sel] = sat_add(re[sel], -d);
-        lv = kIntMin;
-        li = kIntMax;
-        for (int j = tid; j < K; j += nt) take_max(lv, li, re[j], j);
-      }
-      rem = sat_add(rem, -d);
-    }
-  }
+// Kernel 2: steps 4-5 alone on a bank whose phase 1 ran outside (the split
+// path). Row r reads the flat (G,) layout at uoff[r] + i for i in
+// [start[r], n_ins[r]), then drains w_del[r].
+__global__ void __launch_bounds__(kThreads) residual_banked_kernel(
+    int* __restrict__ ids, int* __restrict__ counts, int* __restrict__ errors,
+    const int* __restrict__ h_uids, const int* __restrict__ h_net,
+    const int* __restrict__ uoff, const int* __restrict__ start,
+    const int* __restrict__ n_ins, const int* __restrict__ w_del, int K,
+    int G, int variant) {
+  __shared__ Scratch sh;
+  const int r = blockIdx.x;
+  const size_t base = static_cast<size_t>(r) * K;
+  evict_then_spread(ids + base, counts + base, errors + base, K, h_uids,
+                    h_net, uoff[r], start[r], n_ins[r], G - 1, w_del[r],
+                    variant, sh);
 }
 
 }  // namespace
@@ -301,5 +247,22 @@ extern "C" int sketch_fused_update(void* ids, void* counts, void* errors,
       static_cast<const int*>(i0), static_cast<const int*>(mu),
       static_cast<const int*>(nnu), static_cast<const int*>(w_del), K, B,
       variant);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// C entry point of kernel 2 (bound with ctypes); as above.
+extern "C" int sketch_residual_banked(void* ids, void* counts, void* errors,
+                                      const void* h_uids, const void* h_net,
+                                      const void* uoff, const void* start,
+                                      const void* n_ins, const void* w_del,
+                                      int R, int K, int G, int variant,
+                                      void* stream) {
+  residual_banked_kernel<<<R, kThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<int*>(ids), static_cast<int*>(counts),
+      static_cast<int*>(errors), static_cast<const int*>(h_uids),
+      static_cast<const int*>(h_net), static_cast<const int*>(uoff),
+      static_cast<const int*>(start), static_cast<const int*>(n_ins),
+      static_cast<const int*>(w_del), K, G, variant);
   return static_cast<int>(cudaGetLastError());
 }

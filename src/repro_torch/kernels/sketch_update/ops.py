@@ -1,22 +1,39 @@
-"""The fused bank update as the sketch layers call it.
+"""The sketch_update kernels as the sketch layers call them.
 
-Counterpart of ``repro/kernels/sketch_update/ops.py``
-(``_pad_bank`` at :68, ``sketch_block_update_fused`` at :147): pad the
-bank to a LANES multiple with BLOCKED slots (the reference kernel sees
-the padded bank, and at the INT_MAX rail the water-fill counts BLOCKED
-slots among its candidates, so the port pads the same way), run the
-framework-side prep, then the
-per-cell update: the CUDA kernel for CUDA tensors, its plain PyTorch
-version for CPU tensors.
+Counterpart of ``repro/kernels/sketch_update/ops.py``. Each entry point
+shapes the state for its kernel, runs the framework-side phases, then
+the kernel for CUDA tensors or its plain PyTorch version (``ref.py``)
+for CPU tensors, and slices the padding off. The caller's state is
+never modified: the kernels update fresh padded copies in place.
+
+- ``sketch_block_update_fused`` (reference :147): pad the bank to a
+  LANES multiple with BLOCKED slots (the reference kernel sees the padded
+  bank, and at the INT_MAX rail the water-fill counts BLOCKED slots
+  among its candidates, so the port pads the same way), the prep
+  ``bank.phase1_dense_prep``, then the fused per-cell update;
+- ``sketch_block_update_banked`` (:107): ``bank.phase1_dense`` in torch,
+  then one banked phase-2 launch over the padded bank (the split path);
+- ``sketch_block_update_batched`` (:247) and ``sketch_block_update``
+  (:80): ``blocks._phase1`` on E stacked sketches, their (E, R, LANES)
+  row view, then one phase-2 launch for all E (the ``block`` backend);
+- ``sketch_block_update_serial`` (:268): one launch of the serial
+  baseline over the raw block.
+
+The ``*_with`` functions take the update to run (a kernel wrapper or
+its plain version), so ``chip_smoke.py`` can run both on the card.
 """
 from __future__ import annotations
 
 import torch
 
-from ...sketch.bank import phase1_dense_prep
+from ...sketch.bank import phase1_dense, phase1_dense_prep
+from ...sketch.blocks import _phase1
+from ...sketch.phases import pad_rows
 from ...sketch.state import BLOCKED, I32, INT_MAX, LANES, SketchState
-from .kernel import sketch_update_kernel_fused
-from .ref import fused_update_ref
+from .kernel import (sketch_residual_kernel, sketch_residual_kernel_banked,
+                     sketch_update_kernel_fused, sketch_update_kernel_serial)
+from .ref import (fused_update_ref, residual_phase, residual_phase_banked,
+                  serial_update_ref)
 
 
 def _pad_bank(bank: SketchState) -> SketchState:
@@ -45,10 +62,8 @@ def prep_block(bank: SketchState, row_items: torch.Tensor,
 
 def block_update_with(update, bank: SketchState, row_items: torch.Tensor,
                       row_weights: torch.Tensor, variant: int) -> SketchState:
-    """Pad, prep, ``update`` (the kernel wrapper or ``fused_update_ref``),
-    then slice the padding off. The caller's bank is not modified: the
-    update is a function of the bank, as in the reference, and the padded
-    copy is the one the kernel updates in place."""
+    """Pad, prep, ``update`` (the fused kernel or ``fused_update_ref``),
+    then slice the padding off."""
     k = bank.ids.shape[1]
     padded, prep = prep_block(bank, row_items, row_weights, variant)
     ids, counts, errors = update(*padded, *prep, variant=variant)
@@ -69,4 +84,89 @@ def sketch_block_update_fused(bank: SketchState, row_items: torch.Tensor,
     return block_update_with(update, bank, row_items, row_weights, variant)
 
 
-__all__ = ["prep_block", "block_update_with", "sketch_block_update_fused"]
+def banked_update_with(residual, bank: SketchState, row_items: torch.Tensor,
+                       row_weights: torch.Tensor, variant: int) -> SketchState:
+    """``bank.phase1_dense``, pad, ``residual`` (the banked kernel or
+    ``residual_phase_banked``), then slice the padding off."""
+    k = bank.ids.shape[1]
+    ids1, cnt1, err1, h_uids, h_net, uoff, mu, nnu, w_del = phase1_dense(
+        bank, row_items, row_weights, variant)
+    padded = _pad_bank(SketchState(ids1, cnt1, err1))
+    ids, counts, errors = residual(*padded, h_uids, h_net, uoff, mu,
+                                   mu + nnu, w_del, variant=variant)
+    return SketchState(ids[:, :k], counts[:, :k], errors[:, :k])
+
+
+def sketch_block_update_banked(bank: SketchState, row_items: torch.Tensor,
+                               row_weights: torch.Tensor,
+                               variant: int = 2) -> SketchState:
+    """Whole-bank two-phase update of one block from row-sorted (R, B)
+    views: phase 1 in torch, then one banked phase-2 launch. Equal to
+    ``sketch_block_update_fused``, bit for bit."""
+    residual = (sketch_residual_kernel_banked if bank.ids.is_cuda
+                else residual_phase_banked)
+    return banked_update_with(residual, bank, row_items, row_weights, variant)
+
+
+def split_update_with(residual, states: SketchState, items: torch.Tensor,
+                      weights: torch.Tensor, variant: int,
+                      assume_sorted: bool = False) -> SketchState:
+    """``blocks._phase1`` on (E, k) states and (E, B) blocks, the
+    (E, R, LANES) row view, ``residual`` (the kernel or
+    ``residual_phase``), then the (E, k) state back."""
+    E, k = states.ids.shape
+    ids1, cnt1, err1, r_uids, r_net, start, end, w_del = _phase1(
+        states, items, weights, variant, assume_sorted)
+    ids2, cnt2, err2 = residual(*pad_rows(ids1, cnt1, err1), r_uids, r_net,
+                                start, end, w_del, variant=variant)
+    return SketchState(*(t.reshape(E, -1)[:, :k] for t in (ids2, cnt2, err2)))
+
+
+def sketch_block_update_batched(states: SketchState, items: torch.Tensor,
+                                weights: torch.Tensor, variant: int = 2,
+                                assume_sorted: bool = False) -> SketchState:
+    """Two-phase update of E stacked sketches, (E, k) states and (E, B)
+    blocks, with one phase-2 launch for all E. ``assume_sorted``: every
+    row of ``items`` is already ascending (the sharded router's views)."""
+    residual = (sketch_residual_kernel if states.ids.is_cuda
+                else residual_phase)
+    return split_update_with(residual, states, items, weights, variant,
+                             assume_sorted)
+
+
+def sketch_block_update(state: SketchState, items: torch.Tensor,
+                        weights: torch.Tensor, variant: int = 2,
+                        assume_sorted: bool = False) -> SketchState:
+    """Two-phase update of one (k,) sketch with one (B,) block."""
+    out = sketch_block_update_batched(
+        SketchState(*(t[None] for t in state)), items[None], weights[None],
+        variant, assume_sorted)
+    return SketchState(*(t[0] for t in out))
+
+
+def serial_update_with(update, state: SketchState, items: torch.Tensor,
+                       weights: torch.Tensor, variant: int) -> SketchState:
+    """The (R, LANES) row view of one (k,) sketch, ``update`` (the serial
+    kernel or ``serial_update_ref``) over the raw block, then (k,) back."""
+    k = state.ids.shape[0]
+    ids2, cnt2, err2 = update(
+        *pad_rows(*state), items.to(I32).contiguous(),
+        weights.to(I32).contiguous(), variant=variant)
+    return SketchState(*(t.reshape(-1)[:k] for t in (ids2, cnt2, err2)))
+
+
+def sketch_block_update_serial(state: SketchState, items: torch.Tensor,
+                               weights: torch.Tensor,
+                               variant: int = 2) -> SketchState:
+    """The pre-two-phase baseline: every raw update of the (B,) block
+    applied in order to one (k,) sketch, one launch per block."""
+    update = (sketch_update_kernel_serial if state.ids.is_cuda
+              else serial_update_ref)
+    return serial_update_with(update, state, items, weights, variant)
+
+
+__all__ = ["prep_block", "block_update_with", "sketch_block_update_fused",
+           "banked_update_with", "sketch_block_update_banked",
+           "split_update_with", "sketch_block_update_batched",
+           "sketch_block_update", "serial_update_with",
+           "sketch_block_update_serial"]

@@ -1,18 +1,27 @@
-"""Plain PyTorch version of the fused SpaceSaving± bank update.
+"""Plain PyTorch versions of the sketch_update kernels.
 
-Computes what the CUDA kernel (``csrc/fused_update.cu``) computes, and
-what the reference's Pallas tile body ``_fused_kernel_tile``
-(``repro/kernels/sketch_update/kernel.py:75``) computes, over the whole
-(R, K) bank in eager PyTorch: the same five steps, rows in lockstep.
-``ops.py`` runs it for CPU tensors; ``chip_smoke.py`` holds the kernel
-against it on the card.
+Each computes what its CUDA kernel computes, and what the reference's
+Pallas kernel body computes, in eager PyTorch. ``ops.py`` runs them for
+CPU tensors; ``chip_smoke.py`` holds each kernel against its plain
+version on the card.
+
+- ``fused_update_ref``: the fused bank update (``csrc/fused_update.cu``,
+  reference ``_fused_kernel_tile``, ``kernel.py:75``);
+- ``residual_phase_banked`` (``sketch/bank.py``): the banked phase 2
+  (kernel 2 of ``fused_update.cu``, reference ``_residual_kernel_banked``);
+- ``residual_phase`` (``sketch/phases.py``): phase 2 of stacked single
+  sketches (``csrc/residual.cu``, reference ``_residual_kernel``);
+- ``serial_update_ref``: one update per raw item
+  (``csrc/serial_update.cu``, reference ``_serial_kernel`` and
+  ``_apply_one``, ``kernel.py:317``).
 """
 from __future__ import annotations
 
 import torch
 
 from ...sketch.bank import phase1_apply, residual_phase_banked
-from ...sketch.state import I32, SketchState
+from ...sketch.phases import residual_phase
+from ...sketch.state import I32, VARIANT_LAZY, SketchState
 
 
 def fused_update_ref(ids, counts, errors, delta, h_uids, h_net, i0, mu, nnu,
@@ -32,4 +41,48 @@ def fused_update_ref(ids, counts, errors, delta, h_uids, h_net, i0, mu, nnu,
                                  variant)
 
 
-__all__ = ["fused_update_ref"]
+def _wrap32(x: int) -> int:
+    """Python int folded into int32, as an int32 add wraps."""
+    return (x + 2**31) % 2**32 - 2**31
+
+
+def serial_update_ref(ids2, cnt2, err2, items, weights, variant: int = 2):
+    """The raw items applied one at a time, in order, to one (R, 128)
+    sketch: the reference's ``_apply_one`` per item, its ``jnp.where``
+    selects written as branches. Its int32 adds wrap. Returns new
+    tensors; the inputs are not modified."""
+    shape = ids2.shape
+    ids, counts, errors = (t.reshape(-1).clone() for t in (ids2, cnt2, err2))
+    for item, w in zip(items.tolist(), weights.tolist()):
+        if w == 0:
+            continue
+        # jnp.maximum(-w, 0) in int32: -INT_MIN wraps to INT_MIN, hence 0
+        wd = max(_wrap32(-w), 0)
+        eq = (ids == item) & (ids >= 0)
+        if bool(eq.any()):                       # monitored: add w
+            j = int(torch.argmax(eq.to(I32)))
+            counts[j] = _wrap32(int(counts[j]) + (w if w > 0 else -wd))
+        elif w > 0:
+            empty = ids == -1
+            if bool(empty.any()):                # the first EMPTY slot
+                j = int(torch.argmax(empty.to(I32)))
+                ids[j], counts[j], errors[j] = item, w, 0
+            else:                                # evict the minimum count
+                j = int(torch.argmin(counts))
+                mc = int(counts[j])
+                ids[j], counts[j], errors[j] = item, _wrap32(mc + w), mc
+        elif variant != VARIANT_LAZY:            # SS±: spread the deletion
+            rem = wd
+            while rem > 0:
+                j = int(torch.argmax(errors))
+                d = min(rem, int(errors[j]))
+                if d <= 0:
+                    break
+                counts[j] = _wrap32(int(counts[j]) - d)
+                errors[j] = _wrap32(int(errors[j]) - d)
+                rem -= d
+    return ids.reshape(shape), counts.reshape(shape), errors.reshape(shape)
+
+
+__all__ = ["fused_update_ref", "residual_phase_banked", "residual_phase",
+           "serial_update_ref"]

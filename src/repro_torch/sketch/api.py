@@ -3,8 +3,9 @@
 Counterpart of ``repro/sketch/api.py`` for the layouts this port has:
 ``kind="frequency"`` with ``variant`` "sspm" or "lazy", plain
 (``shards=None``) or hash-sharded (``shards=S``), on the fused-kernel
-backend. ``SketchSpec`` keeps the reference's field names; every other
-value raises ``NotImplementedError`` naming the ROADMAP.md item that
+backend (``"kernel"``) or the two-phase block backend (``"block"``).
+``SketchSpec`` keeps the reference's field names; every other value
+raises ``NotImplementedError`` naming the ROADMAP.md item that
 ports it. Checkpoints are the reference's tagged numpy dicts, so a
 state saved by either package restores in the other.
 """
@@ -19,6 +20,7 @@ import torch
 from ..core.spacesaving import capacity_for
 from ..kernels.sketch_update.ops import sketch_block_update_fused
 from ..platform import DEFAULT_DEVICE, resolve_device
+from . import blocks
 from . import sharded as shd
 from . import state as st
 from .bank import HashShardRouter
@@ -26,7 +28,7 @@ from .state import VARIANT_LAZY, VARIANT_SSPM, SketchState
 
 KINDS = ("frequency", "quantile")
 VARIANTS = {"sspm": VARIANT_SSPM, "lazy": VARIANT_LAZY}
-BACKENDS = ("kernel",)
+BACKENDS = ("block", "kernel")
 
 # the reference's integer layout tags (api.py:79-82)
 LAYOUT_FREQUENCY = 1
@@ -43,8 +45,8 @@ _NOT_PORTED = {
     "tenants": "ROADMAP.md Queue 1 item 12 (sketch/tenant.py)",
     "bank": "ROADMAP.md Queue 1 item 5 (bank.update_block_fused, the "
             "partition core)",
-    "block": "ROADMAP.md Queue 1 item 4 (sketch/blocks.py)",
-    "serial": "ROADMAP.md Queue 1 item 4 (sketch/blocks.py)",
+    "serial": "ROADMAP.md Queue 1 item 4 (blocks.block_update_serial, the "
+              "serial backend)",
 }
 
 
@@ -60,8 +62,10 @@ class SketchSpec:
     Size with exactly one of ``k`` (total live counters, split per shard)
     or ``eps`` (+ ``alpha``, the paper's Thm 2/4 prescription).
     ``bits`` bounds the item universe to [0, 2^bits) and enables the
-    packed single-sort router. ``backend`` is "kernel": the fused CUDA
-    kernel on the card, its plain PyTorch version on the CPU.
+    packed single-sort router. ``backend`` is "kernel" (the fused bank
+    update) or "block" (the two-phase block update, whose phase 2 is the
+    residual kernel): the CUDA kernel on the card, its plain PyTorch
+    version on the CPU. Both give the same state, bit for bit.
     """
 
     kind: str = "frequency"
@@ -206,6 +210,8 @@ class _FrequencyAdapter:
         return state.ids.device
 
     def update(self, spec, state, items, weights):
+        if spec.backend == "block":
+            return blocks.block_update(state, items, weights, spec.variant_id)
         # the flat sketch as a one-row bank, routed like the reference
         # (api.py:419-431)
         row_items, row_weights = HashShardRouter(1, spec.bits).route_dense(
@@ -234,6 +240,9 @@ class _FrequencyAdapter:
 class _ShardedFrequencyAdapter:
     """shards=S: the hash-partitioned ShardedSketch bank."""
 
+    # spec backend -> sharded.update_block path name (api.py:466)
+    _PATHS = {"block": "vmap", "kernel": "kernel"}
+
     def make(self, spec, device) -> shd.ShardedSketch:
         return shd.init(spec.capacity, spec.shards, device=device)
 
@@ -242,7 +251,8 @@ class _ShardedFrequencyAdapter:
 
     def update(self, spec, state, items, weights):
         return shd.update_block(state, items, weights, spec.variant_id,
-                                universe_bits=spec.bits)
+                                universe_bits=spec.bits,
+                                path=self._PATHS[spec.backend])
 
     def query_many(self, spec, state, items):
         return shd.query_many(state, items)

@@ -1,10 +1,10 @@
 """Hash-sharded SpaceSaving± bank: S per-shard sketches, one launch/block.
 
-Counterpart of ``repro/sketch/sharded.py``, kernel path only: shard s
-of the stacked (S, k) bank monitors the ids with ``shard_of(id, S) ==
-s``. A block is routed with one shared sort (the sorted block broadcast
-to every row, foreign weights masked to 0) and ingested by one fused
-launch; queries read the owner shard, so there is no merge error.
+Counterpart of ``repro/sketch/sharded.py`` on one device: shard s of
+the stacked (S, k) bank monitors the ids with ``shard_of(id, S) == s``.
+A block is routed with one shared sort (the sorted block broadcast to
+every row, foreign weights masked to 0) and ingested by one launch;
+queries read the owner shard, so there is no merge error.
 """
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ from ..kernels.sketch_update.ops import sketch_block_update_fused
 from ..platform import DEFAULT_DEVICE
 from . import bank as bk
 from .bank import HashShardRouter, shard_of
+from .blocks import block_update_batched
 from .state import VARIANT_SSPM, SketchState
 
 
@@ -45,15 +46,41 @@ def route_block(items: torch.Tensor, weights: torch.Tensor, num_shards: int,
     return HashShardRouter(num_shards, universe_bits).route_dense(items, weights)
 
 
+# the reference's other paths (sharded.py:235): the fused partition core
+# and the mesh
+_PATHS_NOT_PORTED = {
+    "auto": "ROADMAP.md Queue 1 item 5 (bank.update_block_fused)",
+    "block": "ROADMAP.md Queue 1 item 5 (bank.update_block_fused)",
+    "shard_map": "ROADMAP.md Queue 1 item 19 (parallel/sharding.py)",
+}
+
+
 def update_block(state: ShardedSketch, items: torch.Tensor,
                  weights: torch.Tensor, variant: int = VARIANT_SSPM, *,
-                 universe_bits: Optional[int] = None) -> ShardedSketch:
-    """Route one block shard-by-hash and ingest it with one fused launch
-    (the reference's ``path='kernel'``, ``sharded.py:174``)."""
+                 universe_bits: Optional[int] = None,
+                 path: str = "kernel") -> ShardedSketch:
+    """Route one block shard-by-hash and ingest it with one launch.
+
+    ``path`` as in the reference (``sharded.py:235``), on one device:
+    ``"kernel"``, the fused bank update; ``"vmap"``, the masked-row
+    ``blocks.block_update_batched`` over the S shard sketches (one
+    batched phase-2 launch). Both give the same bank, bit for bit.
+    """
+    if path in _PATHS_NOT_PORTED:
+        raise NotImplementedError(
+            f"path={path!r} is not ported to repro_torch yet; "
+            f"{_PATHS_NOT_PORTED[path]} ports it")
+    if path not in ("kernel", "vmap"):
+        raise ValueError(f"unknown path {path!r}; use 'kernel' or 'vmap'")
     items_b, w_routed = route_block(items, weights, state.num_shards,
                                     universe_bits)
-    return ShardedSketch(bank=sketch_block_update_fused(
-        state.bank, items_b, w_routed, variant))
+    if path == "kernel":
+        bank = sketch_block_update_fused(state.bank, items_b, w_routed,
+                                         variant)
+    else:
+        bank = block_update_batched(state.bank, items_b, w_routed, variant,
+                                    assume_sorted=True)
+    return ShardedSketch(bank=bank)
 
 
 def query_many(state: ShardedSketch, items: torch.Tensor) -> torch.Tensor:

@@ -49,6 +49,16 @@ def sat_add(a: torch.Tensor, b) -> torch.Tensor:
     return a + torch.minimum(torch.maximum(b, lo), hi)
 
 
+def wrap_add(a: torch.Tensor, b) -> torch.Tensor:
+    """int32 add that wraps modulo 2**32, as JAX's int32 ``+`` does.
+
+    Taken in int64 and folded back, so the wrap is defined rather than
+    left to the C++ signed overflow under torch's int32 kernels.
+    """
+    x = a.to(torch.int64) + torch.as_tensor(b, device=a.device).to(torch.int64)
+    return (torch.remainder(x + 2**31, 2**32) - 2**31).to(I32)
+
+
 def init(capacity: int, device=DEFAULT_DEVICE) -> SketchState:
     dev = resolve_device(device)
     return SketchState(
@@ -80,5 +90,5 @@ def topk(state: SketchState, m: int) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 __all__ = ["EMPTY", "BLOCKED", "POISON", "LANES", "VARIANT_LAZY",
-           "VARIANT_SSPM", "INT_MAX", "SketchState", "sat_add", "init",
-           "query_many", "top_m", "topk"]
+           "VARIANT_SSPM", "INT_MAX", "SketchState", "sat_add", "wrap_add",
+           "init", "query_many", "top_m", "topk"]

@@ -170,7 +170,7 @@ def test_eps_sizing_matches_reference(eps, alpha, variant):
     (dict(k=64, backend="crprecis"), "item 11"),
     (dict(k=64, bits=8, tenants=2), "item 12"),
     (dict(k=64, backend="bank"), "item 5"),
-    (dict(k=64, backend="block"), "item 4"),
+    (dict(k=64, shards=4, backend="serial"), "item 4"),
     (dict(k=64, backend="serial"), "item 4"),
 ])
 def test_unported_spec_values_name_their_roadmap_item(fields, item):
