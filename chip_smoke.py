@@ -46,10 +46,33 @@ result):
    its run's shapes beside its bound and the plain version's ms; a
    ``torch.profiler`` window over blocks of the main, lazy, path A and
    path B sessions (device busy share and the ops that take the device
-   time).
+   time);
+6. the attention kernels (flash attention, kernel 5; decode attention
+   with per-slot mass, kernel 6), with TF32 off so the plain versions run
+   in true f32:
+   - each against its plain version on the card, f32 and bf16, on the
+     reference's test grids plus a ragged S, T > S, no mask and a row with
+     no valid slot: flash within atol = rtol = 2e-5 (f32) / 2e-2 (bf16),
+     decode ctx within 3e-5 / 3e-2 and mass within atol 2e-5, rtol 2e-4,
+     the mass summing to KV·G on every row with a valid slot, flash and
+     ctx also row by row as below;
+   - the path at Gemma3-27B's widths (H = 32, KV = 16, hd = 128, bf16)
+     through the entry points, every counter reset before and read after
+     (flash twice, decode once, no other kernel): flash global (B = 1,
+     S = T = 4,096, causal), flash local (the same, window 1,024), decode
+     hh (B = 8 over the 8,192-slot heavy-hitter cache, 90 % valid); each
+     held to its plain version row by row, |got - want| <= 2^-7·|want| +
+     2^-6·RMS(row) (a row: one query's hd values of one q-head; the limit
+     scales with the output), the decode launch repeated bit for bit; the
+     same check must reject the plain version with a fault planted (one
+     64-key tile or chunk dropped from P·V; two kv-heads swapped);
+   - times with CUDA events: kernel, plain version, and one
+     ``F.scaled_dot_product_attention`` call as the library yardstick
+     (the backend it took is printed; for decode it gives the context
+     only, not the mass), beside each run's bound.
 
-The line before the last two is ``{"kernels": [...]}``; the last line is
-``{"ok": true, "device": {...}}``. A summary also goes to
+The line before the last two is ``{"kernels": [...]}`` (all six kernels);
+the last line is ``{"ok": true, "device": {...}}``. A summary also goes to
 ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
@@ -78,19 +101,28 @@ def log(msg: str) -> None:
 
 KERNELS = ("sketch_update_kernel_fused", "sketch_residual_kernel_banked",
            "sketch_residual_kernel", "sketch_update_kernel_serial")
+FLASH, DECODE = "flash_attention_kernel", "decode_attention_kernel"
+
+
+def counted_kernels() -> dict:
+    """Every kernel wrapper of the port by name; each counts its launches."""
+    from repro_torch.kernels.decode_attention import kernel as da
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.sketch_update import kernel
+
+    wrappers = {name: getattr(kernel, name) for name in KERNELS}
+    wrappers[FLASH] = fa.flash_attention_kernel
+    wrappers[DECODE] = da.decode_attention_kernel
+    return wrappers
 
 
 def reset_counts() -> None:
-    from repro_torch.kernels.sketch_update import kernel
-
-    for name in KERNELS:
-        getattr(kernel, name).launches = 0
+    for fn in counted_kernels().values():
+        fn.launches = 0
 
 
 def read_counts() -> dict:
-    from repro_torch.kernels.sketch_update import kernel
-
-    return {name: getattr(kernel, name).launches for name in KERNELS}
+    return {name: fn.launches for name, fn in counted_kernels().items()}
 
 
 # ---------------------------------------------------------------------------
@@ -753,6 +785,469 @@ def profile_blocks(spec, block, n_blocks, seed, device):
         top_host_ms_per_block=top(events, lambda e: e.self_cpu_time_total))
 
 
+# ---------------------------------------------------------------------------
+# The attention kernels (5 and 6): cases, the full-width runs, times
+# ---------------------------------------------------------------------------
+
+BF16_FLOPS_PER_S = 989.4e12   # H100 SXM, dense bf16 on the tensor cores
+# Gemma3-27B (src/repro/configs/gemma3_27b.py:8): 32 q-heads on 16 kv-heads,
+# hd 128, local layers of window 1,024, a heavy-hitter cache of 8,192 slots
+# per global layer; bf16
+GEMMA = dict(H=32, KV=16, hd=128, window=1024, budget=8192)
+PREFILL = 4096          # one 4k prefill chunk
+DECODE_BATCH = 8
+VALID_SHARE = 0.9       # share of the decode cache's slots that are valid
+# Attention outputs are also held row by row (a row: the hd values of one
+# query and q-head): |got - want| <= ROUNDING·|want| + ROW_SHARE·RMS(row),
+# so the limit scales with the output, which at Gemma3-27B's widths is
+# ~0.02-0.05 per element. ROUNDING is one bf16 ulp (both sides round to
+# bf16); ROW_SHARE allows the kernel's bf16 P in P·V (relative error
+# 2^-9 per p: ~2^-10 of the row's RMS per element, ~2^-7.3 at the worst
+# of 16 M elements) and stays below what one dropped 64-key tile or chunk
+# changes (~0.1-0.2 of the row's RMS at 4,096 or 7,373 keys).
+ROUNDING = 2.0**-7
+ROW_SHARE = 2.0**-6
+
+# B, S, T, H, KV, hd, causal, window: the reference's grid
+# (tests/test_kernel_flash_attention.py:10), a ragged S = 96 (the
+# kernel's tiles are 64 and 128 rows), T > S (sequence ends aligned), no
+# mask, and hd = 30 (rows not 16-byte multiples: the scalar loads)
+FLASH_CASES = [
+    (2, 128, 128, 4, 2, 64, True, 0),
+    (1, 256, 256, 4, 4, 32, True, 64),
+    (2, 256, 256, 8, 2, 128, True, 0),
+    (1, 128, 128, 2, 1, 80, True, 32),
+    (1, 64, 64, 1, 1, 16, True, 0),
+    (2, 128, 128, 6, 3, 48, True, 0),
+    (1, 96, 96, 4, 2, 64, True, 0),
+    (2, 64, 128, 4, 2, 64, True, 0),
+    (1, 192, 192, 4, 2, 128, False, 0),
+    (1, 80, 80, 2, 1, 30, True, 16),
+]
+# B, KV, G, hd, C, row 0 empty: the reference's grid
+# (tests/test_kernel_decode_attention.py:10) at 70 % valid slots, hd = 30
+# (the scalar loads), then a row with no valid slot
+DECODE_CASES = [
+    (2, 2, 4, 64, 256, False),
+    (1, 4, 2, 128, 512, False),
+    (2, 1, 8, 80, 128, False),
+    (3, 2, 1, 64, 64, False),
+    (2, 2, 2, 30, 100, False),
+    (2, 2, 2, 64, 128, True),
+]
+
+
+def _tol(dtype, f32, bf16):
+    import torch
+
+    return f32 if dtype == torch.float32 else bf16
+
+
+def randn(shape, dtype, gen, device):
+    """Standard normal values drawn in f32 from ``gen``, cast to dtype."""
+    import torch
+
+    return torch.randn(shape, generator=gen, device=device).to(dtype)
+
+
+def close(label, got, want, atol, rtol) -> float:
+    """Max abs error of ``got`` against ``want``; fatal beyond
+    ``atol + rtol * |want|`` anywhere, or on a value that is not finite."""
+    import torch
+
+    err = (got.float() - want.float()).abs()
+    worst = float(err.max())
+    if bool((err > atol + rtol * want.float().abs()).any()) \
+            or not bool(torch.isfinite(got.float()).all()):
+        raise SystemExit(f"{label}: max_abs_err {worst} beyond atol {atol}, "
+                         f"rtol {rtol}")
+    return worst
+
+
+def row_share(got, want) -> tuple:
+    """(max abs error, the largest share of its row's RMS that an
+    element's error takes beyond ROUNDING·|want|), over the last axis; an
+    element of a zero row must be exact (share inf otherwise)."""
+    import torch
+
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    excess = (err - ROUNDING * want.abs()).clamp_min(0)
+    rms = want.pow(2).mean(dim=-1, keepdim=True).sqrt().expand_as(excess)
+    share = torch.where(rms > 0, excess / rms,
+                        torch.where(excess > 0, math.inf, 0.0))
+    if not bool(torch.isfinite(got).all()):
+        return math.inf, math.inf
+    return float(err.max()), float(share.max())
+
+
+def check_rows(label, got, want) -> tuple:
+    """``row_share``, fatal above ROW_SHARE or on a value that is not
+    finite."""
+    err, share = row_share(got, want)
+    if not share <= ROW_SHARE:
+        raise SystemExit(f"{label}: an error takes {share} of its row's RMS "
+                         f"beyond {ROUNDING}·|want| (limit {ROW_SHARE}); "
+                         f"max_abs_err {err}")
+    return err, share
+
+
+def must_reject(label, wrong, want) -> float:
+    """A planted wrong result must fail ``check_rows``: shows the row
+    limit is tight enough to see that fault. Returns its share."""
+    share = row_share(wrong, want)[1]
+    if share <= ROW_SHARE:
+        raise SystemExit(f"{label}: the row check passes a planted fault "
+                         f"(share {share} <= {ROW_SHARE})")
+    return share
+
+
+def check_mass(label, mass, valid, heads) -> None:
+    """The mass sums to KV·G on every row with a valid slot and is 0 on
+    every other row."""
+    import torch
+
+    has = valid.any(dim=1)
+    sums = mass.double().sum(dim=1)
+    if not torch.allclose(sums[has], torch.full_like(sums[has], heads),
+                          rtol=1e-4, atol=0.0) or bool((mass[~has] != 0).any()):
+        raise SystemExit(f"{label}: the mass does not sum to {heads} per "
+                         f"row: {sums.tolist()[:8]}")
+
+
+def check_attention_cases(device) -> tuple:
+    """Kernels 5 and 6 against their plain versions on the cases above,
+    f32 and bf16: flash at atol = rtol = 2e-5 (f32) / 2e-2 (bf16); decode
+    ctx at 3e-5 / 3e-2, mass at atol 2e-5, rtol 2e-4, and its sums; flash
+    and ctx also row by row (``check_rows``). Returns the worst max abs
+    error and the worst row share of each kernel."""
+    import torch
+    from repro_torch.kernels.decode_attention.kernel import \
+        decode_attention_kernel
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_kernel
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    gen = torch.Generator(device=device).manual_seed(500)
+    worst = {FLASH: 0.0, DECODE: 0.0}
+    shares = {FLASH: 0.0, DECODE: 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).removeprefix("torch.")
+        tol = _tol(dtype, 2e-5, 2e-2)
+        for B, S, T, H, KV, hd, causal, window in FLASH_CASES:
+            q = randn((B, S, H, hd), dtype, gen, device)
+            k = randn((B, T, KV, hd), dtype, gen, device)
+            v = randn((B, T, KV, hd), dtype, gen, device)
+            label = (f"{FLASH} vs plain [{name} B={B} S={S} T={T} H={H} "
+                     f"KV={KV} hd={hd} causal={causal} window={window}]")
+            want = flash_attention_ref(q, k, v, causal=causal, window=window)
+            got = flash_attention_kernel(q, k, v, causal=causal, window=window)
+            torch.cuda.synchronize()
+            err = close(label, got, want, tol, tol)
+            share = check_rows(label, got, want)[1]
+            log(f"{label}: within {tol} (max_abs_err {err:.3g}, row share "
+                f"{share:.3g})")
+            worst[FLASH] = max(worst[FLASH], err)
+            shares[FLASH] = max(shares[FLASH], share)
+        tol = _tol(dtype, 3e-5, 3e-2)
+        for B, KV, G, hd, C, empty_row in DECODE_CASES:
+            q = randn((B, KV, G, hd), dtype, gen, device)
+            k = randn((B, C, KV, hd), dtype, gen, device)
+            v = randn((B, C, KV, hd), dtype, gen, device)
+            valid = torch.rand((B, C), generator=gen, device=device) < 0.7
+            if empty_row:
+                valid[0] = False
+            label = (f"{DECODE} vs plain [{name} B={B} KV={KV} G={G} hd={hd} "
+                     f"C={C}{' row 0 empty' if empty_row else ''}]")
+            want_ctx, want_mass = decode_attention_ref(q, k, v, valid)
+            ctx, mass = decode_attention_kernel(q, k, v, valid)
+            torch.cuda.synchronize()
+            err = close(label + " ctx", ctx, want_ctx, tol, tol)
+            share = check_rows(label + " ctx", ctx, want_ctx)[1]
+            err_m = close(label + " mass", mass, want_mass, 2e-5, 2e-4)
+            check_mass(label, mass, valid, KV * G)
+            log(f"{label}: ctx within {tol} (max_abs_err {err:.3g}, row "
+                f"share {share:.3g}), mass within 2e-5 + 2e-4 (max_abs_err "
+                f"{err_m:.3g})")
+            worst[DECODE] = max(worst[DECODE], err, err_m)
+            shares[DECODE] = max(shares[DECODE], share)
+    return worst, shares
+
+
+def time_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Device ms per call of ``fn`` over ``reps`` calls after ``warmup``,
+    with CUDA events."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(True), torch.cuda.Event(True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_kernels(fn, calls: int = 4) -> list:
+    """The device kernels ``calls`` calls of ``fn`` run, longest first:
+    (name cut to 100 characters, ms per launch, launches seen; the
+    profiler may miss a window's first launch). Which backend a library
+    call took, and where a kernel's passes spend their time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    return [(e.key[:100], dev_us(e) / 1e3 / max(e.count, 1), e.count)
+            for e in sorted(events, key=dev_us, reverse=True)[:4]]
+
+
+def sdpa(q, k, v, **kw):
+    """``F.scaled_dot_product_attention`` with kv-heads shared by G
+    q-heads: ``enable_gqa`` where the installed torch has it, else K and
+    V expanded first (outside any timed region: returns the call)."""
+    import torch.nn.functional as F
+
+    if "enable_gqa" in (F.scaled_dot_product_attention.__doc__ or ""):
+        return lambda: F.scaled_dot_product_attention(q, k, v, enable_gqa=True,
+                                                      **kw)
+    G = q.shape[1] // k.shape[1]
+    k, v = (t.repeat_interleave(G, dim=1) for t in (k, v))
+    return lambda: F.scaled_dot_product_attention(q, k, v, **kw)
+
+
+def bound(nbytes: int, flops: int) -> dict:
+    by_bytes = nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOPS_PER_S
+    return dict(bytes=nbytes, flops=flops,
+                bound_ms=max(nbytes / HBM_BYTES_PER_S,
+                             flops / BF16_FLOPS_PER_S) * 1e3,
+                bound_by="bytes" if by_bytes else "operations")
+
+
+def flash_bound(q, k, causal, window) -> dict:
+    """Least work: q, k, v read once and out written once; 4·hd FLOPs per
+    allowed (q, k) pair per q-head (q·k and p·v, a multiply-add each)."""
+    from repro_torch.kernels.flash_attention.ref import allowed_pairs
+
+    B, S, H, hd = q.shape
+    T = k.shape[1]
+    pairs = int(allowed_pairs(S, T, causal, window).sum())
+    nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
+    return dict(pairs=pairs, **bound(nbytes, 4 * B * H * hd * pairs))
+
+
+def decode_bound(q, k, valid) -> dict:
+    """Least work, from this run's mask: q, valid and the K and V rows of
+    the valid slots read once, ctx and the f32 mass written once; 4·hd
+    FLOPs per valid slot per q-head."""
+    B, KV, G, hd = q.shape
+    n_valid = int(valid.sum())
+    esize = q.element_size()
+    nbytes = (esize * (2 * q.numel() + 2 * n_valid * KV * hd)
+              + valid.numel() + 4 * valid.numel())
+    return dict(valid_slots=n_valid,
+                **bound(nbytes, 4 * n_valid * KV * G * hd))
+
+
+def attention_inputs(device, seed):
+    """The full-width operands at Gemma3-27B's widths, bf16, from ``seed``:
+    one 4k prefill chunk (B = 1, S = T = 4,096) and a decode step of B = 8
+    over the 8,192-slot heavy-hitter cache, 90 % of its slots valid."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    H, KV, hd = GEMMA["H"], GEMMA["KV"], GEMMA["hd"]
+    bf16 = torch.bfloat16
+    flash = (randn((1, PREFILL, H, hd), bf16, gen, device),
+             randn((1, PREFILL, KV, hd), bf16, gen, device),
+             randn((1, PREFILL, KV, hd), bf16, gen, device))
+    C, B = GEMMA["budget"], DECODE_BATCH
+    decode = (randn((B, KV, H // KV, hd), bf16, gen, device),
+              randn((B, C, KV, hd), bf16, gen, device),
+              randn((B, C, KV, hd), bf16, gen, device),
+              torch.rand((B, C), generator=gen, device=device) < VALID_SHARE)
+    return flash, decode
+
+
+def _swap_heads(t, dim):
+    """``t`` with kv-heads 0 and 1 swapped along ``dim``."""
+    import torch
+
+    perm = list(range(t.shape[dim]))
+    perm[0], perm[1] = 1, 0
+    return t.index_select(dim, torch.tensor(perm, device=t.device))
+
+
+def planted_flash(label, q, k, v, window, want) -> dict:
+    """The plain version with one fault planted, each of which the row
+    check must reject: the P·V of keys 64-127 (one of the kernel's kv
+    tiles) dropped, and q-heads 0-3 reading the wrong kv-head."""
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    v_tile = v.clone()
+    v_tile[:, 64:128] = 0
+    wrong = {"kv tile dropped": (k, v_tile),
+             "wrong kv-head": (_swap_heads(k, 2), _swap_heads(v, 2))}
+    return {name: must_reject(f"{label} planted {name}", flash_attention_ref(
+                q, kk, vv, causal=True, window=window), want)
+            for name, (kk, vv) in wrong.items()}
+
+
+def planted_decode(label, q, k, v, valid, want_ctx) -> dict:
+    """As ``planted_flash`` for the decode context: cache slots 64-127
+    (one of the kernel's chunks) dropped from P·V, and q-heads of
+    kv-heads 0 and 1 reading each other's caches."""
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+
+    v_chunk = v.clone()
+    v_chunk[:, 64:128] = 0
+    wrong = {"chunk dropped": (k, v_chunk),
+             "wrong kv-head": (_swap_heads(k, 2), _swap_heads(v, 2))}
+    return {name: must_reject(f"{label} planted {name}", decode_attention_ref(
+                q, kk, vv, valid)[0], want_ctx)
+            for name, (kk, vv) in wrong.items()}
+
+
+def attention_phase(device, seed=6) -> tuple:
+    """The attention path at Gemma3-27B's widths through the entry points
+    ``flash_attention`` (global: causal; local: window 1,024) and
+    ``decode_attention`` (the heavy-hitter cache), with every launch
+    counter reset before and read after: each kernel launched once per
+    call, no other kernel. Then each result against its plain version,
+    two decode launches bit-equal, and the times: kernel, plain, bound,
+    and one SDPA call. Returns (the kernels line's entries, a summary)."""
+    import torch
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.decode_attention.kernel import \
+        decode_attention_kernel
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_kernel
+    from repro_torch.kernels.flash_attention.ref import (allowed_pairs,
+                                                         flash_attention_ref)
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # the plain versions
+    torch.backends.cudnn.allow_tf32 = False         # run in true f32
+    t0 = time.perf_counter()
+    worst, case_shares = check_attention_cases(device)
+    log(f"attention kernels vs plain: {2 * len(FLASH_CASES)} flash and "
+        f"{2 * len(DECODE_CASES)} decode cases within tolerance "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    (q, k, v), (dq, dk, dv, valid) = attention_inputs(device, seed)
+    window = GEMMA["window"]
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out_global = flash_attention(q, k, v, causal=True, window=0)
+    out_local = flash_attention(q, k, v, causal=True, window=window)
+    ctx, mass = decode_attention(dq, dk, dv, valid)
+    torch.cuda.synchronize()
+    path_ms = (time.perf_counter() - t0) * 1e3
+    counts = read_counts()
+    want = {FLASH: 2, DECODE: 1}
+    if any(n != want.get(name, 0) for name, n in counts.items()):
+        raise SystemExit(f"attention path: launches {counts}, expected {want}")
+    log(f"attention path (flash global, flash local, decode hh): {path_ms:.3f}"
+        f" ms wall, launches {want}")
+
+    runs = {}
+    specs = (("flash global", 0, out_global), ("flash local", window,
+                                               out_local))
+    for label, win, out in specs:
+        plain = lambda: flash_attention_ref(q, k, v, causal=True, window=win)
+        want = plain()
+        err, share = check_rows(label, out, want)
+        planted = planted_flash(label, q, k, v, win, want)
+        del want
+        kern = lambda: flash_attention_kernel(q, k, v, causal=True, window=win)
+        qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        if win:
+            mask = allowed_pairs(PREFILL, PREFILL, True, win, device)
+            lib = sdpa(qh, kh, vh, attn_mask=mask)
+        else:
+            lib = sdpa(qh, kh, vh, is_causal=True)
+        lib_err = float((lib().transpose(1, 2).float() - out.float())
+                        .abs().max())
+        runs[label] = dict(
+            shape=dict(B=1, S=PREFILL, T=PREFILL, H=GEMMA["H"],
+                       KV=GEMMA["KV"], hd=GEMMA["hd"], window=win,
+                       dtype="bfloat16"),
+            max_abs_err=err, row_share=share, row_share_limit=ROW_SHARE,
+            planted_row_shares=planted, ms=time_ms(kern, 20),
+            kernel_device_ms=device_kernels(kern), plain_ms=time_ms(plain, 3),
+            library_ms=time_ms(lib, 20), library_kernels=device_kernels(lib),
+            library_max_abs_diff=lib_err,
+            **flash_bound(q, k, True, win))
+        del qh, kh, vh, lib
+        log(f"{label}: {json.dumps(runs[label])}")
+        torch.cuda.empty_cache()
+
+    label = "decode hh"
+    want_ctx, want_mass = decode_attention_ref(dq, dk, dv, valid)
+    err, share = check_rows(label + " ctx", ctx, want_ctx)
+    err = max(err, close(label + " mass", mass, want_mass, 2e-5, 2e-4))
+    check_mass(label, mass, valid, GEMMA["H"])
+    planted = planted_decode(label, dq, dk, dv, valid, want_ctx)
+    again = decode_attention_kernel(dq, dk, dv, valid)
+    if not (torch.equal(again[0], ctx) and torch.equal(again[1], mass)):
+        raise SystemExit("decode hh: two launches on the same inputs differ")
+    B, KV, G, hd = dq.shape
+    qh = dq.reshape(B, KV * G, 1, hd)
+    kh, vh = (t.transpose(1, 2).contiguous() for t in (dk, dv))
+    lib = sdpa(qh, kh, vh, attn_mask=valid[:, None, None, :])
+    lib_err = float((lib().reshape(ctx.shape).float() - ctx.float())
+                    .abs().max())
+    runs[label] = dict(
+        shape=dict(B=B, C=GEMMA["budget"], KV=KV, G=G, hd=hd,
+                   valid_share=VALID_SHARE, dtype="bfloat16"),
+        max_abs_err=err, row_share=share, row_share_limit=ROW_SHARE,
+        planted_row_shares=planted, mass_bit_equal_across_launches=True,
+        ms=time_ms(lambda: decode_attention_kernel(dq, dk, dv, valid), 20),
+        kernel_device_ms=device_kernels(
+            lambda: decode_attention_kernel(dq, dk, dv, valid)),
+        plain_ms=time_ms(lambda: decode_attention_ref(dq, dk, dv, valid), 3),
+        library_ms=time_ms(lib, 20), library_kernels=device_kernels(lib),
+        library_max_abs_diff=lib_err, library_computes="ctx only, no mass",
+        **decode_bound(dq, dk, valid))
+    log(f"{label}: {json.dumps(runs[label])}")
+
+    root = "src/repro_torch/kernels"
+    entries = []
+    for name, run, src, ref in (
+            (FLASH, runs["flash global"], "flash_attention/csrc/"
+             "flash_attention.cu", "flash_attention/kernel.py:82"),
+            (DECODE, runs["decode hh"], "decode_attention/csrc/"
+             "decode_attention.cu", "decode_attention/kernel.py:61")):
+        entries.append({
+            "name": name, "route": "cuda", "source": f"{root}/{src}",
+            "replaces": f"src/repro/kernels/{ref}",
+            "max_abs_err": max(worst[name], run["max_abs_err"]),
+            "ms": run["ms"], "plain_ms": run["plain_ms"],
+            "bound_ms": run["bound_ms"], "bound_by": run["bound_by"],
+            "library_ms": run["library_ms"]})
+    for entry in entries:
+        entry["launches"] = counts[entry["name"]]
+    return entries, dict(case_max_abs_err=worst, case_row_share=case_shares,
+                         path_wall_ms=path_ms, runs=runs)
+
+
 def gpu_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -769,6 +1264,10 @@ def main() -> int:
               file=sys.stderr)
         return 1
     from repro_torch.kernels import _build
+    from repro_torch.kernels.decode_attention.kernel import \
+        SOURCE as DECODE_SOURCE
+    from repro_torch.kernels.flash_attention.kernel import \
+        SOURCE as FLASH_SOURCE
     from repro_torch.kernels.sketch_update import kernel, ops, ref
     from repro_torch.sketch.api import SketchSpec
     from repro_torch.sketch.state import SketchState
@@ -776,10 +1275,12 @@ def main() -> int:
     device = torch.device("cuda")
     card = gpu_line()
     log(f"device: {card}")
+    log(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
+    sources = (*kernel.SOURCES, FLASH_SOURCE, DECODE_SOURCE)
     t0 = time.perf_counter()
-    _build.build(kernel.SOURCES)
+    _build.build(sources)
     log(f"build: {time.perf_counter() - t0:.1f} s "
-        f"({len(kernel.SOURCES)} sources in parallel)")
+        f"({len(sources)} sources in parallel)")
 
     worst = check_all_cases(device)
 
@@ -864,6 +1365,7 @@ def main() -> int:
             for label, spec in (("main", main_spec), ("lazy", lazy_spec),
                                 ("path_a", a_spec), ("path_b", b_spec))}
     log(f"profile of the sessions: {json.dumps(prof)}")
+    attention_entries, attention = attention_phase(device)
 
     replaces = {fused: 144, "sketch_residual_kernel_banked": 278,
                 split: 220, "sketch_update_kernel_serial": 396}
@@ -884,13 +1386,13 @@ def main() -> int:
         "bound_ms": times[name]["bound_ms"],
         "bound_by": times[name]["bound_by"],
         "library_ms": None,   # no PyTorch call computes these chains
-    } for name in KERNELS]
+    } for name in KERNELS] + attention_entries
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
         card=card, runs=runs, kernel_times=times,
-        residual_times_path_b=times_b, profile=prof, kernels=kernels),
-        indent=1))
+        residual_times_path_b=times_b, profile=prof, attention=attention,
+        kernels=kernels), indent=1))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

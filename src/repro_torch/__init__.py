@@ -8,4 +8,10 @@ against, bit for bit, by the ``tests/test_torch_*.py`` suites.
 Entry points run on the CUDA device by default and raise when there is
 none; pass ``device="cpu"`` to run the plain PyTorch versions of the
 kernels (what the CPU tests do).
+
+Kernels (``repro_torch.kernels``): ``sketch_update`` (the four sketch
+kernels behind ``StreamSession``), ``flash_attention`` and
+``decode_attention`` (the attention kernels, reached through their
+``ops`` entry points ``flash_attention`` and ``decode_attention``, which
+take CUDA tensors to the kernel and CPU tensors to the plain version).
 """

@@ -7,6 +7,9 @@ source's bytes, the bytes of every ``#include "..."`` file it pulls in
 (followed recursively, relative to the including file) and nvcc's
 flags: a change to any of them builds a new library. ``build`` compiles
 several sources at once, one nvcc process each, all started together.
+``entry_point`` binds one C entry point of a library and ``launch`` calls
+it on the current stream, raising on a refused launch. ``check_operands``
+and ``aligned16`` are the operand checks every wrapper shares.
 """
 from __future__ import annotations
 
@@ -17,7 +20,9 @@ import os
 import pathlib
 import re
 import subprocess
-from typing import Iterable, List
+from typing import Iterable, List, Sequence
+
+import torch
 
 from ..platform import build_dir
 
@@ -94,4 +99,47 @@ def load(source: pathlib.Path) -> ctypes.CDLL:
     return ctypes.CDLL(str(library_path(source)))
 
 
-__all__ = ["NVCC_FLAGS", "includes", "library_path", "build", "load"]
+@functools.lru_cache(maxsize=None)
+def entry_point(source: pathlib.Path, name: str, argtypes: tuple):
+    """The C entry point ``name`` of ``source``'s library, building it first
+    if needed. It takes ``argtypes``, then the stream, and returns a CUDA
+    error code (0 when the launch was accepted)."""
+    fn = getattr(load(source), name)
+    fn.argtypes = [*argtypes, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def check_operands(what: str, named: dict, device: torch.device) -> None:
+    """Every operand a contiguous CUDA tensor on ``device`` whose elements
+    an int indexes."""
+    for name, t in named.items():
+        if t.device != device or t.device.type != "cuda":
+            raise ValueError(f"{what}: {name} must be a CUDA tensor on "
+                             f"{device} (got {t.device}); CPU tensors take "
+                             f"ref.py")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")
+        if t.numel() >= 2**31:
+            raise ValueError(f"{what}: {name} has {t.numel()} elements; the "
+                             f"kernel indexes rows with int")
+
+
+def aligned16(*tensors: torch.Tensor) -> bool:
+    """Every tensor's data starts on a 16-byte boundary."""
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def launch(fn, args: Sequence, device: torch.device, what: str) -> None:
+    """``fn(*args, stream)`` on ``device``'s current stream; raises if the
+    launch was refused (it would never run, and no synchronise reports
+    it)."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
+
+
+__all__ = ["NVCC_FLAGS", "includes", "library_path", "build", "load",
+           "entry_point", "check_operands", "aligned16", "launch"]

@@ -21,7 +21,6 @@ to the plain versions in ``ref.py`` instead.
 from __future__ import annotations
 
 import ctypes
-import functools
 import pathlib
 
 import torch
@@ -36,28 +35,21 @@ _I = ctypes.c_int
 _INT31 = 2**31
 
 
-@functools.lru_cache(maxsize=None)
 def entry_point(source: str, name: str, n_ptr: int, n_int: int):
     """A kernel's C entry point, building its library first if needed:
     ``n_ptr`` pointers, then ``n_int`` ints, then the stream."""
-    fn = getattr(_build.load(CSRC / source), name)
-    fn.argtypes = [_P] * n_ptr + [_I] * n_int + [_P]
-    fn.restype = _I
-    return fn
+    return _build.entry_point(CSRC / source, name,
+                              (_P,) * n_ptr + (_I,) * n_int)
 
 
-def _check(named, shapes, device) -> None:
+def _check(what, named, shapes, device) -> None:
+    _build.check_operands(what, named, device)
     for name, t in named.items():
-        if t.device != device or t.device.type != "cuda":
-            raise ValueError(f"{name} must be a CUDA tensor on {device} "
-                             f"(got {t.device}); CPU tensors take ref.py")
         if t.dtype != torch.int32:
-            raise ValueError(f"{name} must be int32, got {t.dtype}")
+            raise ValueError(f"{what}: {name} must be int32, got {t.dtype}")
         if tuple(t.shape) != shapes[name]:
-            raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+            raise ValueError(f"{what}: {name} has shape {tuple(t.shape)}, "
                              f"expected {shapes[name]}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
 
 
 def _check_sizes(what: str, *sizes: int) -> None:
@@ -68,11 +60,7 @@ def _check_sizes(what: str, *sizes: int) -> None:
 
 
 def _launch(fn, tensors, ints, device, what: str) -> None:
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(*(t.data_ptr() for t in tensors), *ints, stream)
-    if err != 0:
-        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
+    _build.launch(fn, [*(t.data_ptr() for t in tensors), *ints], device, what)
 
 
 def _check_variant(variant: int) -> None:
@@ -97,7 +85,7 @@ def sketch_update_kernel_fused(ids, counts, errors, delta, h_uids, h_net,
     shapes = dict(ids=(R, K), counts=(R, K), errors=(R, K), delta=(R, K),
                   h_uids=(R, B), h_net=(R, B), i0=(R,), mu=(R,), nnu=(R,),
                   w_del=(R,))
-    _check(named, shapes, ids.device)
+    _check("sketch_update_kernel_fused", named, shapes, ids.device)
     _check_variant(variant)
     _check_sizes("sketch_update_kernel_fused", R, K, B, R * B, R * K)
     _launch(entry_point("fused_update.cu", "sketch_fused_update", 10, 4),
@@ -123,7 +111,7 @@ def sketch_residual_kernel_banked(ids, counts, errors, h_uids, h_net, uoff,
                  w_del=w_del)
     shapes = dict(ids=(R, K), counts=(R, K), errors=(R, K), h_uids=(G,),
                   h_net=(G,), uoff=(R,), start=(R,), n_ins=(R,), w_del=(R,))
-    _check(named, shapes, ids.device)
+    _check("sketch_residual_kernel_banked", named, shapes, ids.device)
     _check_variant(variant)
     _check_sizes("sketch_residual_kernel_banked", R, K, G, R * K)
     _launch(entry_point("fused_update.cu", "sketch_residual_banked", 9, 4),
@@ -148,7 +136,7 @@ def sketch_residual_kernel(ids2, cnt2, err2, r_uids, r_net, start, n_ins,
     shapes = dict(ids2=(E, R, 128), cnt2=(E, R, 128), err2=(E, R, 128),
                   r_uids=(E, B), r_net=(E, B), start=(E,), n_ins=(E,),
                   w_del=(E,))
-    _check(named, shapes, ids2.device)
+    _check("sketch_residual_kernel", named, shapes, ids2.device)
     _check_variant(variant)
     _check_sizes("sketch_residual_kernel", E, R, B, E * R * lanes, E * B)
     # per-row summaries (has_empty, min count, max error) of every sketch
@@ -174,7 +162,7 @@ def sketch_update_kernel_serial(ids2, cnt2, err2, items, weights, *,
                  weights=weights)
     shapes = dict(ids2=(R, 128), cnt2=(R, 128), err2=(R, 128), items=(B,),
                   weights=(B,))
-    _check(named, shapes, ids2.device)
+    _check("sketch_update_kernel_serial", named, shapes, ids2.device)
     _check_variant(variant)
     _check_sizes("sketch_update_kernel_serial", R, B, R * lanes)
     _launch(entry_point("serial_update.cu", "sketch_serial_update", 5, 3),
