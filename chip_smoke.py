@@ -16,7 +16,8 @@ result):
    single-sketch residual kernel, and all-padding blocks: the fused
    update (kernel 1), the banked residual (kernel 2), the stacked
    single-sketch residual (kernel 3) and the serial baseline (kernel 4,
-   on the first 4,096 items of each case);
+   on the first 4,096 items of each case, with k = 40,000, a state that
+   holds ids twice, the item -1 and SS± drains across several slots);
 4. runs at a real size, each on a Zipf(1.0) stream over 2^24 ids at
    delete ratio 0.5, interleaved, in blocks of 65,536:
    - main: a flow-monitoring deployment of SpaceSaving± in the paper's
@@ -52,26 +53,31 @@ result):
    in true f32:
    - each against its plain version on the card, f32 and bf16, on the
      reference's test grids plus a ragged S, T > S, no mask and a row with
-     no valid slot: flash within atol = rtol = 2e-5 (f32) / 2e-2 (bf16),
+     no valid slot, and flash on its wgmma path (bf16, hd 64/128/256, S =
+     130, T = 300, G = 1, 2, 4), every flash case on the path
+     ``flash_path`` names: flash within atol = rtol = 2e-5 (f32) / 2e-2 (bf16),
      decode ctx within 3e-5 / 3e-2 and mass within atol 2e-5, rtol 2e-4,
      the mass summing to KV·G on every row with a valid slot, flash and
      ctx also row by row as below;
    - the path at Gemma3-27B's widths (H = 32, KV = 16, hd = 128, bf16)
      through the entry points, every counter reset before and read after
-     (flash twice, decode once, no other kernel): flash global (B = 1,
-     S = T = 4,096, causal), flash local (the same, window 1,024), decode
-     hh (B = 8 over the 8,192-slot heavy-hitter cache, 90 % valid); each
+     (flash twice on its wgmma path, decode once, no other kernel): flash
+     global (B = 1, S = T = 4,096, causal), flash local (the same, window
+     1,024), decode hh (B = 8 over the 8,192-slot heavy-hitter cache, 90 %
+     valid); each
      held to its plain version row by row, |got - want| <= 2^-7·|want| +
      2^-6·RMS(row) (a row: one query's hd values of one q-head; the limit
      scales with the output), the decode launch repeated bit for bit; the
      same check must reject the plain version with a fault planted (one
      64-key tile or chunk dropped from P·V; two kv-heads swapped);
-   - times with CUDA events: kernel, plain version, and one
+   - times with CUDA events: kernel, plain version, flash's mma.sync
+     kernel at the same shapes, and one
      ``F.scaled_dot_product_attention`` call as the library yardstick
      (the backend it took is printed; for decode it gives the context
      only, not the mass), beside each run's bound.
 
-The line before the last two is ``{"kernels": [...]}`` (all six kernels);
+The line before the last two is ``{"kernels": [...]}`` (all six kernels;
+flash's entry names its path and its launches by path);
 the last line is ``{"ok": true, "device": {...}}``. A summary also goes to
 ``chiprun_out/chip_smoke.json``.
 """
@@ -105,7 +111,8 @@ FLASH, DECODE = "flash_attention_kernel", "decode_attention_kernel"
 
 
 def counted_kernels() -> dict:
-    """Every kernel wrapper of the port by name; each counts its launches."""
+    """Every kernel wrapper of the port by name; each counts its launches
+    (flash attention per path, in a dict)."""
     from repro_torch.kernels.decode_attention import kernel as da
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.sketch_update import kernel
@@ -118,11 +125,20 @@ def counted_kernels() -> dict:
 
 def reset_counts() -> None:
     for fn in counted_kernels().values():
-        fn.launches = 0
+        fn.launches = (dict.fromkeys(fn.launches, 0)
+                       if isinstance(fn.launches, dict) else 0)
 
 
 def read_counts() -> dict:
-    return {name: fn.launches for name, fn in counted_kernels().items()}
+    """Launches by kernel; flash attention's as ``name[path]``."""
+    counts = {}
+    for name, fn in counted_kernels().items():
+        if isinstance(fn.launches, dict):
+            counts.update({f"{name}[{path}]": n
+                           for path, n in fn.launches.items()})
+        else:
+            counts[name] = fn.launches
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -187,7 +203,14 @@ SERIAL_ITEMS = 4096   # the plain serial version is a Python loop per item
 
 def serial_cases():
     """(name, 1, k, variant, state, block kind) grid of kernel 4, each on
-    the first SERIAL_ITEMS items of its block."""
+    the first SERIAL_ITEMS items of its block: besides the states above,
+    k = 8,000 (n = 8,064, the largest n whose slots and structures all fit
+    in shared memory), k = 8,100 and k = 40,000 (they do not: the slots
+    stay in global memory, the structures in a scratch), a state that
+    holds one id in three slots (evicted first) and another in two, a
+    block with the item -1 (inserted into EMPTY slots and evicting into
+    them) and one with unmonitored deletions of weight 40 (the SS± drain
+    crosses several maximum-error slots)."""
     cases = []
     for v in (2, 1):
         cases += [
@@ -198,6 +221,13 @@ def serial_cases():
             ("warm k=3125", 1, 3125, v, "warm", "stream"),
             ("warm k=4000", 1, 4000, v, "warm", "stream"),
             ("warm k=200 padding", 1, 200, v, "warm", "padding"),
+            ("warm k=8000", 1, 8000, v, "warm", "stream"),
+            ("warm k=8100", 1, 8100, v, "warm", "stream"),
+            ("warm k=40000", 1, 40000, v, "warm", "stream"),
+            ("dup k=1000", 1, 1000, v, "dup", "stream"),
+            ("cold k=77 item -1", 1, 77, v, "cold", "minus1"),
+            ("warm k=200 item -1", 1, 200, v, "warm", "minus1"),
+            ("warm k=301 drain", 1, 301, v, "warm", "drain"),
         ]
     return cases
 
@@ -285,9 +315,33 @@ def split_case(E, k, variant, state, block, device, seed):
 
 def serial_case(_, k, variant, state, block, device, seed):
     """Kernel 4's operands: one sketch's row view and the block's first
-    SERIAL_ITEMS items."""
-    bank, it, w, _ = case_block(1, k, variant, state, block, device, seed)
-    return serial_operands(bank, it[:SERIAL_ITEMS], w[:SERIAL_ITEMS])
+    SERIAL_ITEMS items, with the serial grid's own states and blocks
+    (``serial_cases``) planted on a warm state and a stream block."""
+    import torch
+
+    bank, it, w, _ = case_block(
+        1, k, variant, "warm" if state == "dup" else state,
+        "stream" if block in ("minus1", "drain") else block, device, seed)
+    it, w = it[:SERIAL_ITEMS].clone(), w[:SERIAL_ITEMS].clone()
+    if state == "dup":
+        # the block's first two ids: x in three slots at count 1 (the
+        # evictions take them first, the lowest first), y in two
+        ids, counts, errors = (t.clone() for t in bank)
+        x, y = int(it[0]), int(it[0]) + 1
+        it[1] = y
+        for j, item, c, e in ((k // 3, x, 1, 0), (1, x, 1, 0), (k - 1, x, 1, 0),
+                              (k // 2, y, 1000, 3), (2, y, 1000, 3)):
+            ids[0, j], counts[0, j], errors[0, j] = item, c, e
+        bank = type(bank)(ids, counts, errors)
+    if block == "minus1":
+        it[::7] = -1
+    if block == "drain":
+        # every fifth deletion: an id never inserted, weight -40
+        at = (w < 0).nonzero().flatten()[::5]
+        it[at] = (1 << 23) + torch.arange(len(at), dtype=it.dtype,
+                                          device=it.device)
+        w[at] = -40
+    return serial_operands(bank, it, w)
 
 
 def banked_operands(bank, row_items, row_weights, variant):
@@ -731,14 +785,67 @@ def split_bound(st, args, out, variant):
 
 
 def serial_bound(st, args, out, variant):
-    """Kernel 4 at the least: the sketch read once, each changed element
-    written once, the items and weights read once; every update of
-    nonzero weight looks at every slot once."""
+    """Kernel 4 at the least, whatever structures an implementation keeps:
+    the sketch read once, each changed element written once, the items
+    and weights read once; two operations (a compare and an add) per
+    update of nonzero weight. The updates form one dependent chain: its
+    latency, not this bound's rates, limits the kernel."""
     items, weights = args
     n = st[0].numel()
     writes = sum(int((a != b).sum()) for a, b in zip(st, out))
     nbytes = 4 * (3 * n + writes + 2 * items.numel())
-    return nbytes, n * int((weights != 0).sum())
+    return nbytes, 2 * int((weights != 0).sum())
+
+
+def serial_paths(last, B):
+    """Kernel 4 on three blocks of B updates from the serial run's last
+    state (full), each block taking one path of the update: every item
+    monitored (+1: a probe and a count's summaries), every item new (+1:
+    an eviction of the minimum, the table and both summaries rewritten),
+    every item an unmonitored deletion (-1: one SS± drain step while the
+    errors last). Timed as ``time_kernel`` times, beside the bound; each
+    held to the plain version on its first SERIAL_ITEMS updates (the
+    plain version takes seconds per block)."""
+    import torch
+    from repro_torch.kernels.sketch_update import kernel, ref
+
+    run = kernel.sketch_update_kernel_serial
+    st, _ = last
+    ids = st[0].flatten()
+    g = torch.Generator(device=ids.device).manual_seed(7)
+    held = ids[ids >= 0]
+    fresh = (1 << 24) + torch.arange(2 * B, dtype=torch.int32,
+                                     device=ids.device)  # outside the stream
+    ones = torch.ones(B, dtype=torch.int32, device=ids.device)
+    blocks = {
+        "monitored": (held[torch.randint(len(held), (B,), generator=g,
+                                         device=ids.device)], ones),
+        "evicting": (fresh[:B].clone(), ones),
+        "draining": (fresh[B:].clone(), -ones),
+    }
+    out = {}
+    for name, args in blocks.items():
+        head = tuple(a[:SERIAL_ITEMS] for a in args)
+        if not _same(run(*(c.clone() for c in st), *head, variant=2),
+                     ref.serial_update_ref(*st, *head, variant=2)):
+            raise SystemExit(f"kernel 4 on the {name} block differs from "
+                             "its plain version")
+        copies = [[c.clone() for c in st] for _ in range(3)]
+        got = run(*copies[0], *args, variant=2)  # warm-up
+        start, end = torch.cuda.Event(True), torch.cuda.Event(True)
+        torch.cuda.synchronize()
+        start.record()
+        for c in copies[1:]:
+            run(*c, *args, variant=2)
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / 2
+        nbytes, nops = serial_bound(st, args, got, 2)
+        out[name] = dict(ms=ms, us_per_update=ms * 1e3 / B, bound_ms=1e3 * max(
+            nbytes / HBM_BYTES_PER_S, nops / INT32_OPS_PER_S))
+    # each deletion of weight 1 drains one unit: a step while errors last
+    out["draining"]["drain_steps"] = int(st[2].sum() - got[2].sum())
+    return out
 
 
 def profile_blocks(spec, block, n_blocks, seed, device):
@@ -811,7 +918,11 @@ ROW_SHARE = 2.0**-6
 # B, S, T, H, KV, hd, causal, window: the reference's grid
 # (tests/test_kernel_flash_attention.py:10), a ragged S = 96 (the
 # kernel's tiles are 64 and 128 rows), T > S (sequence ends aligned), no
-# mask, and hd = 30 (rows not 16-byte multiples: the scalar loads)
+# mask, and hd = 30 (rows not 16-byte multiples: the scalar loads); then,
+# for the wgmma path (bf16, hd 64, 128, 256), S = 130 and T = 300 (not
+# multiples of its 128-row tiles) with G = 1, 2 and 4, causal, windowed
+# and without a mask. f32 takes the f32 path, bf16 at another hd the mma
+# path (flash_path).
 FLASH_CASES = [
     (2, 128, 128, 4, 2, 64, True, 0),
     (1, 256, 256, 4, 4, 32, True, 64),
@@ -823,6 +934,12 @@ FLASH_CASES = [
     (2, 64, 128, 4, 2, 64, True, 0),
     (1, 192, 192, 4, 2, 128, False, 0),
     (1, 80, 80, 2, 1, 30, True, 16),
+    (1, 130, 300, 4, 4, 64, True, 0),
+    (1, 130, 300, 4, 2, 64, True, 40),
+    (2, 130, 300, 8, 4, 128, True, 100),
+    (1, 130, 300, 8, 2, 128, False, 0),
+    (1, 130, 300, 4, 1, 256, True, 0),
+    (1, 130, 300, 4, 2, 256, False, 0),
 ]
 # B, KV, G, hd, C, row 0 empty: the reference's grid
 # (tests/test_kernel_decode_attention.py:10) at 70 % valid slots, hd = 30
@@ -917,19 +1034,22 @@ def check_mass(label, mass, valid, heads) -> None:
 
 def check_attention_cases(device) -> tuple:
     """Kernels 5 and 6 against their plain versions on the cases above,
-    f32 and bf16: flash at atol = rtol = 2e-5 (f32) / 2e-2 (bf16); decode
-    ctx at 3e-5 / 3e-2, mass at atol 2e-5, rtol 2e-4, and its sums; flash
-    and ctx also row by row (``check_rows``). Returns the worst max abs
-    error and the worst row share of each kernel."""
+    f32 and bf16: flash at atol = rtol = 2e-5 (f32) / 2e-2 (bf16), each
+    case on the path ``flash_path`` names for its shape (the launch
+    counters show it); decode ctx at 3e-5 / 3e-2, mass at atol 2e-5, rtol
+    2e-4, and its sums; flash and ctx also row by row (``check_rows``).
+    Returns the worst max abs error and the worst row share of each
+    kernel, and the flash cases per path."""
     import torch
     from repro_torch.kernels.decode_attention.kernel import \
         decode_attention_kernel
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
-    from repro_torch.kernels.flash_attention.kernel import \
-        flash_attention_kernel
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_kernel, flash_path)
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
     gen = torch.Generator(device=device).manual_seed(500)
+    paths = dict.fromkeys(flash_attention_kernel.launches, 0)
     worst = {FLASH: 0.0, DECODE: 0.0}
     shares = {FLASH: 0.0, DECODE: 0.0}
     for dtype in (torch.float32, torch.bfloat16):
@@ -942,12 +1062,20 @@ def check_attention_cases(device) -> tuple:
             label = (f"{FLASH} vs plain [{name} B={B} S={S} T={T} H={H} "
                      f"KV={KV} hd={hd} causal={causal} window={window}]")
             want = flash_attention_ref(q, k, v, causal=causal, window=window)
+            before = dict(flash_attention_kernel.launches)
             got = flash_attention_kernel(q, k, v, causal=causal, window=window)
             torch.cuda.synchronize()
+            path = flash_path(dtype, hd, True)
+            ran = {p: n - before[p]
+                   for p, n in flash_attention_kernel.launches.items()}
+            if ran != {p: int(p == path) for p in ran}:
+                raise SystemExit(f"{label}: launches {ran}, expected one "
+                                 f"on the {path} path")
+            paths[path] += 1
             err = close(label, got, want, tol, tol)
             share = check_rows(label, got, want)[1]
-            log(f"{label}: within {tol} (max_abs_err {err:.3g}, row share "
-                f"{share:.3g})")
+            log(f"{label}: {path} path, within {tol} (max_abs_err "
+                f"{err:.3g}, row share {share:.3g})")
             worst[FLASH] = max(worst[FLASH], err)
             shares[FLASH] = max(shares[FLASH], share)
         tol = _tol(dtype, 3e-5, 3e-2)
@@ -972,7 +1100,7 @@ def check_attention_cases(device) -> tuple:
                 f"{err_m:.3g})")
             worst[DECODE] = max(worst[DECODE], err, err_m)
             shares[DECODE] = max(shares[DECODE], share)
-    return worst, shares
+    return worst, shares, paths
 
 
 def time_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -1095,8 +1223,9 @@ def _swap_heads(t, dim):
 
 def planted_flash(label, q, k, v, window, want) -> dict:
     """The plain version with one fault planted, each of which the row
-    check must reject: the P·V of keys 64-127 (one of the kernel's kv
-    tiles) dropped, and q-heads 0-3 reading the wrong kv-head."""
+    check must reject: the P·V of keys 64-127 (half of one of the wgmma
+    kernel's 128-key tiles) dropped, and q-heads 0-3 reading the wrong
+    kv-head."""
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
     v_tile = v.clone()
@@ -1137,6 +1266,7 @@ def attention_phase(device, seed=6) -> tuple:
         decode_attention_kernel
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.flash_attention.kernel import \
         flash_attention_kernel
     from repro_torch.kernels.flash_attention.ref import (allowed_pairs,
@@ -1145,10 +1275,10 @@ def attention_phase(device, seed=6) -> tuple:
     torch.backends.cuda.matmul.allow_tf32 = False   # the plain versions
     torch.backends.cudnn.allow_tf32 = False         # run in true f32
     t0 = time.perf_counter()
-    worst, case_shares = check_attention_cases(device)
-    log(f"attention kernels vs plain: {2 * len(FLASH_CASES)} flash and "
-        f"{2 * len(DECODE_CASES)} decode cases within tolerance "
-        f"({time.perf_counter() - t0:.1f} s)")
+    worst, case_shares, case_paths = check_attention_cases(device)
+    log(f"attention kernels vs plain: {2 * len(FLASH_CASES)} flash (by "
+        f"path {case_paths}) and {2 * len(DECODE_CASES)} decode cases "
+        f"within tolerance ({time.perf_counter() - t0:.1f} s)")
 
     (q, k, v), (dq, dk, dv, valid) = attention_inputs(device, seed)
     window = GEMMA["window"]
@@ -1161,7 +1291,8 @@ def attention_phase(device, seed=6) -> tuple:
     torch.cuda.synchronize()
     path_ms = (time.perf_counter() - t0) * 1e3
     counts = read_counts()
-    want = {FLASH: 2, DECODE: 1}
+    wgmma = f"{FLASH}[wgmma]"
+    want = {wgmma: 2, DECODE: 1}
     if any(n != want.get(name, 0) for name, n in counts.items()):
         raise SystemExit(f"attention path: launches {counts}, expected {want}")
     log(f"attention path (flash global, flash local, decode hh): {path_ms:.3f}"
@@ -1175,8 +1306,13 @@ def attention_phase(device, seed=6) -> tuple:
         want = plain()
         err, share = check_rows(label, out, want)
         planted = planted_flash(label, q, k, v, win, want)
-        del want
         kern = lambda: flash_attention_kernel(q, k, v, causal=True, window=win)
+        # the mma.sync kernel the wgmma one replaced at these widths, timed
+        # beside it (outside the counted run)
+        out_mma = torch.empty_like(q)
+        mma = lambda: fa._launch("mma", q, k, v, out_mma, True, win)
+        mma()
+        mma_share = check_rows(label + " (mma path)", out_mma, want)[1]
         qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         if win:
             mask = allowed_pairs(PREFILL, PREFILL, True, win, device)
@@ -1189,13 +1325,15 @@ def attention_phase(device, seed=6) -> tuple:
             shape=dict(B=1, S=PREFILL, T=PREFILL, H=GEMMA["H"],
                        KV=GEMMA["KV"], hd=GEMMA["hd"], window=win,
                        dtype="bfloat16"),
-            max_abs_err=err, row_share=share, row_share_limit=ROW_SHARE,
-            planted_row_shares=planted, ms=time_ms(kern, 20),
-            kernel_device_ms=device_kernels(kern), plain_ms=time_ms(plain, 3),
+            path="wgmma", max_abs_err=err, row_share=share,
+            row_share_limit=ROW_SHARE, planted_row_shares=planted,
+            ms=time_ms(kern, 20), kernel_device_ms=device_kernels(kern),
+            mma_path_ms=time_ms(mma, 20), mma_path_row_share=mma_share,
+            plain_ms=time_ms(plain, 3),
             library_ms=time_ms(lib, 20), library_kernels=device_kernels(lib),
             library_max_abs_diff=lib_err,
             **flash_bound(q, k, True, win))
-        del qh, kh, vh, lib
+        del qh, kh, vh, lib, want, out_mma
         log(f"{label}: {json.dumps(runs[label])}")
         torch.cuda.empty_cache()
 
@@ -1230,22 +1368,26 @@ def attention_phase(device, seed=6) -> tuple:
 
     root = "src/repro_torch/kernels"
     entries = []
-    for name, run, src, ref in (
-            (FLASH, runs["flash global"], "flash_attention/csrc/"
-             "flash_attention.cu", "flash_attention/kernel.py:82"),
-            (DECODE, runs["decode hh"], "decode_attention/csrc/"
+    for name, counter, run, src, ref in (
+            (FLASH, wgmma, runs["flash global"], "flash_attention/csrc/"
+             "flash_wgmma.cu", "flash_attention/kernel.py:82"),
+            (DECODE, DECODE, runs["decode hh"], "decode_attention/csrc/"
              "decode_attention.cu", "decode_attention/kernel.py:61")):
         entries.append({
             "name": name, "route": "cuda", "source": f"{root}/{src}",
             "replaces": f"src/repro/kernels/{ref}",
+            "launches": counts[counter],
             "max_abs_err": max(worst[name], run["max_abs_err"]),
             "ms": run["ms"], "plain_ms": run["plain_ms"],
             "bound_ms": run["bound_ms"], "bound_by": run["bound_by"],
             "library_ms": run["library_ms"]})
-    for entry in entries:
-        entry["launches"] = counts[entry["name"]]
+    # flash's paths by name: the path's launches in the counted run (the
+    # mma and f32 paths take the shapes the wgmma kernel does not)
+    entries[0].update(path="wgmma", launches_by_path={
+        path: counts[f"{FLASH}[{path}]"] for path in fa.PATHS})
     return entries, dict(case_max_abs_err=worst, case_row_share=case_shares,
-                         path_wall_ms=path_ms, runs=runs)
+                         case_paths=case_paths, path_wall_ms=path_ms,
+                         runs=runs)
 
 
 def gpu_line() -> str:
@@ -1267,7 +1409,7 @@ def main() -> int:
     from repro_torch.kernels.decode_attention.kernel import \
         SOURCE as DECODE_SOURCE
     from repro_torch.kernels.flash_attention.kernel import \
-        SOURCE as FLASH_SOURCE
+        SOURCES as FLASH_SOURCES
     from repro_torch.kernels.sketch_update import kernel, ops, ref
     from repro_torch.sketch.api import SketchSpec
     from repro_torch.sketch.state import SketchState
@@ -1276,7 +1418,7 @@ def main() -> int:
     card = gpu_line()
     log(f"device: {card}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
-    sources = (*kernel.SOURCES, FLASH_SOURCE, DECODE_SOURCE)
+    sources = (*kernel.SOURCES, *FLASH_SOURCES, DECODE_SOURCE)
     t0 = time.perf_counter()
     _build.build(sources)
     log(f"build: {time.perf_counter() - t0:.1f} s "
@@ -1361,6 +1503,8 @@ def main() -> int:
     for name, t in times.items():
         log(f"{name} at its run's shapes: {json.dumps(t)}")
     log(f"sketch_residual_kernel at path B's shapes: {json.dumps(times_b)}")
+    serial_by_path = serial_paths(last["serial"], B)
+    log(f"sketch_update_kernel_serial by path: {json.dumps(serial_by_path)}")
     prof = {label: profile_blocks(spec, B, 8, seed=3, device=device)
             for label, spec in (("main", main_spec), ("lazy", lazy_spec),
                                 ("path_a", a_spec), ("path_b", b_spec))}
@@ -1391,7 +1535,8 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
         card=card, runs=runs, kernel_times=times,
-        residual_times_path_b=times_b, profile=prof, attention=attention,
+        residual_times_path_b=times_b, serial_paths=serial_by_path,
+        profile=prof, attention=attention,
         kernels=kernels), indent=1))
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,4 +1,7 @@
-// Flash attention forward for the H100 (sm_90a), bound with ctypes.
+// Flash attention forward for the H100 (sm_90a), bound with ctypes: the
+// f32 kernel and the mma.sync bf16 kernel, which takes the bf16 shapes that
+// flash_wgmma.cu does not (an hd other than 64, 128 and 256, or operands
+// not 16-byte aligned).
 //
 // Replaces the Pallas TPU kernel flash_attention_kernel
 // (src/repro/kernels/flash_attention/kernel.py:82): blocked online-softmax
@@ -41,38 +44,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_common.cuh"
+
 namespace {
-
-constexpr float M_INIT = -1e30f;  // the reference's NEG_INF, m before any key
-constexpr float LOG2E = 1.4426950408889634f;
-
-struct Params {
-  const void* q;
-  const void* k;
-  const void* v;
-  void* o;
-  int S, T, H, KV, G, hd;
-  int causal, window, q_offset;  // q_offset = T - S aligns the sequence ends
-  int vec;                       // rows may be read 16 bytes at a time
-  float scale;                   // 1 / sqrt(hd)
-};
-
-__device__ __forceinline__ bool allowed(const Params& p, int qpos, int kp) {
-  return kp < p.T && (!p.causal || kp <= qpos) &&
-         (!p.window || kp > qpos - p.window);
-}
-
-// Key positions [lo, hi) that query rows [q0, q1) may see.
-__device__ __forceinline__ void kv_band(const Params& p, int q0, int q1,
-                                        int* lo, int* hi) {
-  *lo = p.window ? max(0, q0 + p.q_offset - p.window + 1) : 0;
-  *hi = p.causal ? min(p.T, q1 + p.q_offset) : p.T;
-}
-
-__device__ __forceinline__ size_t row_offset(int b, int r, int L, int NH,
-                                             int head, int hd) {
-  return ((size_t)(b * L + r) * NH + head) * hd;
-}
 
 // ---------------------------------------------------------------------------
 // bf16 on the tensor cores
@@ -254,9 +228,7 @@ __global__ void __launch_bounds__(MMA_THREADS, HDP <= 128 ? 2 : 1)
 
     // scale and mask (-inf: p = 0 exactly), then the rows' maxima; a tile
     // inside the band for every row of the CTA skips the mask
-    const bool inside = k0 + MMA_BKV <= p.T &&
-                        (!p.causal || k0 + MMA_BKV - 1 <= q0 + p.q_offset) &&
-                        (!p.window || k0 > q1 - 1 + p.q_offset - p.window);
+    const bool inside = inside_band(p, q0, q1, k0, k0 + MMA_BKV);
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
     for (int n = 0; n < NT_S; ++n)

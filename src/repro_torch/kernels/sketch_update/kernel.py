@@ -42,6 +42,15 @@ def entry_point(source: str, name: str, n_ptr: int, n_int: int):
                               (_P,) * n_ptr + (_I,) * n_int)
 
 
+def _serial_scratch_ints():
+    """``sketch_serial_scratch_ints(n)`` of ``serial_update.cu``: the ints
+    of global scratch a serial launch over n slots needs."""
+    fn = _build.load(CSRC / "serial_update.cu").sketch_serial_scratch_ints
+    fn.argtypes = [_I]
+    fn.restype = ctypes.c_longlong
+    return fn
+
+
 def _check(what, named, shapes, device) -> None:
     _build.check_operands(what, named, device)
     for name, t in named.items():
@@ -165,8 +174,15 @@ def sketch_update_kernel_serial(ids2, cnt2, err2, items, weights, *,
     _check("sketch_update_kernel_serial", named, shapes, ids2.device)
     _check_variant(variant)
     _check_sizes("sketch_update_kernel_serial", R, B, R * lanes)
-    _launch(entry_point("serial_update.cu", "sketch_serial_update", 5, 3),
-            named.values(), (R * lanes, B, variant), ids2.device,
+    n = R * lanes
+    # where the slots and the structures do not fit in shared memory
+    # together, the structures live in a scratch
+    with torch.cuda.device(ids2.device):
+        n_scratch = _serial_scratch_ints()(n)
+    scratch = torch.empty(max(n_scratch, 1), dtype=torch.int32,
+                          device=ids2.device)
+    _launch(entry_point("serial_update.cu", "sketch_serial_update", 6, 3),
+            [*named.values(), scratch], (n, B, variant), ids2.device,
             "serial_update")
     sketch_update_kernel_serial.launches += 1
     return ids2, cnt2, err2

@@ -173,7 +173,7 @@ def test_cpu_tensors_take_the_plain_versions_not_the_kernels():
         2, (1, 64, 2, 16), (1, 64, 1, 16), (1, 64, 1, 16)))
     valid = torch.ones((1, 64), dtype=torch.bool)
     dq = q[:, :1].reshape(1, 1, 2, 16).contiguous()
-    before = (flash_attention_kernel.launches,
+    before = (dict(flash_attention_kernel.launches),
               decode_attention_kernel.launches)
     flash_attention(q, k, v)
     decode_attention(dq, k, v, valid)

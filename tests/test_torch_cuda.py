@@ -142,6 +142,31 @@ def test_serial_kernel_equals_plain_version(cuda, variant, K, state):
     _assert_same(want, got)
 
 
+@pytest.mark.parametrize("variant", [1, 2])
+@pytest.mark.parametrize("k,state,block", [
+    (8000, "warm", "stream"),    # n = 8,064: the last all-shared layout
+    (8100, "warm", "stream"),    # n = 8,192: structures in the scratch
+    (16000, "warm", "drain"),
+    (40000, "warm", "stream"),
+    (40000, "cold", "minus1"),
+    (1000, "dup", "stream"),     # one id in three slots, one in two
+    (77, "cold", "minus1"),      # the item -1 into EMPTY slots, and evicting
+    (200, "warm", "minus1"),
+    (301, "warm", "drain"),      # deletions of 40 across max-error slots
+    (3125, "warm", "drain"),
+], ids=str)
+def test_serial_kernel_on_the_structures_edge_cases(cuda, variant, k, state,
+                                                    block):
+    """The structures' rare paths (chip_smoke.serial_case builds each
+    case), bit for bit against the plain version."""
+    rows, (it, w) = _chip_smoke().serial_case(1, k, variant, state, block,
+                                              cuda, seed=k + variant)
+    want = serial_update_ref(*rows, it, w, variant)
+    got = sketch_update_kernel_serial(*(t.clone() for t in rows), it, w,
+                                      variant=variant)
+    _assert_same(want, got)
+
+
 def test_session_on_the_card_equals_the_cpu_session(cuda):
     _sharded_session_on_the_card_equals_the_cpu(cuda, "kernel")
 
@@ -183,7 +208,9 @@ def test_pad_bank_keeps_the_callers_bank(cuda):
 
 # B, S, T, H, KV, hd, causal, window: the reference's flash grid, a ragged
 # S (96, 100), T > S, hd = 80 and 200 (not multiples of 16 or 64), hd = 30
-# (rows not 16-byte multiples: the scalar loads), no mask
+# (rows not 16-byte multiples: the scalar loads), no mask; then the wgmma
+# path's shapes (bf16, hd 64, 128, 256) at S = 130, T = 300 (not multiples
+# of its 128-row tiles), G = 1, 2 and 4, causal, windowed and unmasked
 FLASH_CARD_CASES = [
     (2, 128, 128, 4, 2, 64, True, 0),
     (1, 256, 256, 4, 4, 32, True, 64),
@@ -197,6 +224,16 @@ FLASH_CARD_CASES = [
     (1, 192, 192, 4, 2, 128, False, 0),
     (1, 130, 130, 2, 2, 200, True, 0),
     (1, 80, 80, 2, 1, 30, True, 16),
+    (1, 130, 300, 4, 4, 64, True, 0),
+    (2, 130, 300, 4, 2, 64, True, 40),
+    (1, 130, 300, 4, 1, 64, False, 0),
+    (1, 130, 300, 4, 4, 128, False, 0),
+    (2, 130, 300, 8, 4, 128, True, 100),
+    (1, 130, 300, 8, 2, 128, True, 0),
+    (1, 300, 300, 8, 2, 128, True, 256),
+    (1, 130, 300, 4, 1, 256, True, 0),
+    (1, 130, 300, 4, 2, 256, True, 64),
+    (1, 130, 300, 2, 2, 256, False, 0),
 ]
 # B, KV, G, hd, C, row 0 empty: the reference's decode grid, a C that is
 # not a multiple of the kernel's chunk, hd = 80, 20 and 30 (rows not
@@ -224,12 +261,21 @@ def _assert_close(got, want, atol, rtol):
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
 
 
+def _launched_paths(before):
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_kernel
+
+    return [p for p, n in flash_attention_kernel.launches.items()
+            if n != before[p]]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", FLASH_CARD_CASES, ids=str)
 def test_flash_attention_kernel_equals_plain_version(cuda, case, dtype):
-    """Within the reference's tolerances: 2e-5 (f32), 2e-2 (bf16)."""
-    from repro_torch.kernels.flash_attention.kernel import \
-        flash_attention_kernel
+    """Within the reference's tolerances: 2e-5 (f32), 2e-2 (bf16), on the
+    path ``flash_path`` names (wgmma for bf16 at hd 64, 128 and 256)."""
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_kernel, flash_path)
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -239,10 +285,36 @@ def test_flash_attention_kernel_equals_plain_version(cuda, case, dtype):
     k = _rand(gen, (B, T, KV, hd), dtype, cuda)
     v = _rand(gen, (B, T, KV, hd), dtype, cuda)
     tol = 2e-5 if dtype == torch.float32 else 2e-2
+    before = dict(flash_attention_kernel.launches)
     got = flash_attention_kernel(q, k, v, causal=causal, window=window)
     assert got.dtype == dtype
     _assert_close(got, flash_attention_ref(q, k, v, causal=causal,
                                            window=window), tol, tol)
+    path = flash_path(dtype, hd, True)
+    assert _launched_paths(before) == [path]
+    assert path == ("f32" if dtype == torch.float32 else
+                    "wgmma" if hd in (64, 128, 256) else "mma")
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_attention_unaligned_operands_take_the_mma_path(cuda, hd):
+    """bf16 at a wgmma width, but q starts 2 bytes past a 16-byte
+    boundary: the TMA cannot read it, so the mma.sync kernel runs."""
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_kernel
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    gen = torch.Generator(device=cuda).manual_seed(hd)
+    shape = (1, 130, 4, hd)
+    buf = _rand(gen, (shape[1] * shape[2] * hd + 8,), torch.bfloat16, cuda)
+    q = buf[1:1 + shape[1] * shape[2] * hd].view(shape)
+    k = _rand(gen, (1, 200, 2, hd), torch.bfloat16, cuda)
+    v = _rand(gen, (1, 200, 2, hd), torch.bfloat16, cuda)
+    assert q.is_contiguous() and q.data_ptr() % 16 != 0
+    before = dict(flash_attention_kernel.launches)
+    got = flash_attention_kernel(q, k, v, causal=True, window=0)
+    _assert_close(got, flash_attention_ref(q, k, v), 2e-2, 2e-2)
+    assert _launched_paths(before) == ["mma"]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -303,29 +375,42 @@ def test_attention_ops_launch_the_kernels_for_cuda_tensors(cuda):
     bf16 = dict(dtype=torch.bfloat16, device=cuda)
     q = torch.randn((1, 128, 4, 64), **bf16)
     k = torch.randn((1, 128, 2, 64), **bf16)
-    before = (flash_attention_kernel.launches,
+    before = (dict(flash_attention_kernel.launches),
               decode_attention_kernel.launches)
     flash_attention(q, k, k, window=32, bq=64, bkv=64)
     decode_attention(q[:, :1].reshape(1, 2, 2, 64).contiguous(), k, k,
                      torch.ones((1, 128), dtype=torch.bool, device=cuda))
     torch.cuda.synchronize()
-    assert (flash_attention_kernel.launches,
-            decode_attention_kernel.launches) == (before[0] + 1,
-                                                  before[1] + 1)
+    assert _launched_paths(before[0]) == ["wgmma"]
+    assert flash_attention_kernel.launches["wgmma"] == before[0]["wgmma"] + 1
+    assert decode_attention_kernel.launches == before[1] + 1
 
 
-# A fault planted in a copy of a kernel's source, at the full-width shapes
-# of chip_smoke.py: one 64-key tile's P·V dropped in one flash CTA (the
-# last q tile of head 0), and one chunk dropped from decode's combine for
-# (b 0, kv-head 0). chip_smoke.py's row check must pass the kernel as it is
-# and reject the mutant.
+# A fault planted in a copy of a kernel's source (the module attribute that
+# names it, the text replaced, its replacement), at the full-width shapes
+# of chip_smoke.py: in the wgmma flash kernel, the first of the eight
+# wgmmas of one kv tile's P·V (16 keys) dropped in the heaviest work item
+# (the last q tile of head 0); one chunk dropped from decode's combine for
+# (b 0, kv-head 0). chip_smoke.py's row check must pass the kernel as it
+# is and reject the mutant, which the old tolerance alone lets through.
 MUTANTS = {
     "flash_attention": (
-        "    // o += P · V: the score fragments",
-        "    if (blockIdx.x == 0 && blockIdx.y == 0 && it == ntiles / 2) {\n"
-        "      __syncthreads();\n      continue;\n    }\n"
-        "    // o += P · V: the score fragments"),
+        "WGMMA_SOURCE",
+        "        issue_pv(n + i - 1);",
+        "        if (w == 0 && i == nt / 2) {\n"
+        "          const bf16* Vt = Vs + ((n + i - 1) % STAGES) * "
+        "C::KV_ELEMS;\n"
+        "#pragma unroll\n"
+        "          for (int kk = 1; kk < BKV / 16; ++kk)\n"
+        "            wgmma_rs<HD>(o, pa[kk], sw128_desc(Vt + kk * 16 * BOX,\n"
+        "                                               BKV * BOX * 2, "
+        "1024));\n"
+        "          wgmma_commit();\n"
+        "        } else {\n"
+        "          issue_pv(n + i - 1);\n"
+        "        }"),
     "decode_attention": (
+        "SOURCE",
         "        acc = fmaf(part[(size_t)j * G * p.hd], weight[j], acc);",
         "        if (!(b == 0 && kvh == 0 && j == nc / 2))\n"
         "          acc = fmaf(part[(size_t)j * G * p.hd], weight[j], acc);"),
@@ -341,22 +426,30 @@ def _chip_smoke():
     return chip_smoke
 
 
-def _full_width_shares(cuda, name, kernels) -> list:
-    """chip_smoke's row share of each full-width run: flash global and
-    local, or the decode context."""
+def _full_width_checks(cuda, name, kernels) -> list:
+    """(chip_smoke's row share, whether the old tolerance atol = rtol =
+    2e-2 (flash) or 3e-2 (decode ctx) passes) of each full-width run:
+    flash global and local, or the decode context."""
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
     chip_smoke = _chip_smoke()
     (q, k, v), (dq, dk, dv, valid) = chip_smoke.attention_inputs(cuda, 6)
     if name == "flash_attention":
-        return [chip_smoke.row_share(
-                    kernels.flash_attention_kernel(q, k, v, window=w),
-                    flash_attention_ref(q, k, v, causal=True, window=w))[1]
-                for w in (0, chip_smoke.GEMMA["window"])]
-    return [chip_smoke.row_share(
-        kernels.decode_attention_kernel(dq, dk, dv, valid)[0],
-        decode_attention_ref(dq, dk, dv, valid)[0])[1]]
+        pairs = [(kernels.flash_attention_kernel(q, k, v, window=w),
+                  flash_attention_ref(q, k, v, causal=True, window=w))
+                 for w in (0, chip_smoke.GEMMA["window"])]
+        tol = 2e-2
+    else:
+        pairs = [(kernels.decode_attention_kernel(dq, dk, dv, valid)[0],
+                  decode_attention_ref(dq, dk, dv, valid)[0])]
+        tol = 3e-2
+    out = []
+    for got, want in pairs:
+        err = (got.float() - want.float()).abs()
+        out.append((chip_smoke.row_share(got, want)[1],
+                    bool((err <= tol + tol * want.float().abs()).all())))
+    return out
 
 
 @pytest.mark.parametrize("name", sorted(MUTANTS))
@@ -365,16 +458,25 @@ def test_full_width_row_check_rejects_a_mutant_kernel(cuda, name, tmp_path,
     import importlib
 
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    from repro_torch.kernels import _build
+
     kernels = importlib.import_module(f"repro_torch.kernels.{name}.kernel")
-    good = _full_width_shares(cuda, name, kernels)
-    old, new = MUTANTS[name]
-    source = kernels.SOURCE.read_text()
+    good = _full_width_checks(cuda, name, kernels)
+    attr, old, new = MUTANTS[name]
+    path = getattr(kernels, attr)
+    source = path.read_text()
     assert source.count(old) == 1
-    mutant = tmp_path / kernels.SOURCE.name
+    mutant = tmp_path / path.name
     mutant.write_text(source.replace(old, new))
-    monkeypatch.setattr(kernels, "SOURCE", mutant)
-    bad = _full_width_shares(cuda, name, kernels)
+    for dep in _build.includes(path):  # the headers it includes, beside it
+        (tmp_path / dep.name).write_bytes(dep.read_bytes())
+    monkeypatch.setattr(kernels, attr, mutant)
+    bad = _full_width_checks(cuda, name, kernels)
     limit = _chip_smoke().ROW_SHARE
-    print(f"{name}: row share {good} as built, {bad} mutant (limit "
-          f"{limit})")
-    assert max(good) <= limit < min(bad)
+    print(f"{name}: (row share, old tolerance passes) {good} as built, "
+          f"{bad} mutant (limit {limit})")
+    assert all(ok for _, ok in good)
+    assert max(share for share, _ in good) <= limit
+    assert min(share for share, _ in bad) > limit
+    # the old tolerance alone would let the mutant through
+    assert any(ok for _, ok in bad)
