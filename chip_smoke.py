@@ -14,10 +14,19 @@ result):
    warm and near-rail (+ and -) states, K values that are not multiples
    of 32 or 128, R and E in {1, 7, 128}, k = 400,000 for the
    single-sketch residual kernel, and all-padding blocks: the fused
-   update (kernel 1), the banked residual (kernel 2), the stacked
-   single-sketch residual (kernel 3) and the serial baseline (kernel 4,
-   on the first 4,096 items of each case, with k = 40,000, a state that
-   holds ids twice, the item -1 and SS± drains across several slots);
+   update (kernel 1), the banked residual (kernel 2; also K at and past
+   its staged layout's limit, 24,576 / 24,577), the stacked
+   single-sketch residual (kernel 3; also k = 16,384 / 16,385 /
+   1,048,577, at and past its layouts' limits), each case of kernels 2
+   and 3 on the layout its size names (``kernel.residual_layout``,
+   ``banked_layout``; the limit cases on the layout written beside
+   them), both residual kernels
+   on the SS± drain's edge cases (``drain_domains``: ties at the
+   threshold, rem at a prefix sum or past the total, error sums past
+   2^31, errors of every sign, EMPTY and BLOCKED slots), and the serial
+   baseline (kernel 4, on the first 4,096 items of each case, with k =
+   40,000, a state that holds ids twice, the item -1 and SS± drains
+   across several slots);
 4. runs at a real size, each on a Zipf(1.0) stream over 2^24 ids at
    delete ratio 0.5, interleaved, in blocks of 65,536:
    - main: a flow-monitoring deployment of SpaceSaving± in the paper's
@@ -38,13 +47,21 @@ result):
    - serial sspm k=4000: ``ops.sketch_block_update_serial`` on one
      sketch of ``capacity_for(1e-3, 2)`` counters, 8 blocks, kernel 4.
    Every counter is set to 0 before a run and read after it: each run
-   must launch its kernel once per block and no other kernel. Each run
+   must launch its kernel once per block and no other kernel (kernels 2
+   and 3 on the layout named for the run: path A on summary+chain, the
+   others staged). Each run
    but the serial one must equal the same blocks run through the plain
    versions on the card; each must hold the error bound of Thm 4 (SS±)
    or Thm 2 (Lazy) against the exact frequencies, with every item above
    the bound monitored;
-5. times: per-block ms and updates/s of each run; each kernel's ms at
-   its run's shapes beside its bound and the plain version's ms; a
+5. times: per-block ms and updates/s of each run; each kernel's device
+   ms at its run's shapes (the kernels the profiler sees, per call; and
+   the time per call from the host, which holds the wrapper's host time,
+   the median of five rounds)
+   beside its bound and the plain version's ms; kernel 3 also on path
+   B's last block and on the block-lazy run's block 1, and for kernels 2
+   and 3 each timed block's evictions and SS± drain steps (in all and
+   the most in one sketch or row) and the us per eviction; a
    ``torch.profiler`` window over blocks of the main, lazy, path A and
    path B sessions (device busy share and the ops that take the device
    time);
@@ -77,7 +94,8 @@ result):
      only, not the mass), beside each run's bound.
 
 The line before the last two is ``{"kernels": [...]}`` (all six kernels;
-flash's entry names its path and its launches by path);
+the entries of flash and of kernels 2 and 3 give their launches by path,
+kernels 1-4 also ``stream_ms``);
 the last line is ``{"ok": true, "device": {...}}``. A summary also goes to
 ``chiprun_out/chip_smoke.json``.
 """
@@ -166,7 +184,12 @@ def kernel_cases():
 
 
 def banked_cases():
-    """(name, R, K, variant, bank state, block kind) grid of kernel 2."""
+    """(name, R, K, variant, bank state, block kind[, layout]) grid of
+    kernel 2: besides the states above, K = 24,576 (the largest row it
+    stages in shared memory), 24,577 and 400,000 (past it: the row stays
+    in device memory, its chunk minima in a scratch), and the drain cases
+    (``drain_domains``, on unpadded rows of 3,001 slots: rows off 16-byte
+    alignment). A case that names a layout must run on it."""
     cases = []
     for v in (2, 1):
         cases += [
@@ -176,13 +199,28 @@ def banked_cases():
             ("rail+ R=7 K=1000", 7, 1000, v, "rail+", "stream"),
             ("rail- R=7 K=301", 7, 301, v, "rail-", "stream"),
             ("warm R=128 K=3125 padding", 128, 3125, v, "warm", "padding"),
+            ("warm R=1 K=24576", 1, 24576, v, "warm", "stream", "staged"),
+            ("warm R=1 K=24577", 1, 24577, v, "warm", "stream", "unstaged"),
+            ("warm R=1 K=400000", 1, 400000, v, "warm", "stream",
+             "unstaged"),
         ]
+        cases += [(f"drain {kind} R=3 K=3001", 3, 3001, v, kind, "drain")
+                  for kind in DRAIN_KINDS]
+        cases += [("drain ties R=2 K=30000", 2, 30000, v, "ties", "drain"),
+                  ("drain signs R=2 K=30000", 2, 30000, v, "signs", "drain")]
     return cases
 
 
 def split_cases():
-    """(name, E, k, variant, state, block kind) grid of kernel 3: E > 1
-    sketches take the rows' routed (sorted) views, E = 1 the raw block."""
+    """(name, E, k, variant, state, block kind[, layout]) grid of kernel
+    3: E > 1
+    sketches take the rows' routed (sorted) views, E = 1 the raw block.
+    Besides the states above: k = 16,384 (R = 128, the largest sketch it
+    stages in shared memory), 16,385 (R = 129: the rows stay in device
+    memory, summarised over the card), 1,048,577 (R = 8,193: the
+    summaries no longer fit shared memory and stay in the scratch), and
+    the drain cases (``drain_domains``) on both sides of the staged
+    layout's limit. A case that names a layout must run on it."""
     cases = []
     for v in (2, 1):
         cases += [
@@ -193,9 +231,128 @@ def split_cases():
             ("rail- E=7 k=301", 7, 301, v, "rail-", "stream"),
             ("warm E=128 k=3125 padding", 128, 3125, v, "warm", "padding"),
             ("warm E=1 k=3125", 1, 3125, v, "warm", "stream"),
-            ("warm E=1 k=400000", 1, 400000, v, "warm", "stream"),
+            ("warm E=1 k=400000", 1, 400000, v, "warm", "stream",
+             "summary+chain"),
+            ("warm E=1 k=16384", 1, 16384, v, "warm", "stream", "staged"),
+            ("warm E=1 k=16385", 1, 16385, v, "warm", "stream",
+             "summary+chain"),
+            ("warm E=1 k=1048577", 1, 1048577, v, "warm", "stream",
+             "summary+chain/scratch"),
         ]
+        cases += [(f"drain {kind} E=3 k=3000", 3, 3000, v, kind, "drain")
+                  for kind in DRAIN_KINDS]
+        cases += [("drain ties E=2 k=20000", 2, 20000, v, "ties", "drain"),
+                  ("drain big E=2 k=20000", 2, 20000, v, "big", "drain"),
+                  ("drain signs E=1 k=400000", 1, 400000, v, "signs",
+                   "drain")]
     return cases
+
+
+# The SS± drain's edge cases (``drain_domains``): ties at the threshold
+# (inside one 128-slot row and across rows) with a remainder, rem equal to
+# a prefix sum that ends inside the ties, rem equal to the sum above them,
+# rem past the total error, errors whose sum passes 2^31, errors of every
+# sign (0, -1, INT_MIN, INT_MAX), and EMPTY and BLOCKED slots.
+DRAIN_KINDS = ("ties", "prefix", "boundary", "over", "big", "signs", "empty")
+DRAIN_INSERTS = 40   # evictions before each drain
+
+
+def drain_domains(kind, n, width, seed):
+    """``n`` drain domains of ``width`` slots each (a bank row, or one
+    sketch's flat slots) and each one's deletion weight, from ``seed``:
+    ``(ids, counts, errors, rem)``, numpy int32, the first three (n,
+    width). Counts are random, some near the negative rail where a slot
+    drains (kernel 3 wraps there, kernel 2 saturates)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    ids = ((1 << 22) + np.arange(n * width)).reshape(n, width)
+    counts = rng.integers(0, 10**6, (n, width))
+    errors = rng.integers(0, 50, (n, width))
+    rem = np.zeros(n, np.int64)
+    imax = 2**31 - 1
+    for d in range(n):
+        e, c = errors[d], counts[d]
+        if kind in ("ties", "prefix", "boundary"):
+            # 24 slots at 1,000: 12 inside one 128-slot row, 12 anywhere;
+            # 5 above them, two of those tied too
+            row = 128 * int(rng.integers(0, max(width // 128, 1)))
+            tie = np.concatenate([
+                row + rng.choice(min(128, width - row), 12, replace=False),
+                rng.choice(width, 12, replace=False)])
+            e[tie] = 1000
+            c[tie[::3]] = -imax + 600
+            top = rng.choice(width, 5, replace=False)
+            e[top] = [3000, 3000, 3001, 2500, 1001]
+            above = int(e[e > 1000].sum())
+            rem[d] = above + {"ties": 7123, "prefix": 7000, "boundary": 0}[kind]
+        elif kind == "over":
+            e -= 5
+            rem[d] = int(e[e > 0].sum()) + 1000
+        elif kind == "big":
+            big = rng.choice(width, 20, replace=False)
+            e[big] = rng.integers(2**29, 2**30, 20)
+            c[big[:5]] = -imax + rng.integers(0, 4, 5)
+            rem[d] = imax
+        elif kind == "signs":
+            e[:] = rng.integers(-2**31, 2**31, width)
+            e[rng.choice(width, 6, replace=False)] = [-2**31, -1, 0, 0, imax,
+                                                       imax]
+            c[np.argsort(-e)[:8]] = -imax + 2
+            rem[d] = int(rng.integers(2**30, 2**31))
+        elif kind == "empty":
+            # EMPTY slots (count 0, error 0) and a BLOCKED tail (INT_MAX,
+            # 0), as the kernels' callers lay them out
+            empty = rng.random(width) < 0.1
+            ids[d, empty], c[empty], e[empty] = -1, 0, 0
+            tail = slice(width - width // 16, width)
+            ids[d, tail], c[tail], e[tail] = -2, imax, 0
+            rem[d] = int(e[e > 0].sum()) // 2
+        else:
+            raise ValueError(kind)
+    as32 = lambda a: a.astype(np.int32)
+    return as32(ids), as32(counts), as32(errors), as32(rem)
+
+
+def drain_inserts(n, B, seed):
+    """(n, B) uids (fresh, distinct) and net weights (2-60, one at INT_MAX)
+    of the evictions before each drain."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 1)
+    uids = (1 << 23) + np.arange(n * B).reshape(n, B)
+    net = rng.integers(2, 61, (n, B))
+    net[:, 3] = 2**31 - 1
+    return uids.astype(np.int32), net.astype(np.int32)
+
+
+def drain_split(E, k, variant, kind, device, seed):
+    """Kernel 3's operands for a drain case: E sketches of k slots (their
+    row view, BLOCKED past k), DRAIN_INSERTS evictions each, then the
+    drain of rem (SS±)."""
+    import torch
+    from repro_torch.sketch.phases import pad_rows
+
+    ids, counts, errors, rem = drain_domains(kind, E, k, seed)
+    uids, net = drain_inserts(E, 64, seed)
+    t = lambda a: torch.as_tensor(a, device=device)
+    zero = torch.zeros(E, dtype=torch.int32, device=device)
+    return (list(pad_rows(t(ids), t(counts), t(errors))),
+            [t(uids), t(net), zero, zero + DRAIN_INSERTS, t(rem)])
+
+
+def drain_banked(R, K, variant, kind, device, seed):
+    """Kernel 2's operands for a drain case: R unpadded rows of K slots,
+    DRAIN_INSERTS evictions each from the flat layout, then the drain."""
+    import torch
+
+    ids, counts, errors, rem = drain_domains(kind, R, K, seed)
+    uids, net = drain_inserts(1, 64 * R, seed)
+    t = lambda a: torch.as_tensor(a, device=device)
+    zero = torch.zeros(R, dtype=torch.int32, device=device)
+    uoff = torch.arange(R, dtype=torch.int32, device=device) * 64
+    return ([t(ids), t(counts), t(errors)],
+            [t(uids[0]), t(net[0]), uoff, zero, zero + DRAIN_INSERTS, t(rem)])
 
 
 SERIAL_ITEMS = 4096   # the plain serial version is a Python loop per item
@@ -298,14 +455,20 @@ def fused_case(R, K, variant, state, block, device, seed):
 
 
 def banked_case(R, K, variant, state, block, device, seed):
-    """Kernel 2's operands: the padded bank after ``bank.phase1_dense``."""
+    """Kernel 2's operands: the padded bank after ``bank.phase1_dense``
+    (``drain_banked``'s for a drain case)."""
+    if block == "drain":
+        return drain_banked(R, K, variant, state, device, seed)
     bank, it, w, router = case_block(R, K, variant, state, block, device,
                                      seed)
     return banked_operands(bank, *router.route_dense(it, w), variant)
 
 
 def split_case(E, k, variant, state, block, device, seed):
-    """Kernel 3's operands: E sketches' row view after ``_phase1``."""
+    """Kernel 3's operands: E sketches' row view after ``_phase1``
+    (``drain_split``'s for a drain case)."""
+    if block == "drain":
+        return drain_split(E, k, variant, state, device, seed)
     bank, it, w, router = case_block(E, k, variant, state, block, device,
                                      seed)
     if E == 1:
@@ -373,21 +536,35 @@ def max_abs_err(want, got) -> int:
     return max(int((a.long() - b.long()).abs().max()) for a, b in zip(want, got))
 
 
-def check_cases(label, kernel, plain, cases, operands, device, seed0) -> int:
+def check_cases(label, kernel, plain, cases, operands, device, seed0,
+                layout=None) -> int:
     """Each case's operands through the kernel (on copies, as it updates
-    in place) and through its plain version; equal or fatal."""
+    in place) and through its plain version; equal or fatal. Where
+    ``layout(R, K)`` names the kernel's layout for a case's size, the
+    call must run on it, and on the layout the case names where it
+    names one."""
     import torch
 
     worst = 0
-    for i, (name, R, K, v, state, block) in enumerate(cases):
+    for i, (name, R, K, v, state, block, *named) in enumerate(cases):
         st, args = operands(R, K, v, state, block, device, seed0 + i)
         want = plain(*st, *args, variant=v)
+        before = dict(kernel.launches) if layout else None
         got = kernel(*(t.clone() for t in st), *args, variant=v)
         torch.cuda.synchronize()
+        ran = ""
+        if layout:
+            ran = [p for p, n in kernel.launches.items() if n != before[p]]
+            want_layout = named[0] if named else layout(R, K)
+            if ran != [want_layout] or layout(R, K) != want_layout:
+                raise SystemExit(f"{label} [{name}]: ran on {ran}, expected "
+                                 f"{want_layout} (the size names "
+                                 f"{layout(R, K)})")
+            ran = f", layout {ran[0]}"
         err = max_abs_err(want, got)
         same = all(torch.equal(a, b) for a, b in zip(want, got))
         log(f"{label} vs plain [{name} variant={v}]: "
-            f"{'equal' if same else 'DIFFERENT'} (max_abs_err {err})")
+            f"{'equal' if same else 'DIFFERENT'} (max_abs_err {err}{ran})")
         if not same:
             raise SystemExit(f"{label} disagrees with its plain version: "
                              f"{name}")
@@ -400,19 +577,20 @@ def check_all_cases(device) -> dict:
 
     grid = (
         ("sketch_update_kernel_fused", ref.fused_update_ref, kernel_cases(),
-         fused_case, 100),
+         fused_case, 100, None),
         ("sketch_residual_kernel_banked", ref.residual_phase_banked,
-         banked_cases(), banked_case, 200),
+         banked_cases(), banked_case, 200,
+         lambda R, K: kernel.banked_layout(K)),
         ("sketch_residual_kernel", ref.residual_phase, split_cases(),
-         split_case, 300),
+         split_case, 300, lambda E, k: kernel.residual_layout(-(-k // 128))),
         ("sketch_update_kernel_serial", ref.serial_update_ref,
-         serial_cases(), serial_case, 400),
+         serial_cases(), serial_case, 400, None),
     )
     worst = {}
-    for name, plain, cases, operands, seed0 in grid:
+    for name, plain, cases, operands, seed0, layout in grid:
         t0 = time.perf_counter()
         worst[name] = check_cases(name, getattr(kernel, name), plain, cases,
-                                  operands, device, seed0)
+                                  operands, device, seed0, layout)
         log(f"{name} vs plain: {len(cases)} cases equal "
             f"({time.perf_counter() - t0:.1f} s)")
     return worst
@@ -492,20 +670,22 @@ def _unpad(out, bank):
     return SketchState(*(t.reshape(R, -1)[:, :k] for t in out))
 
 
-def run_plain(spec, stream, block, device, path, plain):
+def run_plain(spec, stream, block, device, path, plain, at=-1):
     """The same padded blocks through the path's framework side and the
     kernel's plain version in place of the kernel. Returns the final
-    bank, the last block's kernel operands and the time."""
+    bank, block ``at``'s kernel operands (the last block's by default)
+    and the time."""
     import torch
 
     bank = initial_bank(spec, device)
     items, weights = padded_blocks(stream, block)
+    at %= len(items)
     t0 = time.perf_counter()
     for b in range(len(items)):
         it = torch.as_tensor(items[b], device=device)
         w = torch.as_tensor(weights[b], device=device)
         st, args = path(spec, bank, it, w)
-        if b == len(items) - 1:
+        if b == at:
             last = (st, args)
         bank = _unpad(plain(*st, *args, variant=spec.variant_id), bank)
     torch.cuda.synchronize()
@@ -525,12 +705,15 @@ def run_session(spec, stream, block, device):
     return sess, time.perf_counter() - t0
 
 
-def check_launches(label, counts, name, blocks) -> int:
-    others = {k: v for k, v in counts.items() if k != name and v}
-    if counts[name] != blocks or blocks == 0 or others:
-        raise SystemExit(f"{label}: {counts[name]} launches of {name} for "
+def check_launches(label, counts, name, blocks, layout=None) -> int:
+    """``blocks`` launches of kernel ``name`` (on ``layout``, for kernels
+    2 and 3) and none of another kernel or layout."""
+    key = f"{name}[{layout}]" if layout else name
+    others = {k: v for k, v in counts.items() if k != key and v}
+    if counts[key] != blocks or blocks == 0 or others:
+        raise SystemExit(f"{label}: {counts[key]} launches of {key} for "
                          f"{blocks} blocks; other kernels launched: {others}")
-    return counts[name]
+    return counts[key]
 
 
 def check_truth(spec, bank, stream, device, factor):
@@ -583,18 +766,21 @@ def _same(a, b) -> bool:
     return all(torch.equal(x, y) for x, y in zip(a, b))
 
 
-def run_path(label, spec, stream, block, device, factor, kernel, path, plain):
+def run_path(label, spec, stream, block, device, factor, kernel, path, plain,
+             at=-1, layout=None):
     """One session run: ``StreamSession.ingest`` of the stream, its
-    launches of ``kernel`` (one per block, no other kernel), equality with
-    the plain version's run, the error bound, and the read path."""
+    launches of ``kernel`` (one per block on ``layout``, no other kernel
+    or layout), equality with
+    the plain version's run, the error bound, and the read path. Returns
+    the run's record, block ``at``'s kernel operands and the bank."""
     import torch
 
     reset_counts()
     sess, secs = run_session(spec, stream, block, device)
     launches = check_launches(label, read_counts(), kernel,
-                              sess.blocks_ingested)
+                              sess.blocks_ingested, layout)
     bank, last, plain_secs = run_plain(spec, stream, block, device, path,
-                                       plain)
+                                       plain, at)
     live = sess.state.bank if spec.shards else type(bank)(
         *(t[None] for t in sess.state))
     if not _same(live, bank):
@@ -605,7 +791,8 @@ def run_path(label, spec, stream, block, device, factor, kernel, path, plain):
     hot_ids, hot_counts = sess.topk(16)
     if not torch.equal(sess.query_many(hot_ids.cpu().numpy()), hot_counts):
         raise SystemExit(f"{label}: query_many disagrees with topk")
-    out = dict(label=label, kernel=kernel, blocks=sess.blocks_ingested,
+    out = dict(label=label, kernel=kernel, layout=layout,
+               blocks=sess.blocks_ingested,
                launches=launches, events=len(stream), rows=live.ids.shape[0],
                k_per_row=live.ids.shape[1],
                ms_per_block=secs * 1e3 / sess.blocks_ingested,
@@ -617,7 +804,7 @@ def run_path(label, spec, stream, block, device, factor, kernel, path, plain):
 
 
 def run_ops_path(label, spec, stream, block, device, factor, kernel, path,
-                 update, plain=None):
+                 update, plain=None, layout=None):
     """One run of an ``ops`` entry point, ``update(bank, it, w)``, over
     the padded blocks, staged on the card before the timed loop; checked
     as ``run_path`` checks a session run (the plain run only where
@@ -638,8 +825,9 @@ def run_ops_path(label, spec, stream, block, device, factor, kernel, path,
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     last = path(spec, before_last, *blocks[-1])
-    launches = check_launches(label, read_counts(), kernel, len(blocks))
-    out = dict(label=label, kernel=kernel, blocks=len(blocks),
+    launches = check_launches(label, read_counts(), kernel, len(blocks),
+                              layout)
+    out = dict(label=label, kernel=kernel, layout=layout, blocks=len(blocks),
                launches=launches, events=len(stream), rows=bank.ids.shape[0],
                k_per_row=bank.ids.shape[1],
                ms_per_block=secs * 1e3 / len(blocks),
@@ -661,23 +849,75 @@ def run_ops_path(label, spec, stream, block, device, factor, kernel, path,
 # Phase 5: kernel times and their bounds
 # ---------------------------------------------------------------------------
 
+def _dev_us(event) -> float:
+    """A profiler event's own device time in us (the attribute's name
+    differs between torch versions)."""
+    return getattr(event, "self_device_time_total",
+                   getattr(event, "self_cuda_time_total", 0))
+
+
+def device_ms(call, st, reps) -> float:
+    """Device ms per ``call(state)``, each on its own copy of ``st``: over
+    ``reps`` calls, each kernel's mean time per launch on the card as the
+    profiler sees it, summed over the kernels a call launches once each
+    (a wrapper's launches, without the host's time between them). Means
+    per launch, as the profiler may miss a window's first launch. A window
+    in which it records no kernel is taken again, at most twice."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        copies = [[t.clone() for t in st] for _ in range(reps)]
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for c in copies:
+                call(c)
+            torch.cuda.synchronize()
+        seen = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA and e.count]
+        if seen:
+            return sum(_dev_us(e) / e.count for e in seen) / 1e3
+    raise SystemExit("the profiler saw no kernel on the card")
+
+
+STREAM_ROUNDS = 5
+
+
+def stream_ms(call, st, reps, rounds=STREAM_ROUNDS) -> list:
+    """ms per ``call(state)`` from the host, ``rounds`` times: CUDA events
+    around ``reps`` calls in a row, each on its own copy of ``st``, the
+    host's time between calls included."""
+    import torch
+
+    out = []
+    start, end = torch.cuda.Event(True), torch.cuda.Event(True)
+    for _ in range(rounds):
+        copies = [[t.clone() for t in st] for _ in range(reps)]
+        torch.cuda.synchronize()
+        start.record()
+        for c in copies:
+            call(c)
+        end.record()
+        torch.cuda.synchronize()
+        out.append(start.elapsed_time(end) / reps)
+    return out
+
+
 def time_kernel(kernel, plain, last, variant, bound, reps, plain_reps):
-    """Kernel and plain-version ms on a run's last block, each launch on
-    its own copy of the state (the kernel updates in place), beside the
-    bound ``bound(state, args, out, variant) -> (bytes, ops)`` gives."""
+    """Kernel and plain-version ms on a run's block, each launch on its
+    own copy of the state (the kernel updates in place), beside the bound
+    ``bound(state, args, out, variant) -> (bytes, ops)`` gives. ``ms`` is
+    the kernel's device time (``device_ms``); ``stream_ms`` the median
+    of ``stream_ms_rounds`` (``stream_ms``), which hold the wrapper's host
+    time wherever that is the longer. For the residual kernels (2 and 3),
+    also the block's trips (``trips``) and the us per eviction."""
     import torch
 
     st, args = last
-    copies = [[t.clone() for t in st] for _ in range(reps + 1)]
-    first = kernel(*copies[0], *args, variant=variant)  # warm-up
+    first = kernel(*(t.clone() for t in st), *args, variant=variant)  # warm-up
+    rounds = stream_ms(lambda c: kernel(*c, *args, variant=variant), st, reps)
     start, end = torch.cuda.Event(True), torch.cuda.Event(True)
-    torch.cuda.synchronize()
-    start.record()
-    for c in copies[1:]:
-        kernel(*c, *args, variant=variant)
-    end.record()
-    torch.cuda.synchronize()
-    ms = start.elapsed_time(end) / reps
+    ms = device_ms(lambda c: kernel(*c, *args, variant=variant), st, reps)
     if plain_reps > 1:
         plain(*st, *args, variant=variant)  # warm-up
     torch.cuda.synchronize()
@@ -692,9 +932,28 @@ def time_kernel(kernel, plain, last, variant, bound, reps, plain_reps):
     nbytes, nops = bound(st, args, want, variant)
     by_bytes = nbytes / HBM_BYTES_PER_S >= nops / INT32_OPS_PER_S
     bound_s = max(nbytes / HBM_BYTES_PER_S, nops / INT32_OPS_PER_S)
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_s * 1e3,
-                bound_by="bytes" if by_bytes else "operations",
-                bytes=nbytes, ops=nops)
+    out = dict(ms=ms, stream_ms=sorted(rounds)[len(rounds) // 2],
+               stream_ms_rounds=rounds, plain_ms=plain_ms,
+               bound_ms=bound_s * 1e3,
+               bound_by="bytes" if by_bytes else "operations",
+               bytes=nbytes, ops=nops)
+    if bound in (banked_bound, split_bound):
+        out.update(trips(st, args, want, variant))
+        out["us_per_eviction"] = (ms * 1e3 / out["evictions"]
+                                  if out["evictions"] else None)
+    return out
+
+
+def trips(st, args, out, variant) -> dict:
+    """A residual block's work (kernels 2 and 3): its evictions and SS±
+    drain steps (slots drained), in all and the most in one sketch or
+    row."""
+    start, n_ins = args[-3], args[-2]
+    ev = (n_ins - start).clamp(min=0).long()
+    drained = _spread_slots(st, out, variant)
+    return dict(evictions=int(ev.sum()), max_evictions=int(ev.max()),
+                drain_steps=int(drained.sum()),
+                max_drain_steps=int(drained.max()))
 
 
 def fused_bound(bank, prep, out, variant):
@@ -748,12 +1007,19 @@ def _spread_slots(st, out, variant):
     return hit.reshape(hit.shape[0], -1).sum(dim=1)
 
 
+# Operations per eviction and per drained slot at the least, whatever
+# structures an implementation keeps (as ``serial_bound`` counts an
+# update): a compare and an add.
+STEP_OPS = 2
+
+
 def banked_bound(st, args, out, variant):
     """Kernel 2 at the least: a row's counts in full where it evicts, its
     errors in full where it spreads; each changed element written once;
     the (uid, net) entries used and four scalars per row read once. One
-    operation per slot per eviction and per drained slot (each finds a
-    row minimum or maximum)."""
+    operation per slot read, and ``STEP_OPS`` per eviction and per
+    drained slot. The evictions form one dependent chain per row: its
+    latency, not this bound's rates, limits the kernel."""
     h_uids, h_net, uoff, start, n_ins, w_del = args
     R, K = st[0].shape
     ev = (n_ins - start).clamp(min=0).long()
@@ -761,16 +1027,17 @@ def banked_bound(st, args, out, variant):
     writes = sum(int((a != b).sum()) for a, b in zip(st, out))
     reads = K * int((ev > 0).sum()) + K * int((spread > 0).sum())
     nbytes = 4 * (reads + writes + 2 * int(ev.sum()) + 4 * R)
-    return nbytes, K * int((ev + spread).sum())
+    return nbytes, reads + STEP_OPS * int((ev + spread).sum())
 
 
 def split_bound(st, args, out, variant):
     """Kernel 3 at the least: a sketch's ids and counts in full where it
-    evicts (the tournament needs its EMPTY slots and minima), its errors
-    in full where it spreads; each changed element written once; the
-    (uid, net) entries used and three scalars per sketch read once. One
-    operation per slot of each sketch with work, then R + 128 per
-    eviction and per drained slot (a row pick and a column pick)."""
+    evicts (it needs its EMPTY slots and minima), its errors in full
+    where it spreads; each changed element written once; the (uid, net)
+    entries used and three scalars per sketch read once. One operation
+    per slot read, and ``STEP_OPS`` per eviction and per drained slot.
+    The evictions form one dependent chain per sketch: its latency, not
+    this bound's rates, limits the kernel."""
     r_uids, r_net, start, n_ins, w_del = args
     E, R, lanes = st[0].shape
     n = R * lanes
@@ -779,9 +1046,7 @@ def split_bound(st, args, out, variant):
     writes = sum(int((a != b).sum()) for a, b in zip(st, out))
     reads = 2 * n * int((ev > 0).sum()) + n * int((spread > 0).sum())
     nbytes = 4 * (reads + writes + 2 * int(ev.sum()) + 3 * E)
-    nops = n * int(((ev > 0) | (spread > 0)).sum()) \
-        + (R + lanes) * int((ev + spread).sum())
-    return nbytes, nops
+    return nbytes, reads + STEP_OPS * int((ev + spread).sum())
 
 
 def serial_bound(st, args, out, variant):
@@ -869,16 +1134,12 @@ def profile_blocks(spec, block, n_blocks, seed, device):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0))
-
     events = prof.key_averages()
     # device work = the kernels and copies themselves (an aten op's own
     # device time repeats its kernels')
     on_device = [e for e in events
                  if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(dev_us(e) for e in on_device)
+    busy_us = sum(_dev_us(e) for e in on_device)
 
     def top(evts, key):
         return [(e.key[:80], key(e) / 1e3 / n_blocks)
@@ -888,7 +1149,7 @@ def profile_blocks(spec, block, n_blocks, seed, device):
         blocks=n_blocks, wall_ms_per_block=wall * 1e3 / n_blocks,
         device_busy_ms_per_block=busy_us / 1e3 / n_blocks,
         device_idle_share=1.0 - busy_us / 1e6 / wall,
-        top_device_ms_per_block=top(on_device, dev_us),
+        top_device_ms_per_block=top(on_device, _dev_us),
         top_host_ms_per_block=top(events, lambda e: e.self_cpu_time_total))
 
 
@@ -1135,14 +1396,10 @@ def device_kernels(fn, calls: int = 4) -> list:
             fn()
         torch.cuda.synchronize()
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0))
-
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
-    return [(e.key[:100], dev_us(e) / 1e3 / max(e.count, 1), e.count)
-            for e in sorted(events, key=dev_us, reverse=True)[:4]]
+    return [(e.key[:100], _dev_us(e) / 1e3 / max(e.count, 1), e.count)
+            for e in sorted(events, key=_dev_us, reverse=True)[:4]]
 
 
 def sdpa(q, k, v, **kw):
@@ -1450,16 +1707,17 @@ def main() -> int:
         fused_path, ref.fused_update_ref)
     runs["path_a"], last["path_a"], _ = run_path(
         "block sspm k=400000", a_spec, make_stream(32, B, seed=4), B, device,
-        2.0, split, split_path, ref.residual_phase)
-    runs["lazy_block"], _, bank = run_path(
+        2.0, split, split_path, ref.residual_phase, layout="summary+chain")
+    # block 1 of the lazy stream brings the most evictions (2,968)
+    runs["lazy_block"], last["lazy_block"], bank = run_path(
         "block lazy k=2000", lazy_block_spec, lazy_stream, B, device, 1.0,
-        split, split_path, ref.residual_phase)
+        split, split_path, ref.residual_phase, at=1, layout="staged")
     if not _same(bank, lazy_bank):
         raise SystemExit("the block backend's lazy bank differs from the "
                          "kernel backend's")
     runs["path_b"], last["path_b"], bank = run_path(
         "block sspm shards=128", b_spec, main_stream, B, device, 2.0, split,
-        split_path, ref.residual_phase)
+        split_path, ref.residual_phase, layout="staged")
     if not _same(bank, main_bank):
         raise SystemExit("path B's bank differs from the kernel backend's")
 
@@ -1470,7 +1728,7 @@ def main() -> int:
     runs["banked"], last["banked"], bank = run_ops_path(
         "banked sspm shards=128", main_spec, main_stream, B, device, 2.0,
         "sketch_residual_kernel_banked", banked_path, banked,
-        ref.residual_phase_banked)
+        ref.residual_phase_banked, layout="staged")
     if not _same(bank, main_bank):
         raise SystemExit("the banked split path's bank differs from the "
                          "fused path's")
@@ -1498,11 +1756,18 @@ def main() -> int:
             kernel.sketch_update_kernel_serial, ref.serial_update_ref,
             last["serial"], 2, serial_bound, 3, 1),
     }
+    # kernel 3 beside path A: on path B's last block and on the block-lazy
+    # run's heaviest block
     times_b = time_kernel(kernel.sketch_residual_kernel, ref.residual_phase,
                           last["path_b"], 2, split_bound, 10, 1)
+    times_lazy = time_kernel(kernel.sketch_residual_kernel,
+                             ref.residual_phase, last["lazy_block"], 1,
+                             split_bound, 10, 1)
     for name, t in times.items():
         log(f"{name} at its run's shapes: {json.dumps(t)}")
     log(f"sketch_residual_kernel at path B's shapes: {json.dumps(times_b)}")
+    log(f"sketch_residual_kernel on block lazy's block 1: "
+        f"{json.dumps(times_lazy)}")
     serial_by_path = serial_paths(last["serial"], B)
     log(f"sketch_update_kernel_serial by path: {json.dumps(serial_by_path)}")
     prof = {label: profile_blocks(spec, B, 8, seed=3, device=device)
@@ -1530,12 +1795,22 @@ def main() -> int:
         "bound_ms": times[name]["bound_ms"],
         "bound_by": times[name]["bound_by"],
         "library_ms": None,   # no PyTorch call computes these chains
+        "stream_ms": times[name]["stream_ms"],
     } for name in KERNELS] + attention_entries
+    # kernels 2 and 3 by layout: calls in the counted runs (a call on
+    # kernel 3's unstaged layouts is two device launches)
+    for entry in kernels[1:3]:
+        entry["launches_by_path"] = {
+            r["layout"]: sum(q["launches"] for q in runs.values()
+                             if q["kernel"] == entry["name"]
+                             and q["layout"] == r["layout"])
+            for r in runs.values() if r["kernel"] == entry["name"]}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
         card=card, runs=runs, kernel_times=times,
-        residual_times_path_b=times_b, serial_paths=serial_by_path,
+        residual_times_path_b=times_b, residual_times_lazy_block=times_lazy,
+        serial_paths=serial_by_path,
         profile=prof, attention=attention,
         kernels=kernels), indent=1))
     print(json.dumps({"kernels": kernels}))

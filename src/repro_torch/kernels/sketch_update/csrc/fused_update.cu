@@ -14,8 +14,9 @@
 // The same file holds kernel 2, residual_banked_kernel: steps 4-5 alone,
 // for the split path whose phase 1 ran in torch. It replaces the Pallas
 // TPU kernel sketch_residual_kernel_banked (kernel.py:278, body
-// _residual_kernel_banked at :258 -> bank.residual_phase_banked). Both
-// kernels run steps 4-5 through one device function, evict_then_spread.
+// _residual_kernel_banked at :258 -> bank.residual_phase_banked). It has
+// its own steps 4-5 (banked_chain and residual_common.cuh's drain), not
+// kernel 1's evict_then_spread.
 //
 // Rows never read each other, so the TPU grid over row tiles and its
 // lockstep "frozen lane" masks become independent CTAs, each running its
@@ -32,7 +33,7 @@
 // the one slot's owner.
 //
 // Integer semantics and the reductions are common.cuh's.
-#include "common.cuh"
+#include "residual_common.cuh"
 
 namespace {
 
@@ -216,18 +217,119 @@ __global__ void __launch_bounds__(kThreads) fused_update_kernel(int* __restrict_
 // Kernel 2: steps 4-5 alone on a bank whose phase 1 ran outside (the split
 // path). Row r reads the flat (G,) layout at uoff[r] + i for i in
 // [start[r], n_ins[r]), then drains w_del[r].
+//
+// What bounds it: the evictions form one dependent chain, so latency, not
+// the one read of the working rows the bound counts. So the row's counts
+// (and errors where it drains) are staged into shared memory with
+// cp.async, where K <= kStageSlots;
+// the ids are only written, at the evicted slots. One warp carries the
+// evictions over per-chunk minima of 32 slots: a step is a chunk pick (the
+// lanes read the chunk minima), a slot pick in the chunk (a lane a slot),
+// the write (through to device memory) and the chunk's minimum anew, with
+// no __syncthreads. The drain is residual_common.cuh's selection, with
+// bank.residual_phase_banked's sat_add. Unlike kernel 3, the eviction's
+// argmin is over the counts alone (EMPTY slots included), as the plain
+// version's. Two layouts, by K (the caller names the one it expects, and
+// a launch whose name disagrees is refused): staged (K <= kStageSlots),
+// and unstaged, where the row stays in device memory and its chunk minima
+// go to the scratch.
+constexpr int kStageSlots = 24576;   // counts + errors: 192 KB
+
+__host__ __device__ constexpr int chunks(int K) { return (K + 31) / 32; }
+
+// The eviction chain of one row, carried by warp 0 alone: each insert i in
+// [i0, i1), read at h[clip(off + i, 0, g_last)], evicts the first slot at
+// the minimum count mc (count sat_add(mc, w), error mc). Counts and errors
+// at ct/er (shared or global), written through to gct/ger where staged;
+// ids written at gid.
+__device__ void banked_chain(int* ct, int* er, int* gid, int* gct, int* ger,
+                             bool staged, int* cmin, int K,
+                             const int* __restrict__ h_uids,
+                             const int* __restrict__ h_net, int off, int i0,
+                             int i1, int g_last) {
+  const int lane = threadIdx.x & 31;
+  const int nc = chunks(K);
+  Inserts ins(h_uids, h_net, off, g_last, i0, i1);
+  for (int i = i0; i < i1; ++i) {
+    int uid, w;
+    ins.get(i, uid, w);
+    int v = kIntMax, j = kIntMax;
+    for (int q = lane; q < nc; q += 32) take_min(v, j, cmin[q], q);
+    const int mc = __reduce_min_sync(kFull, v);
+    j = __reduce_min_sync(kFull, v == mc ? j : kIntMax);
+    // chunk j's minimum is mc: its first slot at mc
+    const int s = 32 * j + lane;
+    int c = s < K ? ct[s] : kIntMax;
+    const int l = __ffs(__ballot_sync(kFull, c == mc)) - 1;
+    const int nv = sat_add(mc, w);
+    if (lane == l) {
+      c = nv;
+      ct[s] = nv;
+      er[s] = mc;
+      gid[s] = uid;
+      if (staged) {
+        gct[s] = nv;
+        ger[s] = mc;
+      }
+    }
+    const int m = __reduce_min_sync(kFull, c);
+    if (lane == 0) cmin[j] = m;
+    __syncwarp();
+  }
+}
+
 __global__ void __launch_bounds__(kThreads) residual_banked_kernel(
     int* __restrict__ ids, int* __restrict__ counts, int* __restrict__ errors,
     const int* __restrict__ h_uids, const int* __restrict__ h_net,
     const int* __restrict__ uoff, const int* __restrict__ start,
-    const int* __restrict__ n_ins, const int* __restrict__ w_del, int K,
-    int G, int variant) {
-  __shared__ Scratch sh;
+    const int* __restrict__ n_ins, const int* __restrict__ w_del,
+    int* __restrict__ scratch, int K, int G, int variant) {
+  extern __shared__ int4 smem4[];
+  __shared__ DrainScratch dsh;
   const int r = blockIdx.x;
+  const int i0 = start[r], i1 = n_ins[r];
+  const int rem = variant == 1 ? 0 : w_del[r];
+  if (i0 >= i1 && rem <= 0) return;
   const size_t base = static_cast<size_t>(r) * K;
-  evict_then_spread(ids + base, counts + base, errors + base, K, h_uids,
-                    h_net, uoff[r], start[r], n_ins[r], G - 1, w_del[r],
-                    variant, sh);
+  int* gct = counts + base;
+  int* ger = errors + base;
+  const bool staged = K <= kStageSlots;
+  const int kp = (K + 3) & ~3;
+  int* sm = reinterpret_cast<int*>(smem4);
+  int* ct = staged ? sm : gct;
+  int* er = staged ? sm + kp : ger;
+  int* cmin = staged ? sm + 2 * kp : scratch + static_cast<size_t>(r) * chunks(K);
+  if (staged) {
+    if (i0 < i1) stage(ct, gct, K);
+    if (rem > 0) stage(er, ger, K);
+    cp_async_wait();
+  }
+  if (i0 < i1) {
+    // the chunk minima, warp w taking chunks w, w + nw, ...
+    const int lane = threadIdx.x & 31;
+    for (int q = threadIdx.x >> 5; q < chunks(K); q += blockDim.x >> 5) {
+      const int s = 32 * q + lane;
+      const int m = __reduce_min_sync(kFull, s < K ? ct[s] : kIntMax);
+      if (lane == 0) cmin[q] = m;
+    }
+    __syncthreads();
+    if (threadIdx.x < 32)
+      banked_chain(ct, er, ids + base, gct, ger, staged, cmin, K, h_uids,
+                   h_net, uoff[r], i0, i1, G - 1);
+    __syncthreads();
+  }
+  // the drain reads a count only where it writes one: from device memory,
+  // which the chain wrote through
+  if (rem > 0) drain_select<true>(gct, er, gct, ger, K, rem, dsh);
+}
+
+// Kernel 2's layout of rows of K slots: 0 staged, 1 unstaged.
+int banked_layout(int K) { return K <= kStageSlots ? 0 : 1; }
+
+// Ints of device scratch the layout needs over R rows (the unstaged
+// layout's chunk minima).
+long long banked_scratch_ints(int R, int K) {
+  return K <= kStageSlots ? 0 : static_cast<long long>(R) * chunks(K);
 }
 
 }  // namespace
@@ -250,19 +352,29 @@ extern "C" int sketch_fused_update(void* ids, void* counts, void* errors,
   return static_cast<int>(cudaGetLastError());
 }
 
-// C entry point of kernel 2 (bound with ctypes); as above.
+// C entry point of kernel 2 (bound with ctypes); as above. `layout` is the
+// caller's name for the layout of rows of K slots and `scratch` holds
+// `n_scratch` ints; a launch where either disagrees with what this file
+// needs is refused with cudaErrorInvalidValue.
 extern "C" int sketch_residual_banked(void* ids, void* counts, void* errors,
                                       const void* h_uids, const void* h_net,
                                       const void* uoff, const void* start,
                                       const void* n_ins, const void* w_del,
-                                      int R, int K, int G, int variant,
+                                      void* scratch, int R, int K, int G,
+                                      int variant, int layout, int n_scratch,
                                       void* stream) {
-  residual_banked_kernel<<<R, kThreads, 0,
+  if (layout != banked_layout(K) || n_scratch < banked_scratch_ints(R, K))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int bytes = layout == 0 ? 4 * (2 * ((K + 3) & ~3) + chunks(K)) : 0;
+  const cudaError_t err = allow_smem(residual_banked_kernel, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  residual_banked_kernel<<<R, kThreads, bytes,
                            static_cast<cudaStream_t>(stream)>>>(
       static_cast<int*>(ids), static_cast<int*>(counts),
       static_cast<int*>(errors), static_cast<const int*>(h_uids),
       static_cast<const int*>(h_net), static_cast<const int*>(uoff),
       static_cast<const int*>(start), static_cast<const int*>(n_ins),
-      static_cast<const int*>(w_del), K, G, variant);
+      static_cast<const int*>(w_del), static_cast<int*>(scratch), K, G,
+      variant);
   return static_cast<int>(cudaGetLastError());
 }

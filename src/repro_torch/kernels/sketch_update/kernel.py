@@ -8,15 +8,21 @@ Each replaces one Pallas TPU kernel of
 - ``sketch_residual_kernel_banked`` (``fused_update.cu``): phase 2 only,
   one CTA per bank row (reference :278);
 - ``sketch_residual_kernel`` (``residual.cu``): phase 2 of E stacked
-  single sketches on their (R, 128) row view, one CTA per sketch
-  (reference :220, vmapped by its ``_batched`` caller);
+  single sketches on their (R, 128) row view, one CTA per sketch, after a
+  summary pass over the card where R > 128 (reference :220, vmapped by
+  its ``_batched`` caller);
 - ``sketch_update_kernel_serial`` (``serial_update.cu``): one update per
   raw item, one CTA (reference :396).
 
 A wrapper checks its operands, launches on the current stream, raises on
-a refused launch and counts its launches. The kernels update the state
-in place. Wrappers take CUDA tensors only: ``ops.py`` sends CPU tensors
-to the plain versions in ``ref.py`` instead.
+a refused launch and counts its launches (a call of kernel 3 on its
+unstaged layouts makes two device launches and counts one). Kernels 2
+and 3 count per layout, in a dict by the layout's name
+(``RESIDUAL_LAYOUTS``, ``BANKED_LAYOUTS``): ``residual_layout`` and
+``banked_layout`` choose it by size, and the C entry point refuses a
+launch whose layout or scratch disagrees with its own rule. The kernels
+update the state in place. Wrappers take CUDA tensors only: ``ops.py``
+sends CPU tensors to the plain versions in ``ref.py`` instead.
 """
 from __future__ import annotations
 
@@ -34,6 +40,30 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _INT31 = 2**31
 
+# Kernel 3's layouts by rows per sketch, and kernel 2's by slots per row,
+# as residual.cu (kStageRows, kSumRows) and fused_update.cu (kStageSlots)
+# choose them.
+RESIDUAL_STAGE_ROWS, RESIDUAL_SUM_ROWS = 128, 8192
+BANKED_STAGE_SLOTS = 24576
+RESIDUAL_LAYOUTS = ("staged", "summary+chain", "summary+chain/scratch")
+BANKED_LAYOUTS = ("staged", "unstaged")
+
+
+def residual_layout(R: int) -> str:
+    """Kernel 3's layout for sketches of R rows of 128 slots: the whole
+    sketch in shared memory (R <= 128); else a summary pass over the card
+    and a chain launch, the row summaries in shared memory (R <= 8,192) or
+    in the scratch."""
+    return RESIDUAL_LAYOUTS[0 if R <= RESIDUAL_STAGE_ROWS
+                            else 1 if R <= RESIDUAL_SUM_ROWS else 2]
+
+
+def banked_layout(K: int) -> str:
+    """Kernel 2's layout for rows of K slots: the row's counts and errors
+    in shared memory (K <= 24,576), else in device memory with the chunk
+    minima in the scratch."""
+    return BANKED_LAYOUTS[0 if K <= BANKED_STAGE_SLOTS else 1]
+
 
 def entry_point(source: str, name: str, n_ptr: int, n_int: int):
     """A kernel's C entry point, building its library first if needed:
@@ -49,6 +79,13 @@ def _serial_scratch_ints():
     fn.argtypes = [_I]
     fn.restype = ctypes.c_longlong
     return fn
+
+
+def _scratch(n: int, device):
+    """(pointer, ints) of an n-int device scratch: NULL where n = 0."""
+    if n == 0:
+        return 0, 0
+    return torch.empty(n, dtype=torch.int32, device=device), n
 
 
 def _check(what, named, shapes, device) -> None:
@@ -69,7 +106,10 @@ def _check_sizes(what: str, *sizes: int) -> None:
 
 
 def _launch(fn, tensors, ints, device, what: str) -> None:
-    _build.launch(fn, [*(t.data_ptr() for t in tensors), *ints], device, what)
+    """``fn`` on the tensors' pointers (an int: a pointer as it is), then
+    the ints."""
+    ptrs = [t if isinstance(t, int) else t.data_ptr() for t in tensors]
+    _build.launch(fn, [*ptrs, *ints], device, what)
 
 
 def _check_variant(variant: int) -> None:
@@ -123,9 +163,15 @@ def sketch_residual_kernel_banked(ids, counts, errors, h_uids, h_net, uoff,
     _check("sketch_residual_kernel_banked", named, shapes, ids.device)
     _check_variant(variant)
     _check_sizes("sketch_residual_kernel_banked", R, K, G, R * K)
-    _launch(entry_point("fused_update.cu", "sketch_residual_banked", 9, 4),
-            named.values(), (R, K, G, variant), ids.device, "residual_banked")
-    sketch_residual_kernel_banked.launches += 1
+    layout = banked_layout(K)
+    # the unstaged rows' chunk minima
+    scratch, n = _scratch(R * -(-K // 32) if layout == "unstaged" else 0,
+                          ids.device)
+    _launch(entry_point("fused_update.cu", "sketch_residual_banked", 10, 6),
+            [*named.values(), scratch],
+            (R, K, G, variant, BANKED_LAYOUTS.index(layout), n), ids.device,
+            "residual_banked")
+    sketch_residual_kernel_banked.launches[layout] += 1
     return ids, counts, errors
 
 
@@ -148,12 +194,18 @@ def sketch_residual_kernel(ids2, cnt2, err2, r_uids, r_net, start, n_ins,
     _check("sketch_residual_kernel", named, shapes, ids2.device)
     _check_variant(variant)
     _check_sizes("sketch_residual_kernel", E, R, B, E * R * lanes, E * B)
-    # per-row summaries (has_empty, min count, max error) of every sketch
-    summary = torch.empty((3, E, R), dtype=torch.int32, device=ids2.device)
-    _launch(entry_point("residual.cu", "sketch_residual", 9, 4),
-            [*named.values(), summary], (E, R, B, variant), ids2.device,
-            "residual")
-    sketch_residual_kernel.launches += 1
+    if not _build.aligned16(ids2, cnt2, err2):
+        raise ValueError("sketch_residual_kernel: the state must start on a "
+                         "16-byte boundary (rows are read 16 bytes a lane)")
+    layout = residual_layout(R)
+    # the unstaged layouts' row and group summaries
+    scratch, n = _scratch(0 if layout == "staged"
+                          else E * (2 * R + 2 * -(-R // 32)), ids2.device)
+    _launch(entry_point("residual.cu", "sketch_residual", 9, 6),
+            [*named.values(), scratch],
+            (E, R, B, variant, RESIDUAL_LAYOUTS.index(layout), n),
+            ids2.device, "residual")
+    sketch_residual_kernel.launches[layout] += 1
     return ids2, cnt2, err2
 
 
@@ -188,12 +240,15 @@ def sketch_update_kernel_serial(ids2, cnt2, err2, items, weights, *,
     return ids2, cnt2, err2
 
 
-# launches since the last reset (chip_smoke.py reads them around each path)
+# launches since the last reset (chip_smoke.py reads them around each path);
+# kernels 2 and 3 per layout
 sketch_update_kernel_fused.launches = 0
-sketch_residual_kernel_banked.launches = 0
-sketch_residual_kernel.launches = 0
+sketch_residual_kernel_banked.launches = dict.fromkeys(BANKED_LAYOUTS, 0)
+sketch_residual_kernel.launches = dict.fromkeys(RESIDUAL_LAYOUTS, 0)
 sketch_update_kernel_serial.launches = 0
 
-__all__ = ["SOURCES", "entry_point", "sketch_update_kernel_fused",
+__all__ = ["SOURCES", "RESIDUAL_LAYOUTS", "BANKED_LAYOUTS",
+           "residual_layout", "banked_layout", "entry_point",
+           "sketch_update_kernel_fused",
            "sketch_residual_kernel_banked", "sketch_residual_kernel",
            "sketch_update_kernel_serial"]

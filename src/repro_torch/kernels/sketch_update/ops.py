@@ -15,7 +15,8 @@ never modified: the kernels update fresh padded copies in place.
   then one banked phase-2 launch over the padded bank (the split path);
 - ``sketch_block_update_batched`` (:247) and ``sketch_block_update``
   (:80): ``blocks._phase1`` on E stacked sketches, their (E, R, LANES)
-  row view, then one phase-2 launch for all E (the ``block`` backend);
+  row view, then one phase-2 kernel call for all E (the ``block``
+  backend; two launches past 128 rows a sketch);
 - ``sketch_block_update_serial`` (:268): one launch of the serial
   baseline over the raw block.
 
@@ -126,7 +127,7 @@ def sketch_block_update_batched(states: SketchState, items: torch.Tensor,
                                 weights: torch.Tensor, variant: int = 2,
                                 assume_sorted: bool = False) -> SketchState:
     """Two-phase update of E stacked sketches, (E, k) states and (E, B)
-    blocks, with one phase-2 launch for all E. ``assume_sorted``: every
+    blocks, with one phase-2 kernel call for all E. ``assume_sorted``: every
     row of ``items`` is already ascending (the sharded router's views)."""
     residual = (sketch_residual_kernel if states.ids.is_cuda
                 else residual_phase)

@@ -300,19 +300,27 @@ def _as_ids(x, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(x).astype(np.int32), device=device)
 
 
+def host_array(x) -> np.ndarray:
+    """A host (numpy) view of a block given as an array-like or as a tensor
+    on any device (copied to the host): the form ``validate_block``
+    checks, as the reference checks its device arrays."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
 def update(spec: SketchSpec, state, items, weights=None):
     """Ingest one block of signed weighted updates; returns the new state.
 
-    ``weights=None`` means unit inserts. Host inputs are validated
-    (``validate_block``) before they are cast to int32 and moved to the
-    state's device; tensors pass through as they are.
+    ``weights=None`` means unit inserts. Every input, tensors included, is
+    validated (``validate_block``, on a host copy) before it is cast to
+    int32 and moved to the state's device.
     """
     ad = adapter_for(spec)
     dev = ad.device_of(state)
     if weights is None:
         weights = np.ones(np.shape(items), np.int32)
-    if not isinstance(items, torch.Tensor):
-        validate_block(spec, items, weights)
+    validate_block(spec, host_array(items), host_array(weights))
     return ad.update(spec, state, _as_ids(items, dev), _as_ids(weights, dev))
 
 
@@ -323,6 +331,12 @@ def query_many(spec: SketchSpec, state, items) -> torch.Tensor:
 
 
 def query(spec: SketchSpec, state, item) -> torch.Tensor:
+    """Estimated frequency of one id; an id past int32 raises
+    ``OverflowError``, as the reference's int32 cast does."""
+    item = int(item)
+    if not -2**31 <= item < 2**31:
+        raise OverflowError(f"item id {item} is out of bounds for int32 (the "
+                            f"device-side id dtype)")
     return query_many(spec, state, [item])[0]
 
 
@@ -395,5 +409,6 @@ def restore(spec: SketchSpec, d: Dict[str, Any], device=DEFAULT_DEVICE):
 
 __all__ = ["KINDS", "VARIANTS", "BACKENDS", "LAYOUT_FREQUENCY",
            "LAYOUT_QUANTILE", "LAYOUT_DOUBLE", "LAYOUT_CRPRECIS",
-           "SketchSpec", "validate_block", "adapter_for", "make", "update",
+           "SketchSpec", "validate_block", "host_array", "adapter_for",
+           "make", "update",
            "query_many", "query", "topk", "save", "infer_spec", "restore"]

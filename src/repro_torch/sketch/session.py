@@ -69,9 +69,11 @@ class StreamSession:
         self.blocks_ingested += 1
 
     def ingest(self, items, weights) -> None:
-        """Validate, chunk to the session block, pad, and ingest now."""
-        items = np.asarray(items).ravel()
-        weights = np.asarray(weights).ravel()
+        """Validate, chunk to the session block, pad, and ingest now.
+        Items and weights are host arrays or tensors on any device (copied
+        to the host for validation)."""
+        items = api.host_array(items).ravel()
+        weights = api.host_array(weights).ravel()
         self.ingested_mass += api.validate_block(
             self.spec, items, weights, prior_mass=self.ingested_mass)
         items = items.astype(np.int32)
@@ -90,9 +92,9 @@ class StreamSession:
     def extend(self, items, weights=None) -> None:
         """Buffer signed weighted updates; auto-flush full blocks.
         ``weights=None`` = unit inserts."""
-        items = np.asarray(items).ravel()
+        items = api.host_array(items).ravel()
         weights = (np.ones(len(items), np.int32) if weights is None
-                   else np.asarray(weights).ravel())
+                   else api.host_array(weights).ravel())
         self.ingested_mass += api.validate_block(
             self.spec, items, weights, prior_mass=self.ingested_mass)
         self._append(items.astype(np.int32), weights.astype(np.int32))
@@ -168,8 +170,8 @@ class StreamSession:
         """Ingest one batch now; after ``window`` further pushes it is
         re-ingested with negated weights. Buffered updates flush first."""
         self.flush()
-        items = np.asarray(items).ravel()
-        weights = np.asarray(weights).ravel()
+        items = api.host_array(items).ravel()
+        weights = api.host_array(weights).ravel()
         self.ingest(items, weights)
         self.insertions += int(weights.sum())
         if self.window is None:

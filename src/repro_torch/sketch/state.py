@@ -78,7 +78,12 @@ def query_many(state: SketchState, items: torch.Tensor) -> torch.Tensor:
 
 def top_m(counts: torch.Tensor, m: int) -> torch.Tensor:
     """Indices of the m largest values, lower index first among equals
-    (the tie order of ``jax.lax.top_k``)."""
+    (the tie order of ``jax.lax.top_k``). Like it, refuses an m that is
+    negative or past the number of values."""
+    n = counts.shape[-1]
+    if not 0 <= m <= n:
+        raise ValueError(f"top-m needs 0 <= m <= {n} (the slots it ranks), "
+                         f"got m={m}")
     return torch.sort(counts, descending=True, stable=True).indices[:m]
 
 

@@ -19,8 +19,9 @@ torch.set_num_threads(1)
 
 from repro_torch.core.streams import bounded_stream
 from repro_torch.kernels.sketch_update.kernel import (
-    sketch_residual_kernel, sketch_residual_kernel_banked,
-    sketch_update_kernel_fused, sketch_update_kernel_serial)
+    banked_layout, residual_layout, sketch_residual_kernel,
+    sketch_residual_kernel_banked, sketch_update_kernel_fused,
+    sketch_update_kernel_serial)
 from repro_torch.kernels.sketch_update.ops import _pad_bank
 from repro_torch.kernels.sketch_update.ref import (
     fused_update_ref, residual_phase, residual_phase_banked, serial_update_ref)
@@ -100,8 +101,19 @@ def _assert_same(want, got):
         assert torch.equal(a, b), name
 
 
+def _run(kernel, *args, **kw):
+    """``kernel(*args, **kw)`` (kernel 2 or 3) and the layouts it
+    counted a launch on."""
+    before = dict(kernel.launches)
+    out = kernel(*args, **kw)
+    return out, [p for p, n in kernel.launches.items() if n != before[p]]
+
+
 @pytest.mark.parametrize("variant", [1, 2])
-@pytest.mark.parametrize("R,K", [(1, 77), (7, 200), (7, 3125)])
+@pytest.mark.parametrize("R,K", [(1, 77), (7, 200), (7, 3125),
+                                 # the last row staged in shared memory,
+                                 # and the first left in device memory
+                                 (1, 24576), (1, 24577)])
 @pytest.mark.parametrize("state", ["cold", "warm", "rail"])
 def test_banked_residual_kernel_equals_plain_version(cuda, variant, R, K,
                                                      state):
@@ -111,13 +123,17 @@ def test_banked_residual_kernel_equals_plain_version(cuda, variant, R, K,
     padded = _pad_bank(SketchState(ids1, cnt1, err1))
     args = (h_uids, h_net, uoff, mu, mu + nnu, w_del)
     want = residual_phase_banked(*padded, *args, variant)
-    got = sketch_residual_kernel_banked(*(t.clone() for t in padded), *args,
-                                        variant=variant)
+    got, ran = _run(sketch_residual_kernel_banked,
+                    *(t.clone() for t in padded), *args, variant=variant)
     _assert_same(want, got)
+    assert ran == [banked_layout(padded[0].shape[1])]
 
 
 @pytest.mark.parametrize("variant", [1, 2])
-@pytest.mark.parametrize("E,K", [(1, 77), (7, 200), (7, 3125), (1, 40000)])
+@pytest.mark.parametrize("E,K", [(1, 77), (7, 200), (7, 3125), (1, 40000),
+                                 # R = 128, staged in shared memory; R =
+                                 # 129, summarised over the card
+                                 (2, 16384), (2, 16385)])
 @pytest.mark.parametrize("state", ["cold", "warm", "rail"])
 def test_residual_kernel_equals_plain_version(cuda, variant, E, K, state):
     """E sketches (the rows of a bank) with their routed, sorted views."""
@@ -125,9 +141,44 @@ def test_residual_kernel_equals_plain_version(cuda, variant, E, K, state):
     ph = _phase1(bank, *routed, variant, assume_sorted=True)
     rows = pad_rows(*ph[:3])
     want = residual_phase(*rows, *ph[3:], variant)
-    got = sketch_residual_kernel(*(t.clone() for t in rows), *ph[3:],
-                                 variant=variant)
+    got, ran = _run(sketch_residual_kernel, *(t.clone() for t in rows),
+                    *ph[3:], variant=variant)
     _assert_same(want, got)
+    assert ran == [residual_layout(rows[0].shape[1])]
+
+
+DRAIN_KINDS = ("ties", "prefix", "boundary", "over", "big", "signs", "empty")
+
+
+@pytest.mark.parametrize("variant", [1, 2])
+@pytest.mark.parametrize("E,k", [(3, 3000), (2, 20000)])   # both layouts
+@pytest.mark.parametrize("kind", DRAIN_KINDS)
+def test_residual_kernel_on_the_drain_edge_cases(cuda, variant, E, k, kind):
+    """Evictions, then the SS± drain as a selection, at its edges
+    (``chip_smoke.drain_domains``), bit for bit against the plain
+    version's greedy drain."""
+    rows, args = _chip_smoke().drain_split(E, k, variant, kind, cuda,
+                                           seed=k + E)
+    want = residual_phase(*rows, *args, variant)
+    got, ran = _run(sketch_residual_kernel, *(t.clone() for t in rows),
+                    *args, variant=variant)
+    _assert_same(want, got)
+    assert ran == [residual_layout(rows[0].shape[1])]
+
+
+@pytest.mark.parametrize("variant", [1, 2])
+@pytest.mark.parametrize("R,K", [(3, 3001), (2, 30000)])    # both layouts
+@pytest.mark.parametrize("kind", DRAIN_KINDS)
+def test_banked_residual_kernel_on_the_drain_edge_cases(cuda, variant, R, K,
+                                                        kind):
+    """As above for kernel 2 (its sat_add drain), on unpadded rows."""
+    rows, args = _chip_smoke().drain_banked(R, K, variant, kind, cuda,
+                                            seed=K + R)
+    want = residual_phase_banked(*rows, *args, variant)
+    got, ran = _run(sketch_residual_kernel_banked,
+                    *(t.clone() for t in rows), *args, variant=variant)
+    _assert_same(want, got)
+    assert ran == [banked_layout(K)]
 
 
 @pytest.mark.parametrize("variant", [1, 2])
@@ -195,6 +246,42 @@ def test_unsharded_block_backend_on_the_card_equals_the_cpu(cuda):
     cpu.ingest(s[:, 0], s[:, 1])
     for a, b in zip(gpu.state, cpu.state):
         assert torch.equal(a.cpu(), b)
+
+
+def test_session_and_update_take_cuda_tensors(cuda):
+    """``StreamSession.ingest``, ``extend`` and ``push`` and ``api.update``
+    take CUDA tensors (a host copy before validation), give the bank that
+    host arrays give, and refuse a tensor that breaks the block
+    conventions as they refuse a host array."""
+    from repro_torch.sketch import api
+
+    spec = SketchSpec(k=500, shards=4, bits=16)
+    s = bounded_stream(6000, 0.5, universe=1 << 16, seed=11)
+    items, weights = s[:, 0], s[:, 1]
+    t = lambda a: torch.as_tensor(a, device=cuda)
+    host = StreamSession(spec, block=1024, device=cuda)
+    card = StreamSession(spec, block=1024, device=cuda)
+    half = len(items) // 2
+    host.ingest(items[:half], weights[:half])
+    card.ingest(t(items[:half]), t(weights[:half]))
+    host.extend(items[half:], weights[half:])
+    card.extend(t(items[half:]), t(weights[half:]))
+    host.push(items[:100], weights[:100])
+    card.push(t(items[:100]), t(weights[:100]))
+    host.flush()
+    card.flush()
+    for a, b in zip(host.state.bank, card.state.bank):
+        assert torch.equal(a, b)
+    want = api.update(spec, host.state, items[:512], weights[:512])
+    got = api.update(spec, card.state, t(items[:512]), t(weights[:512]))
+    for a, b in zip(want.bank, got.bank):
+        assert torch.equal(a, b)
+    bad = (np.array([3, -5, 4]), np.array([1, 1, 1]))
+    for call in (lambda i, w: card.ingest(i, w), lambda i, w: card.extend(i, w),
+                 lambda i, w: card.push(i, w),
+                 lambda i, w: api.update(spec, card.state, i, w)):
+        with pytest.raises(ValueError, match="negative item id"):
+            call(*map(t, bad))
 
 
 def test_pad_bank_keeps_the_callers_bank(cuda):

@@ -1,6 +1,6 @@
-"""The port stands alone: no file of ``repro_torch`` nor ``chip_smoke.py``
-imports JAX or the reference package ``repro``, and the port imports
-with both blocked."""
+"""The port stands alone: no file of ``repro_torch``, ``chip_smoke.py`` or
+the port's ``tools/`` imports JAX or the reference package ``repro``, and
+the port imports with both blocked."""
 from __future__ import annotations
 
 import ast
@@ -16,7 +16,8 @@ torch.set_num_threads(1)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+         + sorted((ROOT / "tools").glob("*.py")))
 
 
 def _forbidden(module: str) -> bool:

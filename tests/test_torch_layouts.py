@@ -1,0 +1,53 @@
+"""The layout rules of the residual kernels (2 and 3): the wrappers'
+limits are the CUDA sources' own, each size names the layout the
+sources choose for it, and each layout counts its own launches. (On the
+card, each C entry point refuses a launch whose layout disagrees with
+its rule: ``tests/test_torch_cuda.py`` and ``chip_smoke.py`` run both
+sides of every limit.)"""
+from __future__ import annotations
+
+import re
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels.sketch_update import kernel
+
+
+def _constants(source: str) -> dict:
+    text = (kernel.CSRC / source).read_text()
+    return {name: int(v) for name, v in
+            re.findall(r"constexpr int (k\w+) = (\d+);", text)}
+
+
+def test_layout_limits_are_the_sources():
+    residual, banked = _constants("residual.cu"), _constants("fused_update.cu")
+    assert (kernel.RESIDUAL_STAGE_ROWS, kernel.RESIDUAL_SUM_ROWS) == (
+        residual["kStageRows"], residual["kSumRows"])
+    assert kernel.BANKED_STAGE_SLOTS == banked["kStageSlots"]
+
+
+@pytest.mark.parametrize("R,want", [
+    (1, "staged"), (25, "staged"), (128, "staged"),
+    (129, "summary+chain"), (3125, "summary+chain"), (8192, "summary+chain"),
+    (8193, "summary+chain/scratch")])
+def test_residual_layout_by_rows(R, want):
+    assert kernel.residual_layout(R) == want
+
+
+@pytest.mark.parametrize("K,want", [
+    (1, "staged"), (3200, "staged"), (24576, "staged"),
+    (24577, "unstaged"), (400000, "unstaged")])
+def test_banked_layout_by_slots(K, want):
+    assert kernel.banked_layout(K) == want
+
+
+def test_each_layout_counts_its_own_launches():
+    assert tuple(kernel.sketch_residual_kernel.launches) == \
+        kernel.RESIDUAL_LAYOUTS
+    assert tuple(kernel.sketch_residual_kernel_banked.launches) == \
+        kernel.BANKED_LAYOUTS
+    for fn in (kernel.sketch_residual_kernel,
+               kernel.sketch_residual_kernel_banked):
+        assert all(isinstance(n, int) for n in fn.launches.values())

@@ -204,6 +204,52 @@ def test_validate_block_rejects_what_the_reference_rejects(items, weights):
         tapi.validate_block(tspec, items, weights)
 
 
+@pytest.mark.parametrize("items,weights", [
+    (np.array([1, 1]), np.array([2**31 - 1, 2**31 - 1])),  # net weight wraps
+    (np.array([3, -5, 4]), np.array([1, 1, 1])),           # negative id
+    (np.array([2**32 + 7]), np.array([1])),                # id past int32
+])
+def test_update_validates_tensor_inputs_as_the_reference_does(items, weights):
+    """``api.update`` holds tensors to the block conventions too: the
+    reference raises on these values, so the port raises on them as
+    tensors (CPU here; a CUDA tensor takes the same host copy)."""
+    jspec, tspec = _specs(None, "sspm", k=8)
+    with pytest.raises(ValueError):
+        japi.update(jspec, japi.make(jspec), items, weights)
+    tstate = tapi.make(tspec, device="cpu")
+    with pytest.raises(ValueError):
+        tapi.update(tspec, tstate, torch.as_tensor(items),
+                    torch.as_tensor(weights))
+    with pytest.raises(ValueError):
+        tapi.update(tspec, tstate, items, weights)
+
+
+@pytest.mark.parametrize("item", [2**32 + 3, -2**31 - 1])
+def test_query_refuses_an_id_past_int32(item):
+    jspec, tspec = _specs(None, "sspm", k=8)
+    with pytest.raises(OverflowError):
+        japi.query(jspec, japi.make(jspec), item)
+    with pytest.raises(OverflowError):
+        tapi.query(tspec, tapi.make(tspec, device="cpu"), item)
+
+
+@pytest.mark.parametrize("shards,m", [(None, 10), (None, -1), (4, 97)])
+def test_topk_refuses_m_past_capacity(shards, m):
+    """top-m past the slots there are (or below 0) raises in both
+    packages: ``jax.lax.top_k`` in the reference, ``state.top_m`` (under
+    ``topk`` and ``bank.topk_bank``) in the port; m at the capacity does
+    not."""
+    jspec, tspec = _specs(shards, "sspm", k=8 if shards is None else 96)
+    js, ts = japi.make(jspec), tapi.make(tspec, device="cpu")
+    with pytest.raises(ValueError):
+        japi.topk(jspec, js, m)
+    with pytest.raises(ValueError):
+        tapi.topk(tspec, ts, m)
+    full = tspec.capacity if shards is None else 96
+    for a, b in zip(japi.topk(jspec, js, full), tapi.topk(tspec, ts, full)):
+        np.testing.assert_array_equal(np.asarray(a), b.numpy())
+
+
 def test_validate_block_prior_mass_bound():
     jspec, tspec = _specs(None, "sspm")
     items, weights = np.array([3, 3]), np.array([5, 6])
