@@ -14,13 +14,15 @@ result):
    warm and near-rail (+ and -) states, K values that are not multiples
    of 32 or 128, R and E in {1, 7, 128}, k = 400,000 for the
    single-sketch residual kernel, and all-padding blocks: the fused
-   update (kernel 1), the banked residual (kernel 2; also K at and past
-   its staged layout's limit, 24,576 / 24,577), the stacked
-   single-sketch residual (kernel 3; also k = 16,384 / 16,385 /
-   1,048,577, at and past its layouts' limits), each case of kernels 2
-   and 3 on the layout its size names (``kernel.residual_layout``,
-   ``banked_layout``; the limit cases on the layout written beside
-   them), both residual kernels
+   update (kernel 1; also K at and past its staged layout's limit,
+   24,576 / 24,577, and rows at one count whose water level's probe sums
+   pass 2^31, K = 24,576 and 65,536), the banked residual (kernel 2;
+   also K at and past its staged layout's limit, 24,576 / 24,577), the
+   stacked single-sketch residual (kernel 3; also k = 16,384 / 16,385 /
+   1,048,577, at and past its layouts' limits), each case of kernels 1-3
+   on the layout its size names (``kernel.fused_layout``,
+   ``banked_layout``, ``residual_layout``; the limit cases on the layout
+   written beside them), kernels 1-3
    on the SS± drain's edge cases (``drain_domains``: ties at the
    threshold, rem at a prefix sum or past the total, error sums past
    2^31, errors of every sign, EMPTY and BLOCKED slots), and the serial
@@ -47,9 +49,9 @@ result):
    - serial sspm k=4000: ``ops.sketch_block_update_serial`` on one
      sketch of ``capacity_for(1e-3, 2)`` counters, 8 blocks, kernel 4.
    Every counter is set to 0 before a run and read after it: each run
-   must launch its kernel once per block and no other kernel (kernels 2
-   and 3 on the layout named for the run: path A on summary+chain, the
-   others staged). Each run
+   must launch its kernel once per block and no other kernel (kernels 1-3
+   on the layout named for the run: path A on summary+chain, the others
+   staged). Each run
    but the serial one must equal the same blocks run through the plain
    versions on the card; each must hold the error bound of Thm 4 (SS±)
    or Thm 2 (Lazy) against the exact frequencies, with every item above
@@ -58,10 +60,11 @@ result):
    ms at its run's shapes (the kernels the profiler sees, per call; and
    the time per call from the host, which holds the wrapper's host time,
    the median of five rounds)
-   beside its bound and the plain version's ms; kernel 3 also on path
-   B's last block and on the block-lazy run's block 1, and for kernels 2
-   and 3 each timed block's evictions and SS± drain steps (in all and
-   the most in one sketch or row) and the us per eviction; a
+   beside its bound and the plain version's ms; kernel 1 also on the
+   lazy run's block 1, kernel 3 also on path B's last block and on the
+   block-lazy run's block 1, and for kernels 1-3 each timed block's
+   evictions and SS± drain steps (in all and the most in one sketch or
+   row) and the us per eviction; a
    ``torch.profiler`` window over blocks of the main, lazy, path A and
    path B sessions (device busy share and the ops that take the device
    time);
@@ -94,7 +97,7 @@ result):
      only, not the mass), beside each run's bound.
 
 The line before the last two is ``{"kernels": [...]}`` (all six kernels;
-the entries of flash and of kernels 2 and 3 give their launches by path,
+the entries of flash and of kernels 1-3 give their launches by path,
 kernels 1-4 also ``stream_ms``);
 the last line is ``{"ok": true, "device": {...}}``. A summary also goes to
 ``chiprun_out/chip_smoke.json``.
@@ -164,7 +167,14 @@ def read_counts() -> dict:
 # ---------------------------------------------------------------------------
 
 def kernel_cases():
-    """(name, R, K, variant, bank state, block kind) grid of kernel 1."""
+    """(name, R, K, variant, bank state, block kind[, layout]) grid of
+    kernel 1: besides the states above, K = 24,576 (the largest row it
+    stages in shared memory) and 24,577 (past it: the row stays in device
+    memory, its chunk minima in a scratch), the drain cases
+    (``drain_domains``, on rows of 3,001 and 30,000 slots, after
+    DRAIN_INSERTS evictions), and rows at one count whose water level's
+    probe sums pass 2^31 (``wrap_fused``). A case that names a layout
+    must run on it."""
     cases = []
     for v in (2, 1):
         cases += [
@@ -179,7 +189,15 @@ def kernel_cases():
             ("rail- R=7 K=301", 7, 301, v, "rail-", "stream"),
             ("warm R=128 K=3125 padding", 128, 3125, v, "warm", "padding"),
             ("cold R=1 K=40000", 1, 40000, v, "cold", "stream"),
+            ("warm R=1 K=24576", 1, 24576, v, "warm", "stream", "staged"),
+            ("warm R=1 K=24577", 1, 24577, v, "warm", "stream", "unstaged"),
+            ("wrap R=1 K=24576", 1, 24576, v, "equal", "wrap", "staged"),
+            ("wrap R=1 K=65536", 1, 65536, v, "equal", "wrap", "unstaged"),
         ]
+        cases += [(f"drain {kind} R=3 K=3001", 3, 3001, v, kind, "drain")
+                  for kind in DRAIN_KINDS]
+        cases += [("drain ties R=2 K=30000", 2, 30000, v, "ties", "drain"),
+                  ("drain signs R=2 K=30000", 2, 30000, v, "signs", "drain")]
     return cases
 
 
@@ -355,6 +373,41 @@ def drain_banked(R, K, variant, kind, device, seed):
             [t(uids[0]), t(net[0]), uoff, zero, zero + DRAIN_INSERTS, t(rem)])
 
 
+def drain_fused(R, K, variant, kind, device, seed):
+    """Kernel 1's operands for a drain case: R rows of K slots, a delta of
+    -2..2 on every slot, DRAIN_INSERTS non-unit evictions each from the
+    row's run of the grouped layout, then the drain."""
+    import numpy as np
+    import torch
+
+    ids, counts, errors, rem = drain_domains(kind, R, K, seed)
+    uids, net = drain_inserts(R, 64, seed)
+    delta = np.random.default_rng(seed + 2).integers(-2, 3, (R, K))
+    t = lambda a: torch.as_tensor(a, dtype=torch.int32, device=device)
+    zero = torch.zeros(R, dtype=torch.int32, device=device)
+    return ([t(ids), t(counts), t(errors)],
+            [t(delta), t(uids), t(net), zero, zero, zero + DRAIN_INSERTS,
+             t(rem)])
+
+
+def wrap_fused(R, K, device):
+    """Kernel 1's operands where the water level's probe sums pass 2^31, as
+    the reference's int32 sums wrap there: R rows of K monitored slots at
+    count 5 and m = B = 2 * ceil(2^31 / K) unit inserts a row, so the first
+    probe, at 5 + B // 2, counts B // 2 + 1 values a slot, K (B // 2 + 1)
+    >= 2^31 in all."""
+    import torch
+
+    B = 2 * -(-2**31 // K)
+    i32 = dict(dtype=torch.int32, device=device)
+    ids = (1 << 22) + torch.arange(R * K, **i32).view(R, K)
+    uids = (1 << 23) + torch.arange(R * B, **i32).view(R, B)
+    zero = torch.zeros(R, **i32)
+    return ([ids, torch.full((R, K), 5, **i32), torch.zeros((R, K), **i32)],
+            [torch.zeros((R, K), **i32), uids, torch.ones((R, B), **i32),
+             zero, zero + B, zero, zero])
+
+
 SERIAL_ITEMS = 4096   # the plain serial version is a Python loop per item
 
 
@@ -445,9 +498,14 @@ def case_block(R, K, variant, state, block, device, seed, B=65536):
 
 
 def fused_case(R, K, variant, state, block, device, seed):
-    """Kernel 1's operands: the bank and its prep."""
+    """Kernel 1's operands: the bank and its prep (``drain_fused``'s or
+    ``wrap_fused``'s for those cases)."""
     from repro_torch.sketch import bank as bk
 
+    if block == "drain":
+        return drain_fused(R, K, variant, state, device, seed)
+    if block == "wrap":
+        return wrap_fused(R, K, device)
     bank, it, w, router = case_block(R, K, variant, state, block, device,
                                      seed)
     ri, rw = router.route_dense(it, w)
@@ -577,7 +635,7 @@ def check_all_cases(device) -> dict:
 
     grid = (
         ("sketch_update_kernel_fused", ref.fused_update_ref, kernel_cases(),
-         fused_case, 100, None),
+         fused_case, 100, lambda R, K: kernel.fused_layout(K)),
         ("sketch_residual_kernel_banked", ref.residual_phase_banked,
          banked_cases(), banked_case, 200,
          lambda R, K: kernel.banked_layout(K)),
@@ -672,9 +730,10 @@ def _unpad(out, bank):
 
 def run_plain(spec, stream, block, device, path, plain, at=-1):
     """The same padded blocks through the path's framework side and the
-    kernel's plain version in place of the kernel. Returns the final
-    bank, block ``at``'s kernel operands (the last block's by default)
-    and the time."""
+    kernel's plain version in place of the kernel (or a kernel, which
+    updates its operands in place). Returns the final bank, block
+    ``at``'s kernel operands as they were before its update (the last
+    block's by default) and the time."""
     import torch
 
     bank = initial_bank(spec, device)
@@ -686,7 +745,7 @@ def run_plain(spec, stream, block, device, path, plain, at=-1):
         w = torch.as_tensor(weights[b], device=device)
         st, args = path(spec, bank, it, w)
         if b == at:
-            last = (st, args)
+            last = ([t.clone() for t in st], args)
         bank = _unpad(plain(*st, *args, variant=spec.variant_id), bank)
     torch.cuda.synchronize()
     return bank, last, time.perf_counter() - t0
@@ -909,8 +968,8 @@ def time_kernel(kernel, plain, last, variant, bound, reps, plain_reps):
     ``bound(state, args, out, variant) -> (bytes, ops)`` gives. ``ms`` is
     the kernel's device time (``device_ms``); ``stream_ms`` the median
     of ``stream_ms_rounds`` (``stream_ms``), which hold the wrapper's host
-    time wherever that is the longer. For the residual kernels (2 and 3),
-    also the block's trips (``trips``) and the us per eviction."""
+    time wherever that is the longer. For kernels 1-3, also the block's
+    trips (``fused_trips``, ``trips``) and the us per eviction."""
     import torch
 
     st, args = last
@@ -937,8 +996,10 @@ def time_kernel(kernel, plain, last, variant, bound, reps, plain_reps):
                bound_ms=bound_s * 1e3,
                bound_by="bytes" if by_bytes else "operations",
                bytes=nbytes, ops=nops)
-    if bound in (banked_bound, split_bound):
-        out.update(trips(st, args, want, variant))
+    count = {fused_bound: fused_trips, banked_bound: trips,
+             split_bound: trips}.get(bound)
+    if count:
+        out.update(count(st, args, want, variant))
         out["us_per_eviction"] = (ms * 1e3 / out["evictions"]
                                   if out["evictions"] else None)
     return out
@@ -956,19 +1017,32 @@ def trips(st, args, out, variant) -> dict:
                 max_drain_steps=int(drained.max()))
 
 
+def fused_trips(st, args, out, variant) -> dict:
+    """Kernel 1's work on a block: its empty fills, unit inserts (the
+    water-fill), non-unit evictions and SS± drain steps (slots drained),
+    the evictions and drain steps also the most in one row."""
+    delta, h_uids, h_net, i0, mu, nnu, w_del = args
+    ev = nnu.long()
+    drained = _spread_slots(st, out, variant)
+    return dict(fills=int(i0.sum()), unit_inserts=int(mu.sum()),
+                evictions=int(ev.sum()), max_evictions=int(ev.max()),
+                drain_steps=int(drained.sum()),
+                max_drain_steps=int(drained.max()))
+
+
 def fused_bound(bank, prep, out, variant):
-    return least_bytes(bank, prep, out, variant), least_ops(bank, prep)
-
-
-def least_bytes(bank, prep, out, variant) -> int:
-    """Bytes this block's update must move at the least, from its own
-    data: every delta; a row's counts in full where the water-fill or an
-    eviction must see them all (mu + nnu > 0), else the counts it changes
-    or adds delta to; a row's ids in full where the empty fill must find
-    its EMPTY slots (i0 > 0); a row's errors in full where the SS± spread
-    must find the largest (w_del > 0); each element of ids, counts and
-    errors that the update changes, written once; the grouped (uid, net)
-    entries the rows use and the four per-row scalars, read once."""
+    """Kernel 1 at the least, whatever an implementation keeps: every
+    delta; a row's counts in full where the water-fill or an eviction
+    must see them all (mu + nnu > 0), else the counts it changes or adds
+    delta to; a row's ids in full where the empty fill must find its
+    EMPTY slots (i0 > 0); a row's errors in full where the SS± drain
+    must find the largest (w_del > 0); each changed element written
+    once; the grouped (uid, net) entries used and the four per-row
+    scalars read once. One operation per slot read, one pass over a row
+    for its water level and one for the placement (rows with unit
+    inserts), and ``STEP_OPS`` per eviction and per drained slot. The
+    evictions form one dependent chain per row: its latency, not this
+    bound's rates, limits the kernel."""
     delta, h_uids, h_net, i0, mu, nnu, w_del = prep
     R, K = bank[0].shape
     changed = [a != b for a, b in zip(bank, out)]
@@ -977,26 +1051,12 @@ def least_bytes(bank, prep, out, variant) -> int:
                    + int(((changed[1] | (delta != 0)) & ~scans[:, None]).sum()))
     ids_read = K * int((i0 > 0).sum())
     errors_read = K * int((w_del > 0).sum()) if variant == 2 else 0
+    reads = R * K + counts_read + ids_read + errors_read
     writes = sum(int(c.sum()) for c in changed)
     used = int((i0.long() + mu.long() + nnu.long()).sum())
-    return 4 * (R * K + counts_read + ids_read + errors_read + writes
-                + 2 * used + 4 * R)
-
-
-def least_ops(bank, prep) -> int:
-    """int32 operations this block needs at the least: one per slot to add
-    the delta, one per slot of the rows whose empty slots are scanned, one
-    per slot per bisection probe of the water level (ceil(log2(mu + 1))
-    of them) plus one placement pass, one per slot per non-unit
-    eviction."""
-    import torch
-
-    delta, h_uids, h_net, i0, mu, nnu, w_del = prep
-    R, K = bank[0].shape
-    fill = mu[mu > 0].double()
-    probes = int((torch.ceil(torch.log2(fill + 1)) + 1).sum())
-    passes = R + int((i0 > 0).sum()) + probes + int(nnu.long().sum())
-    return K * passes
+    nbytes = 4 * (reads + writes + 2 * used + 4 * R)
+    steps = int(nnu.long().sum()) + int(_spread_slots(bank, out, variant).sum())
+    return nbytes, reads + 2 * K * int((mu > 0).sum()) + STEP_OPS * steps
 
 
 def _spread_slots(st, out, variant):
@@ -1701,14 +1761,14 @@ def main() -> int:
     fused, split = "sketch_update_kernel_fused", "sketch_residual_kernel"
     runs["main"], last["main"], main_bank = run_path(
         "main sspm shards=128", main_spec, main_stream, B, device, 2.0,
-        fused, fused_path, ref.fused_update_ref)
-    runs["lazy"], _, lazy_bank = run_path(
+        fused, fused_path, ref.fused_update_ref, layout="staged")
+    # block 1 of the lazy stream brings the most evictions (2,968)
+    runs["lazy"], last["lazy"], lazy_bank = run_path(
         "lazy k=2000", lazy_spec, lazy_stream, B, device, 1.0, fused,
-        fused_path, ref.fused_update_ref)
+        fused_path, ref.fused_update_ref, at=1, layout="staged")
     runs["path_a"], last["path_a"], _ = run_path(
         "block sspm k=400000", a_spec, make_stream(32, B, seed=4), B, device,
         2.0, split, split_path, ref.residual_phase, layout="summary+chain")
-    # block 1 of the lazy stream brings the most evictions (2,968)
     runs["lazy_block"], last["lazy_block"], bank = run_path(
         "block lazy k=2000", lazy_block_spec, lazy_stream, B, device, 1.0,
         split, split_path, ref.residual_phase, at=1, layout="staged")
@@ -1756,6 +1816,10 @@ def main() -> int:
             kernel.sketch_update_kernel_serial, ref.serial_update_ref,
             last["serial"], 2, serial_bound, 3, 1),
     }
+    # kernel 1 beside the main run: on the lazy run's heaviest block
+    times_fused_lazy = time_kernel(kernel.sketch_update_kernel_fused,
+                                   ref.fused_update_ref, last["lazy"], 1,
+                                   fused_bound, 10, 1)
     # kernel 3 beside path A: on path B's last block and on the block-lazy
     # run's heaviest block
     times_b = time_kernel(kernel.sketch_residual_kernel, ref.residual_phase,
@@ -1765,6 +1829,8 @@ def main() -> int:
                              split_bound, 10, 1)
     for name, t in times.items():
         log(f"{name} at its run's shapes: {json.dumps(t)}")
+    log(f"sketch_update_kernel_fused on lazy's block 1: "
+        f"{json.dumps(times_fused_lazy)}")
     log(f"sketch_residual_kernel at path B's shapes: {json.dumps(times_b)}")
     log(f"sketch_residual_kernel on block lazy's block 1: "
         f"{json.dumps(times_lazy)}")
@@ -1797,9 +1863,9 @@ def main() -> int:
         "library_ms": None,   # no PyTorch call computes these chains
         "stream_ms": times[name]["stream_ms"],
     } for name in KERNELS] + attention_entries
-    # kernels 2 and 3 by layout: calls in the counted runs (a call on
-    # kernel 3's unstaged layouts is two device launches)
-    for entry in kernels[1:3]:
+    # kernels 1-3 by layout: calls in the counted runs (a call on kernel
+    # 3's unstaged layouts is two device launches)
+    for entry in kernels[:3]:
         entry["launches_by_path"] = {
             r["layout"]: sum(q["launches"] for q in runs.values()
                              if q["kernel"] == entry["name"]
@@ -1809,6 +1875,7 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
         card=card, runs=runs, kernel_times=times,
+        fused_times_lazy_block=times_fused_lazy,
         residual_times_path_b=times_b, residual_times_lazy_block=times_lazy,
         serial_paths=serial_by_path,
         profile=prof, attention=attention,

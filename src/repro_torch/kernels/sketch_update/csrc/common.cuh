@@ -22,7 +22,6 @@ constexpr unsigned kFull = 0xffffffffu;
 struct Scratch {
   int val[kMaxWarps];
   int idx[kMaxWarps];
-  unsigned long long scan[kMaxWarps];
 };
 
 __device__ __forceinline__ int sat_add(int a, int b) {
@@ -61,18 +60,6 @@ __device__ __forceinline__ void warp_arg(int& v, int& i) {
   }
 }
 
-// Block-wide wrapping sum; every thread gets the total.
-__device__ unsigned block_sum(unsigned v, Scratch& sh) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  const int warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) sh.val[warp] = static_cast<int>(v);
-  __syncthreads();
-  unsigned t = 0;
-  for (int w = 0; w < nw; ++w) t += static_cast<unsigned>(sh.val[w]);
-  return t;
-}
-
 // Block-wide (value, index) argmin or argmax; every thread gets the result.
 template <bool kMax>
 __device__ void block_arg(int& v, int& i, Scratch& sh) {
@@ -87,28 +74,6 @@ __device__ void block_arg(int& v, int& i, Scratch& sh) {
     if (kMax) take_max(v, i, sh.val[w], sh.idx[w]);
     else take_min(v, i, sh.val[w], sh.idx[w]);
   }
-}
-
-// Block-wide inclusive scan of one value per thread; *total = block sum.
-__device__ unsigned long long block_scan(unsigned long long x,
-                                         unsigned long long* total,
-                                         Scratch& sh) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
-  for (int o = 1; o < 32; o <<= 1) {
-    const unsigned long long y = __shfl_up_sync(kFull, x, o);
-    if (lane >= o) x += y;
-  }
-  __syncthreads();
-  if (lane == 31) sh.scan[warp] = x;
-  __syncthreads();
-  unsigned long long before = 0, all = 0;
-  for (int w = 0; w < nw; ++w) {
-    if (w < warp) before += sh.scan[w];
-    all += sh.scan[w];
-  }
-  *total = all;
-  return x + before;
 }
 
 }  // namespace

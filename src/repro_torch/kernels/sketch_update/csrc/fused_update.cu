@@ -5,235 +5,34 @@
 // at :75). Per row, in place and in the reference's order:
 //   1. saturating add of the monitored delta;
 //   2. bulk empty fill: the j-th residual insert takes the j-th EMPTY slot;
-//   3. unit-weight water-fill: bisect the water level T, then one pass with
+//   3. unit-weight water-fill: search the water level T, then one pass with
 //      two prefix counts places every unit insert;
 //   4. non-unit inserts evict the minimum-count slot one at a time;
 //   5. (SS±, variant 2) the unmonitored deletion weight drains greedily
 //      from the maximum-error slots.
+// Steps 4-5 are bank.residual_phase_banked, which kernel 2 computes alone.
 //
 // The same file holds kernel 2, residual_banked_kernel: steps 4-5 alone,
 // for the split path whose phase 1 ran in torch. It replaces the Pallas
 // TPU kernel sketch_residual_kernel_banked (kernel.py:278, body
-// _residual_kernel_banked at :258 -> bank.residual_phase_banked). It has
-// its own steps 4-5 (banked_chain and residual_common.cuh's drain), not
-// kernel 1's evict_then_spread.
+// _residual_kernel_banked at :258 -> bank.residual_phase_banked).
 //
 // Rows never read each other, so the TPU grid over row tiles and its
 // lockstep "frozen lane" masks become independent CTAs, each running its
-// own row's trip counts. The row stays in global memory (L2-resident), so
-// any K is legal. Slot j of a row is only ever read and written by thread
-// j % blockDim.x; threads meet only in block reductions and scans (warp
-// shuffles plus a small shared scratch).
-//
-// Bound: the function moves the bank (ids/counts/errors read and written,
-// delta read) and reads the few grouped-layout entries each row uses; its
-// integer work per slot is small, so it is bound by bytes. The sequential
-// eviction/spread loops are latency chains of block reductions; each
-// thread keeps the running min/max of its own slots so a trip rescans only
-// the one slot's owner.
-//
-// Integer semantics and the reductions are common.cuh's.
+// own row's trip counts. Integer semantics are common.cuh's.
 #include "residual_common.cuh"
 
 namespace {
 
-// threads per CTA: one pass covers 256 slots of the row (13 passes at the
-// main path's K = 3200). Chosen, not tuned: no other width was timed.
+// threads per CTA (8 warps). Chosen, not tuned: no other width was timed.
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
 
-// x // 2 with floor rounding (jnp's //), for x >= -(2^31-1)
-__device__ __forceinline__ int floor_half(int x) {
-  return (x - (x < 0 ? 1 : 0)) / 2;
-}
-
-// #values <= x of the union {c, c+1, ...} clipped to m + 1 (phases.n_leq)
-__device__ __forceinline__ unsigned n_leq(int c, int x, int m) {
-  if (c > x) return 0u;
-  return static_cast<unsigned>(clip(sat_add(x, -c), 0, m)) + 1u;
-}
-
-// Steps 4-5 on one row of K slots: the inserts i in [i_begin, i_end),
-// read at h[clip(off + i, 0, g_last)], each evict the minimum-count slot;
-// then (SS±) the deletion weight rem drains from the maximum-error slots.
-// The fused kernel runs it after steps 1-3; residual_banked_kernel alone.
-__device__ void evict_then_spread(int* __restrict__ rid, int* __restrict__ rc,
-                                  int* __restrict__ re, int K,
-                                  const int* __restrict__ h_uids,
-                                  const int* __restrict__ h_net, int off,
-                                  int i_begin, int i_end, int g_last, int rem,
-                                  int variant, Scratch& sh) {
-  const int tid = threadIdx.x, nt = blockDim.x;
-  // 4. non-unit inserts: evict the minimum count
-  if (i_begin < i_end) {
-    int lv = kIntMax, li = kIntMax;
-    for (int j = tid; j < K; j += nt) take_min(lv, li, rc[j], j);
-    for (int i = i_begin; i < i_end; ++i) {
-      int v = lv, sel = li;
-      block_arg<false>(v, sel, sh);
-      if (sel % nt == tid) {
-        const int g = clip(wrap_add(off, i), 0, g_last);
-        rid[sel] = h_uids[g];
-        rc[sel] = sat_add(v, h_net[g]);
-        re[sel] = v;
-        lv = kIntMax;
-        li = kIntMax;
-        for (int j = tid; j < K; j += nt) take_min(lv, li, rc[j], j);
-      }
-    }
-  }
-
-  // 5. SS± only: drain rem from the maximum-error slots
-  if (variant != 1 && rem > 0) {
-    int lv = kIntMin, li = kIntMax;
-    for (int j = tid; j < K; j += nt) take_max(lv, li, re[j], j);
-    for (;;) {
-      int v = lv, sel = li;
-      block_arg<true>(v, sel, sh);
-      if (!(rem > 0 && v > 0)) break;
-      const int d = min(rem, v);
-      if (sel % nt == tid) {
-        rc[sel] = sat_add(rc[sel], -d);
-        re[sel] = sat_add(re[sel], -d);
-        lv = kIntMin;
-        li = kIntMax;
-        for (int j = tid; j < K; j += nt) take_max(lv, li, re[j], j);
-      }
-      rem = sat_add(rem, -d);
-    }
-  }
-}
-
-__global__ void __launch_bounds__(kThreads) fused_update_kernel(int* __restrict__ ids,
-                                    int* __restrict__ counts,
-                                    int* __restrict__ errors,
-                                    const int* __restrict__ delta,
-                                    const int* __restrict__ h_uids,
-                                    const int* __restrict__ h_net,
-                                    const int* __restrict__ i0,
-                                    const int* __restrict__ mu,
-                                    const int* __restrict__ nnu,
-                                    const int* __restrict__ w_del,
-                                    int K, int B, int variant) {
-  __shared__ Scratch sh;
-  const int r = blockIdx.x;
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const size_t base = static_cast<size_t>(r) * K;
-  int* rid = ids + base;
-  int* rc = counts + base;
-  int* re = errors + base;
-  const int* rd = delta + base;
-  // the grouped layout is one flat (R*B,) array; row r's run starts at r*B
-  const int g_last = gridDim.x * B - 1;
-  const int row0 = r * B;
-  const int n_fill = i0[r], m = mu[r], nn = nnu[r];
-
-  // 1. monitored delta
-  for (int j = tid; j < K; j += nt) rc[j] = sat_add(rc[j], rd[j]);
-
-  // 2. bulk empty fill: residual inserts [mu + nnu, mu + nnu + i0)
-  if (n_fill > 0) {
-    const int off = row0 + m + nn;
-    int seen = 0;
-    for (int t0 = 0; t0 < K && seen < n_fill; t0 += nt) {
-      const int j = t0 + tid;
-      const bool empty = j < K && rid[j] == -1;
-      unsigned long long total;
-      const int e_rank = seen + static_cast<int>(block_scan(empty, &total, sh)) - 1;
-      if (empty && e_rank < n_fill) {
-        const int src = clip(wrap_add(off, e_rank), 0, g_last);
-        rid[j] = h_uids[src];
-        rc[j] = h_net[src];
-        re[j] = 0;
-      }
-      seen += static_cast<int>(total);
-    }
-  }
-
-  // 3. unit-weight water-fill of inserts [0, mu)
-  if (m > 0) {
-    int lo = kIntMax, unused = kIntMax;
-    for (int j = tid; j < K; j += nt) take_min(lo, unused, rc[j], j);
-    block_arg<false>(lo, unused, sh);
-    int hi = sat_add(lo, m);
-    // The reference runs a fixed number of trips (bit_length(R*B) + 1).
-    // A trip is a function of (lo, hi) alone, so once a trip changes
-    // neither, every later trip repeats it, and stopping there gives the
-    // same T. It gets there first: while hi - lo >= 1 each trip shrinks
-    // [lo, hi] to at most half, rounded up; from hi == lo a trip is fixed
-    // (probe true) or moves lo to hi + 1 (false), which is fixed. That is
-    // at most bit_length(m) + 1 trips, and m <= B <= R*B.
-    for (;;) {
-      const int mid = sat_add(lo, floor_half(sat_add(hi, -lo)));
-      unsigned part = 0;
-      for (int j = tid; j < K; j += nt) part += n_leq(rc[j], mid, m);
-      const bool ge = static_cast<int>(block_sum(part, sh)) >= m;
-      const int nlo = ge ? lo : sat_add(mid, 1), nhi = ge ? mid : hi;
-      if (nlo == lo && nhi == hi) break;
-      lo = nlo;
-      hi = nhi;
-    }
-    const int T = lo, tm1 = wrap_sub(T, 1);
-    unsigned p1 = 0, p2 = 0;
-    for (int j = tid; j < K; j += nt) {
-      const int c = rc[j];
-      p1 += n_leq(c, tm1, m);
-      if (c < tm1) p2 += static_cast<unsigned>(clip(sat_add(tm1, -c), 0, m));
-    }
-    const int f_tm1 = static_cast<int>(block_sum(p1, sh));
-    const int f_tm2 = static_cast<int>(block_sum(p2, sh));
-    const int extra_n = wrap_sub(m, f_tm1);
-    int seen_e = 0, seen_u = 0;
-    for (int t0 = 0; t0 < K; t0 += nt) {
-      const int j = t0 + tid;
-      const bool in = j < K;
-      const int c = in ? rc[j] : 0;
-      const bool elig = in && c <= T;
-      const bool under = in && c <= tm1;
-      unsigned long long total;
-      const unsigned long long inc = block_scan(
-          (static_cast<unsigned long long>(elig) << 32) | under, &total, sh);
-      const int rank = seen_e + static_cast<int>(inc >> 32) - 1;
-      const int below = seen_u + static_cast<int>(inc & 0xffffffffu) - under;
-      const bool extra = elig && rank < extra_n;
-      const int t = (under ? clip(sat_add(T, -c), 0, m) : 0) + extra;
-      if (in && t > 0) {
-        const int pos = extra ? wrap_add(f_tm1, min(rank, extra_n))
-                              : wrap_add(f_tm2, below);
-        const int nc = sat_add(c, t);
-        rid[j] = h_uids[clip(wrap_add(row0, pos), 0, g_last)];
-        rc[j] = nc;
-        re[j] = nc - 1;
-      }
-      seen_e += static_cast<int>(total >> 32);
-      seen_u += static_cast<int>(total & 0xffffffffu);
-    }
-  }
-
-  // 4-5. non-unit inserts [mu, mu + nnu), then the SS± spread of w_del
-  evict_then_spread(rid, rc, re, K, h_uids, h_net, row0, m, m + nn, g_last,
-                    w_del[r], variant, sh);
-}
-
-// Kernel 2: steps 4-5 alone on a bank whose phase 1 ran outside (the split
-// path). Row r reads the flat (G,) layout at uoff[r] + i for i in
-// [start[r], n_ins[r]), then drains w_del[r].
-//
-// What bounds it: the evictions form one dependent chain, so latency, not
-// the one read of the working rows the bound counts. So the row's counts
-// (and errors where it drains) are staged into shared memory with
-// cp.async, where K <= kStageSlots;
-// the ids are only written, at the evicted slots. One warp carries the
-// evictions over per-chunk minima of 32 slots: a step is a chunk pick (the
-// lanes read the chunk minima), a slot pick in the chunk (a lane a slot),
-// the write (through to device memory) and the chunk's minimum anew, with
-// no __syncthreads. The drain is residual_common.cuh's selection, with
-// bank.residual_phase_banked's sat_add. Unlike kernel 3, the eviction's
-// argmin is over the counts alone (EMPTY slots included), as the plain
-// version's. Two layouts, by K (the caller names the one it expects, and
-// a launch whose name disagrees is refused): staged (K <= kStageSlots),
-// and unstaged, where the row stays in device memory and its chunk minima
-// go to the scratch.
-constexpr int kStageSlots = 24576;   // counts + errors: 192 KB
+// Largest row either kernel stages in shared memory (the caller names the
+// layout it expects, and a launch whose name disagrees is refused): the
+// row's counts and errors and its 32-slot chunk minima, 195 KB.
+constexpr int kStageSlots = 24576;    // kernel 2
+constexpr int kFusedStageSlots = 24576;   // kernel 1
 
 __host__ __device__ constexpr int chunks(int K) { return (K + 31) / 32; }
 
@@ -241,7 +40,8 @@ __host__ __device__ constexpr int chunks(int K) { return (K + 31) / 32; }
 // [i0, i1), read at h[clip(off + i, 0, g_last)], evicts the first slot at
 // the minimum count mc (count sat_add(mc, w), error mc). Counts and errors
 // at ct/er (shared or global), written through to gct/ger where staged;
-// ids written at gid.
+// ids written at gid. cmin[q] holds the minimum count of slots
+// 32q .. 32q + 31 on entry and is kept so.
 __device__ void banked_chain(int* ct, int* er, int* gid, int* gct, int* ger,
                              bool staged, int* cmin, int K,
                              const int* __restrict__ h_uids,
@@ -278,6 +78,442 @@ __device__ void banked_chain(int* ct, int* er, int* gid, int* gct, int* ger,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Kernel 1
+//
+// What bounds it: the function moves the bank once (a bytes bound), but a
+// row's steps are latency chains: each step needs all of the previous one,
+// and step 4 is one dependent eviction after another. So the row is staged
+// in shared memory once and every step works there (kFusedStageSlots; past
+// it, the same code runs on the row in device memory, its chunk minima in
+// a scratch):
+//   - step 1 reads counts + delta (and the errors by cp.async, where the
+//     row drains), summing on the way in, and keeps the minimum of every
+//     32-slot chunk; a warp has kBatch chunks' loads in flight at once;
+//   - steps 2 and 3's placement take the row in index order as 8 warp runs
+//     of whole chunks: a ballot ranks a chunk's slots, one exchange of the
+//     runs' totals ranks the runs (one block scan per step, not one per
+//     256 slots); each pass that writes a chunk keeps its minimum;
+//   - the water level is the reference's bisection, kLevels of its trips
+//     per pass over the row: the pass sums n_leq at every threshold the
+//     next kLevels trips can probe (the tree of their midpoints), in
+//     wrapping uint32 as the reference's int32 sums, then every thread
+//     walks the trips with those sums. So T is the bisection's, wrap
+//     included. Off the int32 rails a sum is a count and a sum of counts
+//     (off_rails), slot by slot a compare and two adds;
+//   - steps 4-5 are kernel 2's: banked_chain over the chunk minima, then
+//     residual_common.cuh's drain selection (sat_add, as
+//     bank.residual_phase_banked);
+//   - ids are read only where the row has EMPTY slots to fill, and written
+//     through where they change; a staged row's counts (and errors) are
+//     written back once.
+
+constexpr int kLevels = 3;                 // bisection trips per pass
+constexpr int kNodes = (1 << kLevels) - 1; // thresholds per pass
+// 32-slot chunks a warp reads from device memory before it uses the first:
+// the loads of a batch are in flight together, not one latency each
+constexpr int kBatch = 8;
+
+struct FusedScratch {
+  unsigned part[2][kWarps][kNodes];  // per-warp level sums, by pass parity
+  int run[kWarps][4];                // per-warp run totals
+  DrainScratch drain;
+};
+
+// x // 2 with floor rounding (jnp's //), for x >= -(2^31-1)
+__device__ __forceinline__ int floor_half(int x) {
+  return (x - (x < 0 ? 1 : 0)) / 2;
+}
+
+// the bisection's probe of [lo, hi] (phases.waterfill_unit_inserts)
+__device__ __forceinline__ int midpoint(int lo, int hi) {
+  return sat_add(lo, floor_half(sat_add(hi, -lo)));
+}
+
+// #values <= x of the union {c, c+1, ...} clipped to m + 1 (phases.n_leq)
+__device__ __forceinline__ unsigned n_leq(int c, int x, int m) {
+  if (c > x) return 0u;
+  return static_cast<unsigned>(clip(sat_add(x, -c), 0, m)) + 1u;
+}
+
+// Warp w's run of the row: whole 32-slot chunks, [w0, w1).
+__device__ __forceinline__ void warp_run(int K, int& w0, int& w1) {
+  const int per = (chunks(K) + kWarps - 1) / kWarps * 32;
+  const long long a = static_cast<long long>(threadIdx.x >> 5) * per;
+  w0 = static_cast<int>(min(a, static_cast<long long>(K)));
+  w1 = static_cast<int>(min(a + per, static_cast<long long>(K)));
+}
+
+// The least count of the row, from its chunk minima; every thread gets it.
+__device__ int row_min(const int* cmin, int K) {
+  int lo = kIntMax;
+  for (int q = threadIdx.x & 31; q < chunks(K); q += 32) lo = min(lo, cmin[q]);
+  return __reduce_min_sync(kFull, lo);
+}
+
+// Whether the row's water-fill is off both rails: with lo the least count,
+// lo > INT_MIN and lo + m <= INT_MAX. Then every probe x and every count c
+// <= x lie in [lo, lo + m], so n_leq(c, x) = x - c + 1 exactly (no
+// saturation, no clip), and a level sum is (x + 1) #{c <= x} - sum{c <= x},
+// which taken mod 2^32 is the reference's int32 sum, wrap included.
+__device__ __forceinline__ bool off_rails(int lo, int m) {
+  return lo != kIntMin && lo <= kIntMax - m;
+}
+
+// The water level T of m > 0 unit inserts over the row's counts ct, the
+// bisection of [lo, lo + m] run to its fixed point (see below), kLevels
+// trips a pass. lo: the least count; cmin: the chunk minima.
+__device__ int water_level(const int* ct, const int* cmin, int K, int lo,
+                           int m, FusedScratch& sh) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const bool exact = off_rails(lo, m);
+  int hi = sat_add(lo, m);
+  // The reference runs a fixed number of trips (bit_length(R*B) + 1). A
+  // trip is a function of (lo, hi) alone, so once a trip changes neither,
+  // every later trip repeats it, and stopping there gives the same T. It
+  // gets there first: while hi - lo >= 1 each trip shrinks [lo, hi] to at
+  // most half, rounded up; from hi == lo a trip is fixed (probe true) or
+  // moves lo to hi + 1 (false), which is fixed. That is at most
+  // bit_length(m) + 1 trips, and m <= B <= R*B.
+  for (int buf = 0;; buf ^= 1) {
+    // the thresholds of the next kLevels trips: node n's interval and
+    // midpoint, its children 2n + 1 (probe true) and 2n + 2 (false)
+    int l[kNodes], h[kNodes], mid[kNodes];
+    l[0] = lo;
+    h[0] = hi;
+    int top = kIntMin;
+#pragma unroll
+    for (int n = 0; n < kNodes; ++n) {
+      mid[n] = midpoint(l[n], h[n]);
+      top = max(top, mid[n]);
+      if (2 * n + 2 < kNodes) {
+        l[2 * n + 1] = l[n];
+        h[2 * n + 1] = mid[n];
+        l[2 * n + 2] = sat_add(mid[n], 1);
+        h[2 * n + 2] = h[n];
+      }
+    }
+    // warp-strided chunks; a chunk whose minimum is above every threshold
+    // adds nothing. part: the level sums (off the rails: the count and
+    // the sum of the counts at or under each threshold)
+    unsigned part[kNodes] = {}, under[kNodes] = {};
+    for (int base = 32 * warp; base < K; base += kThreads) {
+      if (cmin[base >> 5] > top) continue;
+      const int s = base + lane;
+      if (s >= K) continue;
+      const int c = ct[s];
+      if (exact) {
+#pragma unroll
+        for (int n = 0; n < kNodes; ++n) {
+          if (c <= mid[n]) {
+            ++under[n];
+            part[n] += static_cast<unsigned>(c);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int n = 0; n < kNodes; ++n) part[n] += n_leq(c, mid[n], m);
+      }
+    }
+    if (exact) {
+#pragma unroll
+      for (int n = 0; n < kNodes; ++n)
+        part[n] = (static_cast<unsigned>(mid[n]) + 1u) * under[n] - part[n];
+    }
+#pragma unroll
+    for (int n = 0; n < kNodes; ++n) {
+      const unsigned t = __reduce_add_sync(kFull, part[n]);
+      if (lane == 0) sh.part[buf][warp][n] = t;
+    }
+    // one barrier a pass: the next pass writes the other buffer, and the
+    // one after this buffer only once every thread has passed the next
+    // pass's barrier, after its reads below
+    __syncthreads();
+    // lane n of every warp holds node n's sum
+    unsigned sum = 0;
+    if (lane < kNodes)
+      for (int w = 0; w < kWarps; ++w) sum += sh.part[buf][w][lane];
+    for (int n = 0, level = 0; level < kLevels; ++level) {
+      const unsigned f = __shfl_sync(kFull, sum, n);
+      const bool ge = static_cast<int>(f) >= m;
+      const int md = midpoint(lo, hi);
+      const int nlo = ge ? lo : sat_add(md, 1), nhi = ge ? md : hi;
+      if (nlo == lo && nhi == hi) return lo;
+      lo = nlo;
+      hi = nhi;
+      n = 2 * n + (ge ? 1 : 2);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads) fused_update_kernel(
+    int* __restrict__ ids, int* __restrict__ counts, int* __restrict__ errors,
+    const int* __restrict__ delta, const int* __restrict__ h_uids,
+    const int* __restrict__ h_net, const int* __restrict__ i0,
+    const int* __restrict__ mu, const int* __restrict__ nnu,
+    const int* __restrict__ w_del, int* __restrict__ scratch, int K, int B,
+    int variant) {
+  extern __shared__ int4 smem4[];
+  __shared__ FusedScratch sh;
+  const int r = blockIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const unsigned below = (1u << lane) - 1;
+  const size_t base = static_cast<size_t>(r) * K;
+  int* rid = ids + base;
+  int* gct = counts + base;
+  int* ger = errors + base;
+  const int* rd = delta + base;
+  // the grouped layout is one flat (R*B,) array; row r's run starts at r*B
+  const int g_last = gridDim.x * B - 1;
+  const int row0 = r * B;
+  const int n_fill = i0[r], m = mu[r], nn = nnu[r];
+  const int rem = variant == 1 ? 0 : w_del[r];
+  const bool staged = K <= kFusedStageSlots;
+  const bool drain = rem > 0;
+  const int kp = (K + 3) & ~3;
+  int* sm = reinterpret_cast<int*>(smem4);
+  int* ct = staged ? sm : gct;
+  int* er = staged && drain ? sm + kp : ger;
+  int* cmin = staged ? sm + 2 * kp : scratch + static_cast<size_t>(r) * chunks(K);
+  int w0, w1;
+  warp_run(K, w0, w1);
+
+  // 1. monitored delta, into the staged row; the chunk minima (warp w
+  // takes chunks w, w + 8, ...)
+  if (staged && drain) stage(er, ger, K);
+  for (int b0 = 32 * warp; b0 < K; b0 += kBatch * kThreads) {
+    int c[kBatch], d[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int s = b0 + u * kThreads + lane;
+      c[u] = s < K ? gct[s] : 0;
+      d[u] = s < K ? rd[s] : 0;
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int b = b0 + u * kThreads, s = b + lane;
+      if (b >= K) break;
+      int v = kIntMax;
+      if (s < K) {
+        v = sat_add(c[u], d[u]);
+        ct[s] = v;
+      }
+      const int mn = __reduce_min_sync(kFull, v);
+      if (lane == 0) cmin[b >> 5] = mn;
+    }
+  }
+  if (staged) cp_async_wait();
+  else __syncthreads();
+
+  // 2. bulk empty fill: residual inserts [mu + nnu, mu + nnu + i0), the
+  // j-th to the j-th EMPTY slot in index order
+  if (n_fill > 0) {
+    const int off = row0 + m + nn;
+    int n_empty = 0;
+    for (int b0 = w0; b0 < w1; b0 += 32 * kBatch) {
+      bool empty[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int s = b0 + 32 * u + lane;
+        empty[u] = s < w1 && rid[s] == -1;
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u)
+        n_empty += __popc(__ballot_sync(kFull, empty[u]));
+    }
+    if (lane == 0) sh.run[warp][0] = n_empty;
+    __syncthreads();
+    int seen = 0;   // EMPTY slots before this warp's next chunk
+    for (int w = 0; w < warp; ++w) seen += sh.run[w][0];
+    for (int b0 = w0; b0 < w1 && seen < n_fill; b0 += 32 * kBatch) {
+      // the batch's fills and their sources, then their loads, then the
+      // writes and the chunks' minima
+      int src[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int s = b0 + 32 * u + lane;
+        const bool empty = s < w1 && rid[s] == -1;
+        const unsigned e = __ballot_sync(kFull, empty);
+        const int e_rank = seen + __popc(e & below);
+        src[u] = empty && e_rank < n_fill
+                     ? clip(wrap_add(off, e_rank), 0, g_last) : -1;
+        seen += __popc(e);
+      }
+      int uid[kBatch], net[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        if (src[u] >= 0) {
+          uid[u] = h_uids[src[u]];
+          net[u] = h_net[src[u]];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int b = b0 + 32 * u, s = b + lane;
+        if (b >= w1) break;
+        int c = s < w1 ? ct[s] : kIntMax;
+        if (src[u] >= 0) {
+          rid[s] = uid[u];
+          c = net[u];
+          ct[s] = c;
+          er[s] = 0;
+        }
+        const int mn = __reduce_min_sync(kFull, c);
+        if (lane == 0) cmin[b >> 5] = mn;
+      }
+    }
+    __syncthreads();
+  }
+
+  // 3. unit-weight water-fill of inserts [0, mu)
+  if (m > 0) {
+    const int lo = row_min(cmin, K);
+    const bool exact = off_rails(lo, m);
+    const int T = water_level(ct, cmin, K, lo, m, sh), tm1 = wrap_sub(T, 1);
+    // a chunk whose minimum is above T holds no slot at or under the
+    // level (tm1 < T but where T - 1 wraps)
+    const bool skip_ok = T != kIntMin;
+    // the level sums at T - 1 (off the rails: the sum of the counts
+    // under the level, in p1) and the runs' eligible and under counts
+    unsigned p1 = 0, p2 = 0;
+    int ne = 0, nu = 0;
+    for (int b = w0; b < w1; b += 32) {
+      if (skip_ok && cmin[b >> 5] > T) continue;
+      const int s = b + lane;
+      const bool in = s < w1;
+      const int c = in ? ct[s] : 0;
+      if (in && exact) {
+        if (c <= tm1) p1 += static_cast<unsigned>(c);
+      } else if (in) {
+        p1 += n_leq(c, tm1, m);
+        if (c < tm1) p2 += static_cast<unsigned>(clip(sat_add(tm1, -c), 0, m));
+      }
+      ne += __popc(__ballot_sync(kFull, in && c <= T));
+      nu += __popc(__ballot_sync(kFull, in && c <= tm1));
+    }
+    p1 = __reduce_add_sync(kFull, p1);
+    p2 = __reduce_add_sync(kFull, p2);
+    if (lane == 0) {
+      sh.run[warp][0] = ne;
+      sh.run[warp][1] = nu;
+      sh.run[warp][2] = static_cast<int>(p1);
+      sh.run[warp][3] = static_cast<int>(p2);
+    }
+    __syncthreads();
+    int seen_e = 0, seen_u = 0;
+    unsigned f1 = 0, f2 = 0, n_under = 0;
+    for (int w = 0; w < kWarps; ++w) {
+      if (w < warp) {
+        seen_e += sh.run[w][0];
+        seen_u += sh.run[w][1];
+      }
+      n_under += static_cast<unsigned>(sh.run[w][1]);
+      f1 += static_cast<unsigned>(sh.run[w][2]);
+      f2 += static_cast<unsigned>(sh.run[w][3]);
+    }
+    if (exact) {
+      // a slot under the level has T - c values <= T - 1, T - 1 - c of
+      // them below T - 1
+      const unsigned s_under = f1;
+      f1 = static_cast<unsigned>(T) * n_under - s_under;
+      f2 = static_cast<unsigned>(tm1) * n_under - s_under;
+    }
+    const int f_tm1 = static_cast<int>(f1), f_tm2 = static_cast<int>(f2);
+    const int extra_n = wrap_sub(m, f_tm1);
+    for (int b0 = w0; b0 < w1; b0 += 32 * kBatch) {
+      // the batch's counts and sources, then the loads of its uids, then
+      // their writes
+      int src[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int b = b0 + 32 * u, s = b + lane;
+        src[u] = -1;
+        if (b >= w1 || (skip_ok && cmin[b >> 5] > T)) continue;
+        const bool in = s < w1;
+        const int c = in ? ct[s] : kIntMax;
+        const bool elig = in && c <= T;
+        const bool under = in && c <= tm1;
+        const unsigned be = __ballot_sync(kFull, elig);
+        const unsigned bu = __ballot_sync(kFull, under);
+        const int rank = seen_e + __popc(be & below);
+        const int under_before = seen_u + __popc(bu & below);
+        const bool extra = elig && rank < extra_n;
+        const int t = (under ? clip(sat_add(T, -c), 0, m) : 0) + extra;
+        int nc = c;
+        if (t > 0) {
+          const int pos = extra ? wrap_add(f_tm1, min(rank, extra_n))
+                                : wrap_add(f_tm2, under_before);
+          src[u] = clip(wrap_add(row0, pos), 0, g_last);
+          nc = sat_add(c, t);
+          ct[s] = nc;
+          er[s] = nc - 1;
+        }
+        seen_e += __popc(be);
+        seen_u += __popc(bu);
+        const int mn = __reduce_min_sync(kFull, nc);
+        if (lane == 0) cmin[b >> 5] = mn;
+      }
+      int uid[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u)
+        if (src[u] >= 0) uid[u] = h_uids[src[u]];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u)
+        if (src[u] >= 0) rid[b0 + 32 * u + lane] = uid[u];
+    }
+    __syncthreads();
+  }
+
+  // 4. non-unit inserts [mu, mu + nnu) evict, one warp over the chunk minima
+  if (nn > 0) {
+    if (warp == 0)
+      banked_chain(ct, er, rid, nullptr, nullptr, false, cmin, K, h_uids,
+                   h_net, row0, m, m + nn, g_last);
+    __syncthreads();
+  }
+
+  // 5. SS± only: drain rem from the maximum-error slots
+  if (drain) {
+    drain_select<true>(ct, er, ct, er, K, rem, sh.drain);
+    __syncthreads();
+  }
+
+  if (staged) {
+    for (int s = tid; s < K; s += kThreads) {
+      gct[s] = ct[s];
+      if (drain) ger[s] = er[s];
+    }
+  }
+}
+
+// Kernel 1's layout of rows of K slots: 0 staged, 1 unstaged.
+int fused_layout(int K) { return K <= kFusedStageSlots ? 0 : 1; }
+
+// Ints of device scratch kernel 1's layout needs over R rows (the unstaged
+// layout's chunk minima).
+long long fused_scratch_ints(int R, int K) {
+  return K <= kFusedStageSlots ? 0 : static_cast<long long>(R) * chunks(K);
+}
+
+// ---------------------------------------------------------------------------
+// Kernel 2: steps 4-5 alone on a bank whose phase 1 ran outside (the split
+// path). Row r reads the flat (G,) layout at uoff[r] + i for i in
+// [start[r], n_ins[r]), then drains w_del[r].
+//
+// What bounds it: the evictions form one dependent chain, so latency, not
+// the one read of the working rows the bound counts. So the row's counts
+// (and errors where it drains) are staged into shared memory with
+// cp.async, where K <= kStageSlots;
+// the ids are only written, at the evicted slots. One warp carries the
+// evictions over per-chunk minima of 32 slots: a step is a chunk pick (the
+// lanes read the chunk minima), a slot pick in the chunk (a lane a slot),
+// the write (through to device memory) and the chunk's minimum anew, with
+// no __syncthreads. The drain is residual_common.cuh's selection, with
+// bank.residual_phase_banked's sat_add. Unlike kernel 3, the eviction's
+// argmin is over the counts alone (EMPTY slots included), as the plain
+// version's. Two layouts, by K: staged (K <= kStageSlots), and unstaged,
+// where the row stays in device memory and its chunk minima go to the
+// scratch.
 __global__ void __launch_bounds__(kThreads) residual_banked_kernel(
     int* __restrict__ ids, int* __restrict__ counts, int* __restrict__ errors,
     const int* __restrict__ h_uids, const int* __restrict__ h_net,
@@ -332,30 +568,39 @@ long long banked_scratch_ints(int R, int K) {
   return K <= kStageSlots ? 0 : static_cast<long long>(R) * chunks(K);
 }
 
+// Dynamic shared memory of a staged row of K slots (either kernel).
+int staged_bytes(int K) { return 4 * (2 * ((K + 3) & ~3) + chunks(K)); }
+
 }  // namespace
 
-// C entry point (bound with ctypes). Launches on `stream`, returns
-// cudaGetLastError() as an int (0 = launched).
+// C entry point of kernel 1 (bound with ctypes). Launches on `stream`,
+// returns cudaGetLastError() as an int (0 = launched). `layout` is the
+// caller's name for the layout of rows of K slots and `scratch` holds
+// `n_scratch` ints; a launch where either disagrees with what this file
+// needs is refused with cudaErrorInvalidValue.
 extern "C" int sketch_fused_update(void* ids, void* counts, void* errors,
                                    const void* delta, const void* h_uids,
                                    const void* h_net, const void* i0,
                                    const void* mu, const void* nnu,
-                                   const void* w_del, int R, int K, int B,
-                                   int variant, void* stream) {
-  fused_update_kernel<<<R, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+                                   const void* w_del, void* scratch, int R,
+                                   int K, int B, int variant, int layout,
+                                   int n_scratch, void* stream) {
+  if (layout != fused_layout(K) || n_scratch < fused_scratch_ints(R, K))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int bytes = layout == 0 ? staged_bytes(K) : 0;
+  const cudaError_t err = allow_smem(fused_update_kernel, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  fused_update_kernel<<<R, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<int*>(ids), static_cast<int*>(counts),
       static_cast<int*>(errors), static_cast<const int*>(delta),
       static_cast<const int*>(h_uids), static_cast<const int*>(h_net),
       static_cast<const int*>(i0), static_cast<const int*>(mu),
-      static_cast<const int*>(nnu), static_cast<const int*>(w_del), K, B,
-      variant);
+      static_cast<const int*>(nnu), static_cast<const int*>(w_del),
+      static_cast<int*>(scratch), K, B, variant);
   return static_cast<int>(cudaGetLastError());
 }
 
-// C entry point of kernel 2 (bound with ctypes); as above. `layout` is the
-// caller's name for the layout of rows of K slots and `scratch` holds
-// `n_scratch` ints; a launch where either disagrees with what this file
-// needs is refused with cudaErrorInvalidValue.
+// C entry point of kernel 2 (bound with ctypes); as above.
 extern "C" int sketch_residual_banked(void* ids, void* counts, void* errors,
                                       const void* h_uids, const void* h_net,
                                       const void* uoff, const void* start,
@@ -365,7 +610,7 @@ extern "C" int sketch_residual_banked(void* ids, void* counts, void* errors,
                                       void* stream) {
   if (layout != banked_layout(K) || n_scratch < banked_scratch_ints(R, K))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int bytes = layout == 0 ? 4 * (2 * ((K + 3) & ~3) + chunks(K)) : 0;
+  const int bytes = layout == 0 ? staged_bytes(K) : 0;
   const cudaError_t err = allow_smem(residual_banked_kernel, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   residual_banked_kernel<<<R, kThreads, bytes,

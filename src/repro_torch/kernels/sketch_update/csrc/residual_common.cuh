@@ -1,4 +1,4 @@
-// What the two residual-phase kernels share (kernel 2 in fused_update.cu,
+// What the residual phases share (kernels 1 and 2 in fused_update.cu,
 // kernel 3 in residual.cu): staging with cp.async, the eviction chains'
 // insert stream, and the SS± drain as one parallel selection.
 //
@@ -15,10 +15,10 @@
 // first q = rem' / t* give up t*, the next gives up rem' % t* (if > 0),
 // the others nothing. So the drain is a search for t* (passes of kProbes
 // thresholds at once, 64-bit sums) and one pass in index order; no chain.
-// The two kernels differ only in how a count gives up d: kernel 3 with a
-// wrapping subtract (the reference's phases.residual_phase), kernel 2 with
-// sat_add (bank.residual_phase_banked); an error gives up d exactly in both
-// (0 < d <= error), and so does rem.
+// The kernels differ only in how a count gives up d: kernel 3 with a
+// wrapping subtract (the reference's phases.residual_phase), kernels 1 and
+// 2 with sat_add (bank.residual_phase_banked); an error gives up d exactly
+// in all (0 < d <= error), and so does rem.
 #pragma once
 
 #include <cstdint>
@@ -135,7 +135,7 @@ __device__ __forceinline__ int probe(int lo, int hi, int step, int j) {
 
 // Drains rem > 0 from the n slots (flat index order) whose errors and counts
 // are read at er, ct (shared or global) and written at ger, gct (global).
-// kSat: counts give up d by sat_add (kernel 2), else by wrapping (kernel 3).
+// kSat: counts give up d by sat_add (kernels 1, 2), else by wrapping (3).
 // Every thread of the block calls it.
 template <bool kSat>
 __device__ void drain_select(const int* ct, const int* er, int* gct, int* ger,

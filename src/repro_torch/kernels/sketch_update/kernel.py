@@ -4,7 +4,8 @@ Each replaces one Pallas TPU kernel of
 ``repro/kernels/sketch_update/kernel.py``:
 
 - ``sketch_update_kernel_fused`` (``fused_update.cu``): the whole
-  per-cell bank update, one CTA per bank row (reference :144);
+  per-cell bank update, one CTA per bank row, the row staged in shared
+  memory up to ``FUSED_STAGE_SLOTS`` slots (reference :144);
 - ``sketch_residual_kernel_banked`` (``fused_update.cu``): phase 2 only,
   one CTA per bank row (reference :278);
 - ``sketch_residual_kernel`` (``residual.cu``): phase 2 of E stacked
@@ -16,11 +17,12 @@ Each replaces one Pallas TPU kernel of
 
 A wrapper checks its operands, launches on the current stream, raises on
 a refused launch and counts its launches (a call of kernel 3 on its
-unstaged layouts makes two device launches and counts one). Kernels 2
-and 3 count per layout, in a dict by the layout's name
-(``RESIDUAL_LAYOUTS``, ``BANKED_LAYOUTS``): ``residual_layout`` and
-``banked_layout`` choose it by size, and the C entry point refuses a
-launch whose layout or scratch disagrees with its own rule. The kernels
+unstaged layouts makes two device launches and counts one). Kernels 1,
+2 and 3 count per layout, in a dict by the layout's name
+(``FUSED_LAYOUTS``, ``BANKED_LAYOUTS``, ``RESIDUAL_LAYOUTS``):
+``fused_layout``, ``banked_layout`` and ``residual_layout`` choose it by
+size, and the C entry point refuses a launch whose layout or scratch
+disagrees with its own rule. The kernels
 update the state in place. Wrappers take CUDA tensors only: ``ops.py``
 sends CPU tensors to the plain versions in ``ref.py`` instead.
 """
@@ -40,12 +42,14 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _INT31 = 2**31
 
-# Kernel 3's layouts by rows per sketch, and kernel 2's by slots per row,
-# as residual.cu (kStageRows, kSumRows) and fused_update.cu (kStageSlots)
-# choose them.
+# Kernel 3's layouts by rows per sketch, and kernels 1 and 2's by slots
+# per row, as residual.cu (kStageRows, kSumRows) and fused_update.cu
+# (kFusedStageSlots, kStageSlots) choose them.
 RESIDUAL_STAGE_ROWS, RESIDUAL_SUM_ROWS = 128, 8192
+FUSED_STAGE_SLOTS = 24576
 BANKED_STAGE_SLOTS = 24576
 RESIDUAL_LAYOUTS = ("staged", "summary+chain", "summary+chain/scratch")
+FUSED_LAYOUTS = ("staged", "unstaged")
 BANKED_LAYOUTS = ("staged", "unstaged")
 
 
@@ -56,6 +60,13 @@ def residual_layout(R: int) -> str:
     in the scratch."""
     return RESIDUAL_LAYOUTS[0 if R <= RESIDUAL_STAGE_ROWS
                             else 1 if R <= RESIDUAL_SUM_ROWS else 2]
+
+
+def fused_layout(K: int) -> str:
+    """Kernel 1's layout for rows of K slots: the row's counts (and
+    errors where it drains) in shared memory (K <= 24,576), else in
+    device memory with the chunk minima in the scratch."""
+    return FUSED_LAYOUTS[0 if K <= FUSED_STAGE_SLOTS else 1]
 
 
 def banked_layout(K: int) -> str:
@@ -137,9 +148,15 @@ def sketch_update_kernel_fused(ids, counts, errors, delta, h_uids, h_net,
     _check("sketch_update_kernel_fused", named, shapes, ids.device)
     _check_variant(variant)
     _check_sizes("sketch_update_kernel_fused", R, K, B, R * B, R * K)
-    _launch(entry_point("fused_update.cu", "sketch_fused_update", 10, 4),
-            named.values(), (R, K, B, variant), ids.device, "fused_update")
-    sketch_update_kernel_fused.launches += 1
+    layout = fused_layout(K)
+    # the unstaged rows' chunk minima
+    scratch, n = _scratch(R * -(-K // 32) if layout == "unstaged" else 0,
+                          ids.device)
+    _launch(entry_point("fused_update.cu", "sketch_fused_update", 11, 6),
+            [*named.values(), scratch],
+            (R, K, B, variant, FUSED_LAYOUTS.index(layout), n), ids.device,
+            "fused_update")
+    sketch_update_kernel_fused.launches[layout] += 1
     return ids, counts, errors
 
 
@@ -241,14 +258,14 @@ def sketch_update_kernel_serial(ids2, cnt2, err2, items, weights, *,
 
 
 # launches since the last reset (chip_smoke.py reads them around each path);
-# kernels 2 and 3 per layout
-sketch_update_kernel_fused.launches = 0
+# kernels 1, 2 and 3 per layout
+sketch_update_kernel_fused.launches = dict.fromkeys(FUSED_LAYOUTS, 0)
 sketch_residual_kernel_banked.launches = dict.fromkeys(BANKED_LAYOUTS, 0)
 sketch_residual_kernel.launches = dict.fromkeys(RESIDUAL_LAYOUTS, 0)
 sketch_update_kernel_serial.launches = 0
 
-__all__ = ["SOURCES", "RESIDUAL_LAYOUTS", "BANKED_LAYOUTS",
-           "residual_layout", "banked_layout", "entry_point",
+__all__ = ["SOURCES", "RESIDUAL_LAYOUTS", "FUSED_LAYOUTS", "BANKED_LAYOUTS",
+           "residual_layout", "fused_layout", "banked_layout", "entry_point",
            "sketch_update_kernel_fused",
            "sketch_residual_kernel_banked", "sketch_residual_kernel",
            "sketch_update_kernel_serial"]

@@ -19,7 +19,7 @@ torch.set_num_threads(1)
 
 from repro_torch.core.streams import bounded_stream
 from repro_torch.kernels.sketch_update.kernel import (
-    banked_layout, residual_layout, sketch_residual_kernel,
+    banked_layout, fused_layout, residual_layout, sketch_residual_kernel,
     sketch_residual_kernel_banked, sketch_update_kernel_fused,
     sketch_update_kernel_serial)
 from repro_torch.kernels.sketch_update.ops import _pad_bank
@@ -57,7 +57,10 @@ def _warm_bank(R, K, device, seed):
 
 
 @pytest.mark.parametrize("variant", [1, 2])
-@pytest.mark.parametrize("R,K", [(1, 77), (7, 200), (7, 3125)])
+@pytest.mark.parametrize("R,K", [(1, 77), (7, 200), (7, 3125),
+                                 # the last row staged in shared memory,
+                                 # and the first left in device memory
+                                 (1, 24576), (1, 24577)])
 @pytest.mark.parametrize("state", ["cold", "warm", "rail"])
 def test_kernel_equals_plain_version(cuda, variant, R, K, state):
     seed = R * 1000 + K + variant
@@ -73,8 +76,9 @@ def test_kernel_equals_plain_version(cuda, variant, R, K, state):
     ri, rw = bk.HashShardRouter(R, 16).route_dense(it, w)
     prep = bk.phase1_dense_prep(bank, ri, rw, variant)
     want = fused_update_ref(*bank, *prep, variant=variant)
-    got = sketch_update_kernel_fused(*(t.clone() for t in bank), *prep,
-                                     variant=variant)
+    got, ran = _run(sketch_update_kernel_fused,
+                    *(t.clone() for t in bank), *prep, variant=variant)
+    assert ran == [fused_layout(K)]
     torch.cuda.synchronize()
     for name, a, b in zip(("ids", "counts", "errors"), want, got):
         assert torch.equal(a, b), name
@@ -102,7 +106,7 @@ def _assert_same(want, got):
 
 
 def _run(kernel, *args, **kw):
-    """``kernel(*args, **kw)`` (kernel 2 or 3) and the layouts it
+    """``kernel(*args, **kw)`` (kernel 1, 2 or 3) and the layouts it
     counted a launch on."""
     before = dict(kernel.launches)
     out = kernel(*args, **kw)
@@ -179,6 +183,33 @@ def test_banked_residual_kernel_on_the_drain_edge_cases(cuda, variant, R, K,
                     *(t.clone() for t in rows), *args, variant=variant)
     _assert_same(want, got)
     assert ran == [banked_layout(K)]
+
+
+@pytest.mark.parametrize("variant", [1, 2])
+@pytest.mark.parametrize("R,K", [(3, 3001), (2, 30000)])    # both layouts
+@pytest.mark.parametrize("kind", DRAIN_KINDS)
+def test_fused_kernel_on_the_drain_edge_cases(cuda, variant, R, K, kind):
+    """As above for kernel 1 (a delta, evictions, its sat_add drain)."""
+    rows, args = _chip_smoke().drain_fused(R, K, variant, kind, cuda,
+                                           seed=K + R)
+    want = fused_update_ref(*rows, *args, variant)
+    got, ran = _run(sketch_update_kernel_fused,
+                    *(t.clone() for t in rows), *args, variant=variant)
+    _assert_same(want, got)
+    assert ran == [fused_layout(K)]
+
+
+@pytest.mark.parametrize("variant", [1, 2])
+@pytest.mark.parametrize("K", [24576, 65536])               # both layouts
+def test_fused_kernel_where_the_water_level_sums_wrap(cuda, variant, K):
+    """Kernel 1's water level where the reference's int32 probe sums wrap
+    past 2^31 (``chip_smoke.wrap_fused``), bit for bit."""
+    rows, args = _chip_smoke().wrap_fused(1, K, cuda)
+    want = fused_update_ref(*rows, *args, variant)
+    got, ran = _run(sketch_update_kernel_fused,
+                    *(t.clone() for t in rows), *args, variant=variant)
+    _assert_same(want, got)
+    assert ran == [fused_layout(K)]
 
 
 @pytest.mark.parametrize("variant", [1, 2])

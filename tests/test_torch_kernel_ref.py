@@ -111,7 +111,7 @@ def test_cpu_tensors_take_the_plain_version_and_the_kernel_refuses_them():
     with pytest.raises(ValueError, match="CUDA tensor"):
         tkernel.sketch_update_kernel_fused(*tb, torch.zeros_like(tb.ids),
                                            stream, stream, z, z, z, z)
-    before = tkernel.sketch_update_kernel_fused.launches
+    before = dict(tkernel.sketch_update_kernel_fused.launches)
     out = tfused(tb, stream, stream, 2)
     assert tkernel.sketch_update_kernel_fused.launches == before
     _assert_equal(tb, out, "empty block")

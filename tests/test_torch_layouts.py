@@ -1,5 +1,5 @@
-"""The layout rules of the residual kernels (2 and 3): the wrappers'
-limits are the CUDA sources' own, each size names the layout the
+"""The layout rules of the sketch kernels with layouts (1, 2 and 3): the
+wrappers' limits are the CUDA sources' own, each size names the layout the
 sources choose for it, and each layout counts its own launches. (On the
 card, each C entry point refuses a launch whose layout disagrees with
 its rule: ``tests/test_torch_cuda.py`` and ``chip_smoke.py`` run both
@@ -26,6 +26,7 @@ def test_layout_limits_are_the_sources():
     assert (kernel.RESIDUAL_STAGE_ROWS, kernel.RESIDUAL_SUM_ROWS) == (
         residual["kStageRows"], residual["kSumRows"])
     assert kernel.BANKED_STAGE_SLOTS == banked["kStageSlots"]
+    assert kernel.FUSED_STAGE_SLOTS == banked["kFusedStageSlots"]
 
 
 @pytest.mark.parametrize("R,want", [
@@ -43,11 +44,21 @@ def test_banked_layout_by_slots(K, want):
     assert kernel.banked_layout(K) == want
 
 
+@pytest.mark.parametrize("K,want", [
+    (1, "staged"), (2048, "staged"), (3200, "staged"), (24576, "staged"),
+    (24577, "unstaged"), (40000, "unstaged"), (65536, "unstaged")])
+def test_fused_layout_by_slots(K, want):
+    assert kernel.fused_layout(K) == want
+
+
 def test_each_layout_counts_its_own_launches():
+    assert tuple(kernel.sketch_update_kernel_fused.launches) == \
+        kernel.FUSED_LAYOUTS
     assert tuple(kernel.sketch_residual_kernel.launches) == \
         kernel.RESIDUAL_LAYOUTS
     assert tuple(kernel.sketch_residual_kernel_banked.launches) == \
         kernel.BANKED_LAYOUTS
-    for fn in (kernel.sketch_residual_kernel,
+    for fn in (kernel.sketch_update_kernel_fused,
+               kernel.sketch_residual_kernel,
                kernel.sketch_residual_kernel_banked):
         assert all(isinstance(n, int) for n in fn.launches.values())
