@@ -48,14 +48,29 @@ result):
      main run's blocks, kernel 2; its bank must equal the main run's;
    - serial sspm k=4000: ``ops.sketch_block_update_serial`` on one
      sketch of ``capacity_for(1e-3, 2)`` counters, 8 blocks, kernel 4.
+   The session runs go through ``StreamSession``'s cached compiled
+   ingest: each spec's first block runs eagerly and its CUDA graph is
+   captured after it (timed apart, with the device memory the capture
+   keeps), every later block replays the graph; each run fails unless
+   its session ran the graph.
    Every counter is set to 0 before a run and read after it: each run
    must launch its kernel once per block and no other kernel (kernels 1-3
    on the layout named for the run: path A on summary+chain, the others
-   staged). Each run
+   staged; a replay adds the launches its graph holds). Each run
    but the serial one must equal the same blocks run through the plain
    versions on the card; each must hold the error bound of Thm 4 (SS±)
    or Thm 2 (Lazy) against the exact frequencies, with every item above
-   the bound monitored;
+   the bound monitored. Then, each fatal:
+   - the main stream through ``BlockFeeder`` at depth 1 and 2 (pinned
+     host slots, a copy stream) and through
+     ``ops.sketch_block_update_stream`` (its 64 x 65,536 int32 blocks on
+     the card): each bank equal to the main run's, bit for bit, with 64
+     staged launches of kernel 1 and no other kernel;
+   - merge: the main run's bank merged with a bank of the lazy stream
+     run on the main spec, on the card and on CPU copies, equal bit for
+     bit, the merged bank within the summed Thm 4 bound over both
+     streams with every item above it monitored; ``consolidated()`` of
+     the main session equal to the CPU's consolidate;
 5. times: per-block ms and updates/s of each run; each kernel's device
    ms at its run's shapes (the kernels the profiler sees, per call; and
    the time per call from the host, which holds the wrapper's host time,
@@ -64,10 +79,13 @@ result):
    lazy run's block 1, kernel 3 also on path B's last block and on the
    block-lazy run's block 1, and for kernels 1-3 each timed block's
    evictions and SS± drain steps (in all and the most in one sketch or
-   row) and the us per eviction; a
-   ``torch.profiler`` window over blocks of the main, lazy, path A and
-   path B sessions (device busy share and the ops that take the device
-   time);
+   row) and the us per eviction; ``torch.profiler`` windows over blocks
+   of the main, lazy, path A and path B specs, each twice in one call:
+   eager (``api.adapter_for(spec).update`` per block on a pageable copy)
+   and captured (``StreamSession.ingest_block``: the graph, the pinned
+   slot): wall and device-busy ms per block, the idle share, the host's
+   ms per block in the CUDA runtime's calls (launches among them) and
+   the ops that take the device and host time;
 6. the attention kernels (flash attention, kernel 5; decode attention
    with per-slot mass, kernel 6), with TF32 off so the plain versions run
    in true f32:
@@ -114,11 +132,15 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch.roofline.model import hw_for  # noqa: E402
+
 IMAX = 2**31 - 1
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
-# int32 ALU rate: 64 INT32 lanes per SM (half the FP32 lanes behind the
-# 67 TFLOP/s FP32 peak, which counts an FMA as 2) x 132 SMs x 1.98 GHz
-INT32_OPS_PER_S = 16.7e12
+# the card's rates, from the port's H100 preset (its derivations are in
+# src/repro_torch/roofline/model.py)
+H100 = hw_for("gpu_h100")
+HBM_BYTES_PER_S = H100.hbm_bw          # device memory
+INT32_OPS_PER_S = H100.peak_int_ops    # int32 ALU
+BF16_FLOPS_PER_S = H100.peak_flops     # dense bf16 on the tensor cores
 
 
 def log(msg: str) -> None:
@@ -752,16 +774,41 @@ def run_plain(spec, stream, block, device, path, plain, at=-1):
 
 
 def run_session(spec, stream, block, device):
-    """Drive StreamSession.ingest (the user's entry point); time it."""
+    """Drive a session over the stream through the cached compiled
+    ingest: the first block by ``ingest_block``, timed apart (where the
+    spec's CUDA graph is not captured yet, it runs eagerly and the capture
+    follows), the rest by ``StreamSession.ingest`` (the user's entry
+    point: validation, chunking, padding). Returns the session, the
+    seconds of the other blocks, and the first block's ms with the device
+    memory it kept reserved (the graph's memory pool and its static
+    buffers, where it captured), beside the host ms per block that
+    ``ingest``'s validation of the other blocks takes alone."""
+    import numpy as np
     import torch
+    from repro_torch.sketch import api
     from repro_torch.sketch.session import StreamSession
 
     sess = StreamSession(spec, block=block, device=device)
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    mem0 = torch.cuda.memory_reserved(device)
     t0 = time.perf_counter()
-    sess.ingest(stream[:, 0], stream[:, 1])
+    sess.ingest_block(*(np.ascontiguousarray(stream[:block, j], np.int32)
+                        for j in (0, 1)))
     torch.cuda.synchronize()
-    return sess, time.perf_counter() - t0
+    first = dict(first_block_ms=(time.perf_counter() - t0) * 1e3,
+                 first_block_reserved_mb=(torch.cuda.memory_reserved(device)
+                                          - mem0) / 1e6)
+    t0 = time.perf_counter()
+    sess.ingest(stream[block:, 0], stream[block:, 1])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    # the host's share: ingest validates the whole call before its blocks
+    t0 = time.perf_counter()
+    api.validate_block(spec, stream[block:, 0], stream[block:, 1])
+    first["validate_ms_per_block"] = ((time.perf_counter() - t0) * 1e3
+                                      / (sess.blocks_ingested - 1))
+    return sess, secs, first
 
 
 def check_launches(label, counts, name, blocks, layout=None) -> int:
@@ -827,17 +874,21 @@ def _same(a, b) -> bool:
 
 def run_path(label, spec, stream, block, device, factor, kernel, path, plain,
              at=-1, layout=None):
-    """One session run: ``StreamSession.ingest`` of the stream, its
-    launches of ``kernel`` (one per block on ``layout``, no other kernel
-    or layout), equality with
-    the plain version's run, the error bound, and the read path. Returns
-    the run's record, block ``at``'s kernel operands and the bank."""
+    """One session run: ``StreamSession.ingest`` of the stream (through
+    the captured ingest), its launches of ``kernel`` (one per block on
+    ``layout``, no other kernel or layout), equality with the plain
+    version's run, the error bound, and the read path. Returns the run's
+    record, block ``at``'s kernel operands and the session. ``ms_per_block``
+    leaves the first block out (``first_block_ms``: it may hold the
+    capture)."""
     import torch
 
     reset_counts()
-    sess, secs = run_session(spec, stream, block, device)
+    sess, secs, first = run_session(spec, stream, block, device)
     launches = check_launches(label, read_counts(), kernel,
                               sess.blocks_ingested, layout)
+    if device.type == "cuda" and sess._compiled.graph is None:
+        raise SystemExit(f"{label}: the session did not run its CUDA graph")
     bank, last, plain_secs = run_plain(spec, stream, block, device, path,
                                        plain, at)
     live = sess.state.bank if spec.shards else type(bank)(
@@ -850,16 +901,17 @@ def run_path(label, spec, stream, block, device, factor, kernel, path, plain,
     hot_ids, hot_counts = sess.topk(16)
     if not torch.equal(sess.query_many(hot_ids.cpu().numpy()), hot_counts):
         raise SystemExit(f"{label}: query_many disagrees with topk")
+    rest = sess.blocks_ingested - 1
     out = dict(label=label, kernel=kernel, layout=layout,
                blocks=sess.blocks_ingested,
                launches=launches, events=len(stream), rows=live.ids.shape[0],
                k_per_row=live.ids.shape[1],
-               ms_per_block=secs * 1e3 / sess.blocks_ingested,
-               updates_per_s=len(stream) / secs,
+               ms_per_block=secs * 1e3 / rest,
+               updates_per_s=(len(stream) - block) / secs, **first,
                plain_ms_per_block=plain_secs * 1e3 / sess.blocks_ingested,
                worst_err_over_bound=ratio, items_above_bound=n_hot)
     log(f"{label}: {json.dumps(out)}")
-    return out, last, live
+    return out, last, sess
 
 
 def run_ops_path(label, spec, stream, block, device, factor, kernel, path,
@@ -902,6 +954,116 @@ def run_ops_path(label, spec, stream, block, device, factor, kernel, path,
         spec, bank, stream, device, factor)
     log(f"{label}: {json.dumps(out)}")
     return out, last, bank
+
+
+def _bank_of(state):
+    """The (R, k) bank of a session state (R = 1 when unsharded)."""
+    from repro_torch.sketch.state import SketchState
+
+    if hasattr(state, "bank"):
+        return state.bank
+    return SketchState(*(t[None] for t in state))
+
+
+def run_fed(label, stream, block, device, want, feed):
+    """``feed(items, weights)`` ingests the padded blocks (each a host
+    array) and returns the (R, k) bank, which must equal ``want`` bit for
+    bit, with one staged launch of kernel 1 per block and no other
+    kernel. Returns the run's record."""
+    import torch
+
+    items, weights = padded_blocks(stream, block)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bank = feed(items, weights)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = check_launches(label, read_counts(),
+                              "sketch_update_kernel_fused", len(items),
+                              "staged")
+    if not _same(bank, want):
+        raise SystemExit(f"{label}: the bank differs from the main run's")
+    out = dict(label=label, blocks=len(items), launches=launches,
+               ms_per_block=secs * 1e3 / len(items))
+    log(f"{label}: {json.dumps(out)}")
+    return out
+
+
+def feeder_phase(spec, stream, block, device, want) -> dict:
+    """The main stream through ``BlockFeeder`` at depth 1 and 2 (pinned
+    host slots, a copy stream) and through ``ops.sketch_block_update_stream``
+    (the 64 blocks on the card, no host round trip between blocks): each
+    bank equal to the main run's, one kernel-1 launch per block."""
+    import torch
+    from repro_torch.kernels.sketch_update.ops import \
+        sketch_block_update_stream
+    from repro_torch.sketch.session import BlockFeeder, StreamSession
+
+    def fed(depth):
+        def feed(items, weights):
+            feeder = BlockFeeder(StreamSession(spec, block=block,
+                                               device=device), depth=depth)
+            for it, w in zip(items, weights):
+                feeder.feed(it, w)
+            return _bank_of(feeder.flush())
+        return feed
+
+    runs = {f"feeder depth={d}": run_fed(f"feeder depth={d}", stream, block,
+                                         device, want, fed(d))
+            for d in (1, 2)}
+
+    def streamed(items, weights):
+        bank = initial_bank(spec, device)
+        its = torch.as_tensor(items, device=device)
+        ws = torch.as_tensor(weights, device=device)
+        log(f"stream operands on the card: {its.numel() + ws.numel():,} "
+            f"int32 ({(its.numel() + ws.numel()) * 4 / 1e6:.1f} MB)")
+        torch.cuda.synchronize()
+        return sketch_block_update_stream(bank, its, ws, _router(spec, bank),
+                                          spec.variant_id)
+
+    runs["sketch_block_update_stream"] = run_fed(
+        "sketch_block_update_stream", stream, block, device, want, streamed)
+    return runs
+
+
+def merge_phase(spec, main, stream, block, device, main_stream) -> dict:
+    """The main session's bank merged with a bank of ``stream`` (the lazy
+    run's) on the main spec, on the card and on CPU copies: equal bit for
+    bit, and the merged bank holds the summed Thm 4 bound over both
+    streams with every item above it monitored; ``consolidated()`` of the
+    main session equals the CPU's consolidate."""
+    import numpy as np
+    import torch
+    from repro_torch.sketch import api
+
+    other, _, _ = run_session(spec, stream, block, device)
+    cpu = lambda state: type(state)(bank=type(state.bank)(
+        *(t.cpu() for t in state.bank)))
+    t0 = time.perf_counter()
+    merged = api.merge(spec, main.state, other.state)
+    torch.cuda.synchronize()
+    merge_ms = (time.perf_counter() - t0) * 1e3
+    want = api.merge(spec, cpu(main.state), cpu(other.state))
+    if not _same([t.cpu() for t in merged.bank], want.bank):
+        raise SystemExit("merge on the card differs from the CPU's")
+    ratio, n_hot = check_truth(spec, merged.bank,
+                               np.concatenate([main_stream, stream]),
+                               device, 2.0)
+    t0 = time.perf_counter()
+    cons = main.consolidated()
+    torch.cuda.synchronize()
+    consolidate_ms = (time.perf_counter() - t0) * 1e3
+    want = api.consolidate(spec, cpu(main.state))
+    if not _same([t.cpu() for t in cons], want):
+        raise SystemExit("consolidated() on the card differs from the CPU's")
+    out = dict(merge_ms=merge_ms, consolidate_ms=consolidate_ms,
+               merged_worst_err_over_bound=ratio,
+               merged_items_above_bound=n_hot,
+               consolidated_live=int((cons.ids >= 0).sum()))
+    log(f"merge and consolidate: {json.dumps(out)}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1173,51 +1335,96 @@ def serial_paths(last, B):
     return out
 
 
+def host_cuda_ms(events, n_blocks) -> dict:
+    """Host ms per block in the CUDA runtime's calls, by call, from a
+    profile's ``key_averages()`` (``cudaLaunchKernel``, ``cudaGraphLaunch``,
+    ``cudaMemcpyAsync``, ``cudaStreamSynchronize``, ...), and their sum
+    over the launches (``launch``)."""
+    calls = {e.key: e.self_cpu_time_total / 1e3 / n_blocks for e in events
+             if e.key.startswith("cuda") and e.self_cpu_time_total}
+    calls = dict(sorted(calls.items(), key=lambda kv: -kv[1]))
+    return dict(launch=sum(ms for key, ms in calls.items()
+                           if "Launch" in key), calls=calls)
+
+
 def profile_blocks(spec, block, n_blocks, seed, device):
-    """Profile ``n_blocks`` session blocks (after one warm-up block):
-    wall and device-busy ms per block and the ops by device time."""
-    import numpy as np
+    """Profile ``n_blocks`` blocks (after one warm-up block) two ways, in
+    one call: ``captured``, ``StreamSession.ingest_block`` (the cached CUDA
+    graph, the pinned slot); ``eager``, ``api.adapter_for(spec).update``
+    per block on a pageable copy of it, as the session ingested before
+    the graph. Each: wall and device-busy ms per block, the idle share,
+    the kernels and copies per block, the host's ms per block in the CUDA
+    runtime's calls and the ops by device and host time; then the wall
+    ms per block of the next ``n_blocks`` blocks with the profiler off."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.sketch import api
     from repro_torch.sketch.session import StreamSession
 
-    stream = make_stream(n_blocks + 1, block, seed)
+    stream = make_stream(2 * n_blocks + 1, block, seed)
     items, weights = padded_blocks(stream, block)
     sess = StreamSession(spec, block=block, device=device)
-    sess.ingest_block(items[0], weights[0])
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for b in range(1, n_blocks + 1):
-            sess.ingest_block(items[b], weights[b])
+    state = [api.make(spec, device)]
+
+    def captured(b):
+        sess.ingest_block(items[b], weights[b])
+
+    def eager(b):
+        state[0] = api.adapter_for(spec).update(
+            spec, state[0], torch.as_tensor(items[b], device=device),
+            torch.as_tensor(weights[b], device=device))
+
+    out = {}
+    for name, step in (("eager", eager), ("captured", captured)):
+        step(0)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for b in range(1, n_blocks + 1):
+                step(b)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        # the next blocks again without the profiler, whose tracing costs
+        # the host time per kernel
+        t0 = time.perf_counter()
+        for b in range(n_blocks + 1, 2 * n_blocks + 1):
+            step(b)
+        torch.cuda.synchronize()
+        unprofiled = time.perf_counter() - t0
+        events = prof.key_averages()
+        # device work = the kernels and copies themselves (an aten op's
+        # own device time repeats its kernels')
+        on_device = [e for e in events
+                     if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_us = sum(_dev_us(e) for e in on_device)
 
-    events = prof.key_averages()
-    # device work = the kernels and copies themselves (an aten op's own
-    # device time repeats its kernels')
-    on_device = [e for e in events
-                 if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(_dev_us(e) for e in on_device)
+        def top(evts, key):
+            return [(e.key[:80], key(e) / 1e3 / n_blocks)
+                    for e in sorted(evts, key=key, reverse=True)[:8]]
 
-    def top(evts, key):
-        return [(e.key[:80], key(e) / 1e3 / n_blocks)
-                for e in sorted(evts, key=key, reverse=True)[:8]]
-
-    return dict(
-        blocks=n_blocks, wall_ms_per_block=wall * 1e3 / n_blocks,
-        device_busy_ms_per_block=busy_us / 1e3 / n_blocks,
-        device_idle_share=1.0 - busy_us / 1e6 / wall,
-        top_device_ms_per_block=top(on_device, _dev_us),
-        top_host_ms_per_block=top(events, lambda e: e.self_cpu_time_total))
+        out[name] = dict(
+            blocks=n_blocks, wall_ms_per_block=wall * 1e3 / n_blocks,
+            unprofiled_wall_ms_per_block=unprofiled * 1e3 / n_blocks,
+            device_ops_per_block=sum(e.count for e in on_device) / n_blocks,
+            # None where the profiler saw no device work (not measured)
+            device_busy_ms_per_block=(busy_us / 1e3 / n_blocks
+                                      if busy_us else None),
+            device_idle_share=1.0 - busy_us / 1e6 / wall if busy_us else None,
+            host_cuda_ms_per_block=host_cuda_ms(events, n_blocks),
+            top_device_ms_per_block=top(on_device, _dev_us),
+            top_host_ms_per_block=top(events, lambda e: e.self_cpu_time_total))
+    for a, b in zip(_bank_of(sess.state), _bank_of(state[0])):
+        if not torch.equal(a, b):
+            raise SystemExit("the profiled eager and captured sessions "
+                             "differ")
+    return out
 
 
 # ---------------------------------------------------------------------------
 # The attention kernels (5 and 6): cases, the full-width runs, times
 # ---------------------------------------------------------------------------
 
-BF16_FLOPS_PER_S = 989.4e12   # H100 SXM, dense bf16 on the tensor cores
 # Gemma3-27B (src/repro/configs/gemma3_27b.py:8): 32 q-heads on 16 kv-heads,
 # hd 128, local layers of window 1,024, a heavy-hitter cache of 8,192 slots
 # per global layer; bf16
@@ -1734,6 +1941,11 @@ def main() -> int:
     device = torch.device("cuda")
     card = gpu_line()
     log(f"device: {card}")
+    # the card's rates must be the preset's: hw_config raises for a card
+    # without one
+    from repro_torch.platform import hw_config
+    if hw_config() is not H100:
+        raise SystemExit(f"the rates of {card} are not the H100 preset's")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     sources = (*kernel.SOURCES, *FLASH_SOURCES, DECODE_SOURCE)
     t0 = time.perf_counter()
@@ -1759,27 +1971,32 @@ def main() -> int:
 
     runs, last = {}, {}
     fused, split = "sketch_update_kernel_fused", "sketch_residual_kernel"
-    runs["main"], last["main"], main_bank = run_path(
+    runs["main"], last["main"], main_sess = run_path(
         "main sspm shards=128", main_spec, main_stream, B, device, 2.0,
         fused, fused_path, ref.fused_update_ref, layout="staged")
+    main_bank = main_sess.state.bank
     # block 1 of the lazy stream brings the most evictions (2,968)
-    runs["lazy"], last["lazy"], lazy_bank = run_path(
+    runs["lazy"], last["lazy"], sess = run_path(
         "lazy k=2000", lazy_spec, lazy_stream, B, device, 1.0, fused,
         fused_path, ref.fused_update_ref, at=1, layout="staged")
+    lazy_bank = _bank_of(sess.state)
     runs["path_a"], last["path_a"], _ = run_path(
         "block sspm k=400000", a_spec, make_stream(32, B, seed=4), B, device,
         2.0, split, split_path, ref.residual_phase, layout="summary+chain")
-    runs["lazy_block"], last["lazy_block"], bank = run_path(
+    runs["lazy_block"], last["lazy_block"], sess = run_path(
         "block lazy k=2000", lazy_block_spec, lazy_stream, B, device, 1.0,
         split, split_path, ref.residual_phase, at=1, layout="staged")
-    if not _same(bank, lazy_bank):
+    if not _same(_bank_of(sess.state), lazy_bank):
         raise SystemExit("the block backend's lazy bank differs from the "
                          "kernel backend's")
-    runs["path_b"], last["path_b"], bank = run_path(
+    runs["path_b"], last["path_b"], sess = run_path(
         "block sspm shards=128", b_spec, main_stream, B, device, 2.0, split,
         split_path, ref.residual_phase, layout="staged")
-    if not _same(bank, main_bank):
+    if not _same(sess.state.bank, main_bank):
         raise SystemExit("path B's bank differs from the kernel backend's")
+    fed_runs = feeder_phase(main_spec, main_stream, B, device, main_bank)
+    merged = merge_phase(main_spec, main_sess, lazy_stream, B, device,
+                         main_stream)
 
     def banked(bank, it, w):
         return ops.sketch_block_update_banked(
@@ -1840,6 +2057,14 @@ def main() -> int:
             for label, spec in (("main", main_spec), ("lazy", lazy_spec),
                                 ("path_a", a_spec), ("path_b", b_spec))}
     log(f"profile of the sessions: {json.dumps(prof)}")
+    for label, p in prof.items():
+        log(f"profile {label}: " + "; ".join(
+            f"{way} wall {p[way]['wall_ms_per_block']:.3f} ms/block "
+            f"({p[way]['unprofiled_wall_ms_per_block']:.3f} unprofiled), busy "
+            f"{p[way]['device_busy_ms_per_block']} ms/block, idle share "
+            f"{p[way]['device_idle_share']}, host launch "
+            f"{p[way]['host_cuda_ms_per_block']['launch']:.3f} ms/block"
+            for way in ("eager", "captured")))
     attention_entries, attention = attention_phase(device)
 
     replaces = {fused: 144, "sketch_residual_kernel_banked": 278,
@@ -1874,7 +2099,8 @@ def main() -> int:
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
-        card=card, runs=runs, kernel_times=times,
+        card=card, runs=runs, fed_runs=fed_runs, merge=merged,
+        kernel_times=times,
         fused_times_lazy_block=times_fused_lazy,
         residual_times_path_b=times_b, residual_times_lazy_block=times_lazy,
         serial_paths=serial_by_path,

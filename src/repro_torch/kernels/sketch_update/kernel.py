@@ -263,9 +263,62 @@ sketch_update_kernel_fused.launches = dict.fromkeys(FUSED_LAYOUTS, 0)
 sketch_residual_kernel_banked.launches = dict.fromkeys(BANKED_LAYOUTS, 0)
 sketch_residual_kernel.launches = dict.fromkeys(RESIDUAL_LAYOUTS, 0)
 sketch_update_kernel_serial.launches = 0
+WRAPPERS = (sketch_update_kernel_fused, sketch_residual_kernel_banked,
+            sketch_residual_kernel, sketch_update_kernel_serial)
+
+
+# A CUDA graph launches its kernels at every replay, but a wrapper counts
+# only when it runs, which is once, at capture. The capture's counts are
+# therefore taken back, kept as the graph's delta and added at each
+# replay (``session._CapturedIngest``).
+
+def launch_counts() -> dict:
+    """A snapshot of every sketch wrapper's counter, by wrapper name (a
+    dict per layout, or an int)."""
+    return {fn.__name__: (dict(fn.launches) if isinstance(fn.launches, dict)
+                          else fn.launches) for fn in WRAPPERS}
+
+
+def launch_delta(before: dict, after: dict) -> dict:
+    """What ran between two snapshots: ``after - before`` per wrapper and
+    layout, the entries that did not move left out."""
+    delta = {}
+    for name, now in after.items():
+        if isinstance(now, dict):
+            moved = {key: n - before[name][key] for key, n in now.items()
+                     if n != before[name][key]}
+        else:
+            moved = now - before[name]
+        if moved:
+            delta[name] = moved
+    return delta
+
+
+def add_counts(counts: dict, delta: dict) -> dict:
+    """``counts`` plus ``delta`` (``launch_delta``'s form), a new dict."""
+    out = {name: (dict(n) if isinstance(n, dict) else n)
+           for name, n in counts.items()}
+    for name, moved in delta.items():
+        if isinstance(moved, dict):
+            for key, n in moved.items():
+                out[name][key] += n
+        else:
+            out[name] += moved
+    return out
+
+
+def set_launch_counts(counts: dict) -> None:
+    """Set every sketch wrapper's counter from a ``launch_counts``
+    snapshot."""
+    for fn in WRAPPERS:
+        n = counts[fn.__name__]
+        fn.launches = dict(n) if isinstance(n, dict) else n
+
 
 __all__ = ["SOURCES", "RESIDUAL_LAYOUTS", "FUSED_LAYOUTS", "BANKED_LAYOUTS",
            "residual_layout", "fused_layout", "banked_layout", "entry_point",
+           "WRAPPERS", "launch_counts", "launch_delta", "add_counts",
+           "set_launch_counts",
            "sketch_update_kernel_fused",
            "sketch_residual_kernel_banked", "sketch_residual_kernel",
            "sketch_update_kernel_serial"]

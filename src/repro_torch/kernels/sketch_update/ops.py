@@ -11,6 +11,9 @@ never modified: the kernels update fresh padded copies in place.
   bank, and at the INT_MAX rail the water-fill counts BLOCKED slots
   among its candidates, so the port pads the same way), the prep
   ``bank.phase1_dense_prep``, then the fused per-cell update;
+- ``sketch_block_update_stream`` (:196): an (NB, B) stream of raw
+  blocks, routed, prepped and updated block after block on a bank
+  padded once, with no host round trip between blocks;
 - ``sketch_block_update_banked`` (:107): ``bank.phase1_dense`` in torch,
   then one banked phase-2 launch over the padded bank (the split path);
 - ``sketch_block_update_batched`` (:247) and ``sketch_block_update``
@@ -83,6 +86,36 @@ def sketch_block_update_fused(bank: SketchState, row_items: torch.Tensor,
     update = (sketch_update_kernel_fused if bank.ids.is_cuda
               else fused_update_ref)
     return block_update_with(update, bank, row_items, row_weights, variant)
+
+
+def sketch_block_update_stream(bank: SketchState, blocks_items: torch.Tensor,
+                               blocks_weights: torch.Tensor, router,
+                               variant: int = 2) -> SketchState:
+    """Multi-block ingest of an (NB, B) stream of raw blocks (reference
+    :196): per block, route -> prep -> the fused update, the bank padded
+    once and carried padded from block to block.
+
+    On the card the blocks move to the device in one copy (none if they
+    are there already) and each block is one launch sequence on the
+    caller's stream, with no host synchronisation between blocks: the
+    prep of block i+1 queues behind block i's kernel. On the CPU it is
+    the plain fold. Bit-identical to folding ``sketch_block_update_fused``
+    over the routed blocks (prep reads only the ids, and the kernel never
+    touches the BLOCKED padding, so padding once is padding per block).
+    """
+    R, k = bank.ids.shape
+    update = (sketch_update_kernel_fused if bank.ids.is_cuda
+              else fused_update_ref)
+    dev = bank.ids.device
+    blocks_items = blocks_items.to(device=dev, dtype=I32, non_blocking=True)
+    blocks_weights = blocks_weights.to(device=dev, dtype=I32,
+                                       non_blocking=True)
+    carry = _pad_bank(bank)
+    for items, weights in zip(blocks_items, blocks_weights):
+        prep = phase1_dense_prep(carry, *router.route_dense(items, weights),
+                                 variant)
+        carry = SketchState(*update(*carry, *prep, variant=variant))
+    return SketchState(*(t[:, :k] for t in carry))
 
 
 def banked_update_with(residual, bank: SketchState, row_items: torch.Tensor,
@@ -167,6 +200,7 @@ def sketch_block_update_serial(state: SketchState, items: torch.Tensor,
 
 
 __all__ = ["prep_block", "block_update_with", "sketch_block_update_fused",
+           "sketch_block_update_stream",
            "banked_update_with", "sketch_block_update_banked",
            "split_update_with", "sketch_block_update_batched",
            "sketch_block_update", "serial_update_with",

@@ -149,27 +149,34 @@ def validate_block(spec: SketchSpec, items, weights, *,
         raise ValueError(
             f"items/weights must be integer arrays (ids and signed counts), "
             f"got dtypes {i.dtype}/{w.dtype}")
+    # the reference's checks, each a reduction over one pass: with the
+    # device no longer waiting on launches, this is the ingest's host cost
     real = w != 0
-    if (i[real] < 0).any():
-        bad = int(i[real][i[real] < 0][0])
+    i_real = i if real.all() else i[real]
+    if i_real.size and i_real.min() < 0:
+        bad = int(i_real[i_real < 0][0])
         raise ValueError(
             f"negative item id {bad}: ids must be >= 0 (negative ids are "
             f"the EMPTY/BLOCKED sentinels). To pad a block, keep any id "
             f"and set its weight to 0.")
     int32_max = np.iinfo(np.int32).max
-    if (i[real].astype(np.int64) > int32_max).any():
-        bad = int(i[real][i[real].astype(np.int64) > int32_max][0])
+    i64 = i_real.astype(np.int64, copy=False)
+    if i64.size and i64.max() > int32_max:
+        bad = int(i_real[i64 > int32_max][0])
         raise ValueError(
             f"item id {bad} exceeds int32 (the device-side id dtype); "
             f"hash or re-bucket ids into [0, 2^31) before ingest")
-    if np.abs(w.astype(np.int64)).max(initial=0) > int32_max:
+    w64 = w.astype(np.int64, copy=False)
+    magnitudes = np.abs(w64)
+    if magnitudes.max(initial=0) > int32_max:
         raise ValueError("weights must fit int32 (the device-side count dtype)")
-    wsum = int(np.abs(w.astype(np.int64)).sum())
+    wsum = int(magnitudes.sum())
     if wsum > int32_max:
         raise ValueError(
             f"block weight magnitudes sum to {wsum} > int32 max "
             f"({int32_max}): split the block or rescale the weights")
-    pos_mass = int(w.astype(np.int64).clip(min=0).sum())
+    # |w| + w = 2 max(w, 0): the positive mass from the two sums
+    pos_mass = (wsum + int(w64.sum())) // 2
     if prior_mass and pos_mass:
         uniq, inv = np.unique(i[real], return_inverse=True)
         net = np.zeros(uniq.size, dtype=np.int64)
@@ -227,6 +234,12 @@ class _FrequencyAdapter:
     def topk(self, spec, state, m):
         return st.topk(state, m)
 
+    def merge(self, spec, a, b):
+        return st.merge(a, b)
+
+    def consolidate(self, spec, state):
+        return state
+
     def save(self, spec, state) -> Dict[str, Any]:
         return {"layout": np.int32(LAYOUT_FREQUENCY),
                 "ids": _to_numpy(state.ids),
@@ -259,6 +272,12 @@ class _ShardedFrequencyAdapter:
 
     def topk(self, spec, state, m):
         return shd.topk(state, m)
+
+    def merge(self, spec, a, b):
+        return shd.merge(a, b)
+
+    def consolidate(self, spec, state):
+        return shd.consolidate(state)
 
     def save(self, spec, state) -> Dict[str, Any]:
         return {"layout": np.int32(LAYOUT_FREQUENCY),
@@ -345,6 +364,17 @@ def topk(spec: SketchSpec, state, m: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return adapter_for(spec).topk(spec, state, m)
 
 
+def merge(spec: SketchSpec, a, b):
+    """Mergeable-summaries merge of two same-spec states (cross-host)."""
+    return adapter_for(spec).merge(spec, a, b)
+
+
+def consolidate(spec: SketchSpec, state):
+    """A sharded state folded into its single summary (checkpoint
+    compaction); the identity for unsharded specs."""
+    return adapter_for(spec).consolidate(spec, state)
+
+
 # ---------------------------------------------------------------------------
 # Checkpointing: the reference's tagged flat dicts
 # ---------------------------------------------------------------------------
@@ -410,5 +440,5 @@ def restore(spec: SketchSpec, d: Dict[str, Any], device=DEFAULT_DEVICE):
 __all__ = ["KINDS", "VARIANTS", "BACKENDS", "LAYOUT_FREQUENCY",
            "LAYOUT_QUANTILE", "LAYOUT_DOUBLE", "LAYOUT_CRPRECIS",
            "SketchSpec", "validate_block", "host_array", "adapter_for",
-           "make", "update",
-           "query_many", "query", "topk", "save", "infer_spec", "restore"]
+           "make", "update", "query_many", "query", "topk", "merge",
+           "consolidate", "save", "infer_spec", "restore"]

@@ -4,8 +4,9 @@ Counterpart of ``repro/sketch/bank.py`` for what the kernel path needs:
 ``init``, ``shard_of``, ``sort_block``, the ``HashShardRouter``, the
 framework-side prep ``phase1_dense_prep`` (sorts, ``searchsorted``,
 grouping: plain torch ops here, as they stayed XLA outside the Pallas
-kernel), the banked residual loop ``residual_phase_banked`` and the
-bank-wide reads ``query_rows``/``topk_bank``.
+kernel), the banked residual loop ``residual_phase_banked``, the
+bank-wide reads ``query_rows``/``topk_bank`` and the reductions
+``merge_banks``/``consolidate``.
 
 Row layout contract (as in the reference): BLOCKED slots (here only the
 column padding ``ops.py`` adds) hold INT_MAX counts and zero errors,
@@ -22,7 +23,8 @@ import torch
 from ..platform import DEFAULT_DEVICE, resolve_device
 from .phases import (fill_empty_slots, segment_nets, stable_partition_perm,
                      waterfill_unit_inserts)
-from .state import EMPTY, I32, VARIANT_LAZY, SketchState, sat_add, top_m
+from .state import (EMPTY, I32, VARIANT_LAZY, SketchState, merge, sat_add,
+                    top_m)
 
 _U32 = 0xFFFFFFFF
 
@@ -256,7 +258,38 @@ def topk_bank(bank: SketchState, m: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return ids[idx], counts[idx]
 
 
+# ---------------------------------------------------------------------------
+# Cross-bank reduction and checkpoint consolidation
+# ---------------------------------------------------------------------------
+
+def merge_banks(a: SketchState, b: SketchState) -> SketchState:
+    """Row-wise mergeable-summaries merge of two same-shape (R, k) banks
+    (reference ``bank.py:808``), all rows in one batched ``state.merge``.
+    Valid because both banks route with the same router: row r of either
+    only ever monitored ids routed to r."""
+    return merge(a, b)
+
+
+def consolidate(bank: SketchState) -> SketchState:
+    """Fold the row axis of an (R, k) bank into one (k,) summary
+    (reference ``bank.py:818``): a tree of ``state.merge`` pairing rows
+    (0, 1), (2, 3), ... with an odd last row carried up a level, as the
+    reference pairs them. Merge keeps the top k, so it is not
+    associative: another pairing would give another summary. Each level
+    is one batched merge."""
+    rows = bank
+    while rows.ids.shape[0] > 1:
+        n = rows.ids.shape[0] // 2
+        merged = merge_banks(SketchState(*(t[0:2 * n:2] for t in rows)),
+                             SketchState(*(t[1:2 * n:2] for t in rows)))
+        if rows.ids.shape[0] % 2:
+            merged = SketchState(*(torch.cat([m, t[-1:]])
+                                   for m, t in zip(merged, rows)))
+        rows = merged
+    return SketchState(*(t[0] for t in rows))
+
+
 __all__ = ["init", "shard_of", "sort_block", "HashShardRouter",
            "residual_phase_banked", "phase1_dense_prep", "phase1_apply",
            "phase1_dense", "query_rows",
-           "topk_bank"]
+           "topk_bank", "merge_banks", "consolidate"]

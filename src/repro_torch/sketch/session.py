@@ -4,46 +4,275 @@ Counterpart of ``repro/sketch/session.py`` (``StreamSession``, :132):
 block buffering (``extend``/``observe`` auto-flush full blocks, the
 tail zero-weight padded), validated ``ingest``, windowed deletion
 scheduling (``push`` expires whole batches, ``observe`` single items,
-after ``window`` steps), queries that flush first, and tagged
-checkpoints with an optional scheduling snapshot.
+after ``window`` steps), queries that flush first, merge and
+consolidation, and tagged checkpoints with an optional scheduling
+snapshot.
 
-Ingest runs eagerly: there is no compiled-ingest cache, because
-nothing is traced. The reference's fault injection, straggler monitor,
-replay log and ``BlockFeeder`` are not part of this port yet
-(ROADMAP.md Queue 1 items 8 and 14).
+Ingest goes through one cached compiled ingest per ``(spec, block,
+donate)`` (``_ingest_fn``, as the reference's jitted one): on the card a
+CUDA graph of the adapter's ``update``, captured at its first call and
+replayed per block; on the CPU the eager update. ``BlockFeeder`` stages
+block i on the host and the copy engine while block i-1 computes.
+
+Donation differs from JAX's. A donated JAX buffer is invalid after the
+next ingest and raises when read; with ``donate=True`` here the next
+ingest overwrites it: a state a caller kept from the session then holds
+the newer state. ``donate=False`` leaves every kept state as it was, at
+one device copy of the bank per block.
+
+The reference's fault injection, straggler monitor and replay log are
+not part of this port yet (ROADMAP.md Queue 1 item 14), nor are
+per-tenant expiry FIFOs (item 12).
 """
 from __future__ import annotations
 
 import collections
-from typing import Deque, List, Optional, Tuple
+import dataclasses
+import functools
+import weakref
+from typing import Deque, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..platform import DEFAULT_DEVICE, resolve_device
+from ..kernels.sketch_update import kernel as _kernel
+from ..platform import DEFAULT_DEVICE, donate_state_buffers, resolve_device
 from . import api
 from .api import SketchSpec
+from .state import I32, SketchState
+
+
+# ---------------------------------------------------------------------------
+# The compiled ingest and its cache (reference session.py:67-129)
+# ---------------------------------------------------------------------------
+
+def ingest_cache_spec(spec: SketchSpec) -> SketchSpec:
+    """A spec's compiled-ingest cache identity. The update reads the spec
+    only through kind, variant, backend, bits and shards, so tenant specs
+    collapse onto a ``tenants=1`` form (capacity folded back into ``k``)
+    and the cache stays bounded by layouts, not tenant populations. The
+    port does not build tenant specs yet (ROADMAP.md Queue 1 item 12):
+    normalising one raises as constructing one does."""
+    if spec.tenants is None:
+        return spec
+    changes = {"tenants": 1, "tenant_caps": None}
+    if spec.tenant_caps is not None:
+        changes["k"] = int(sum(spec.tenant_caps))
+    return dataclasses.replace(spec, **changes)
+
+
+def _leaves(state) -> List[torch.Tensor]:
+    """The (ids, counts, errors) tensors of a plain or sharded state."""
+    return list(state.bank if hasattr(state, "bank") else state)
+
+
+def _like(state, leaves):
+    """A state of ``state``'s type holding ``leaves``."""
+    if hasattr(state, "bank"):
+        return type(state)(bank=SketchState(*leaves))
+    return SketchState(*leaves)
+
+
+def _alias(t: torch.Tensor) -> torch.Tensor:
+    """A new tensor object on ``t``'s memory."""
+    return torch.empty(0, dtype=t.dtype, device=t.device).set_(t)
+
+
+class CompiledIngest:
+    """The ``(state, items, weights) -> state`` ingest of one cache cell.
+
+    CPU states take the adapter's eager update. On the card the ingest
+    is one CUDA graph of ``adapter.update``: it reads the cell's own
+    state buffers and the block's static items and weights, and ends by
+    writing the new state back into the same buffers. It is captured at
+    the first call, after that call's block ran eagerly on a side stream
+    (the warm-up PyTorch's graph documentation asks for: it builds and
+    loads the kernels), so every block, the first included, launches
+    each kernel once. A capture that fails raises; nothing falls back to
+    the eager update. The graph stays on the device it was captured on.
+
+    The wrappers count their launches at capture, when nothing runs:
+    those counts are taken back, kept as the graph's delta and added at
+    every replay.
+
+    A state that arrives from outside (a restore, a merge, another
+    session of the same cell) is copied into the buffers first; the
+    state this cell last returned, unchanged since (the same tensor
+    objects at the same version), is used as it is. With donation the
+    returned state shares the buffers' memory, so the next replay
+    updates it in place; before another state is copied in, a returned
+    state still alive is moved to memory of its own, so two sessions
+    sharing the cell never see each other's blocks. Without donation
+    each call returns a copy of the buffers.
+
+    ``items``/``weights`` are block-sized int32 tensors (pinned host or
+    device) or host arrays; ``staged``, a CUDA event, is recorded once
+    the block has been copied into the graph's inputs (the caller's host
+    buffer may then be reused).
+    """
+
+    def __init__(self, spec: SketchSpec, block: int, donate: bool):
+        self.spec = spec
+        self.block = block
+        # donation only on the card (platform.donate_state_buffers)
+        self.donate = bool(donate) and donate_state_buffers()
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.device: Optional[torch.device] = None
+        self.delta: Dict = {}
+        self._held: Optional[list] = None   # [(weakref, version)] returned
+        self._lent: Optional[list] = None   # weakrefs to donated aliases
+
+    def __call__(self, state, items, weights, staged=None):
+        if not isinstance(items, torch.Tensor):
+            items = torch.from_numpy(np.ascontiguousarray(items, np.int32))
+        if not isinstance(weights, torch.Tensor):
+            weights = torch.from_numpy(np.ascontiguousarray(weights, np.int32))
+        if items.shape != (self.block,) or weights.shape != (self.block,):
+            raise ValueError(
+                f"the compiled ingest takes blocks of {self.block} updates, "
+                f"got items {tuple(items.shape)}, weights "
+                f"{tuple(weights.shape)}")
+        dev = _leaves(state)[0].device
+        if dev.type != "cuda":
+            return api.adapter_for(self.spec).update(
+                self.spec, state, items.to(dev, I32), weights.to(dev, I32))
+        if self.graph is None:
+            return self._capture(state, items, weights, staged)
+        if dev != self.device:
+            raise ValueError(f"this compiled ingest was captured on "
+                             f"{self.device}, the state is on {dev}")
+        return self._replay(state, items, weights, staged)
+
+    def _update(self, template):
+        return _leaves(api.adapter_for(self.spec).update(
+            self.spec, _like(template, self.buf), self.items, self.weights))
+
+    def _stage(self, items, weights, staged) -> None:
+        self.items.copy_(items, non_blocking=True)
+        self.weights.copy_(weights, non_blocking=True)
+        if staged is not None:
+            staged.record()
+
+    def _holds(self, leaves) -> bool:
+        return self._held is not None and all(
+            ref() is t and t._version == version
+            for (ref, version), t in zip(self._held, leaves))
+
+    def _release(self) -> None:
+        """Move donated aliases still alive to memory of their own."""
+        for ref in self._lent or ():
+            t = ref()
+            if t is not None:
+                t.set_(t.clone())
+        self._lent = None
+
+    def _out(self, state):
+        if self.donate:
+            if self._lent is None:
+                out = [_alias(b) for b in self.buf]
+                self._lent = [weakref.ref(t) for t in out]
+            else:
+                out = [ref() for ref in self._lent]
+        else:
+            out = [b.clone() for b in self.buf]
+        self._held = [(weakref.ref(t), t._version) for t in out]
+        return _like(state, out)
+
+    def _capture(self, state, items, weights, staged):
+        leaves = _leaves(state)
+        dev = leaves[0].device
+        self.buf = [t.clone() for t in leaves]
+        self.items = torch.empty(self.block, dtype=I32, device=dev)
+        self.weights = torch.empty(self.block, dtype=I32, device=dev)
+        self._stage(items, weights, staged)
+        caller = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(caller)
+        with torch.cuda.stream(side):
+            # warm-up: this block's ingest, eagerly
+            for b, t in zip(self.buf, self._update(state)):
+                b.copy_(t)
+        before = _kernel.launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph, stream=side):
+                for b, t in zip(self.buf, self._update(state)):
+                    b.copy_(t)
+        finally:
+            after = _kernel.launch_counts()
+            _kernel.set_launch_counts(before)
+        caller.wait_stream(side)
+        self.delta = _kernel.launch_delta(before, after)
+        self.graph, self.device = graph, dev
+        return self._out(state)
+
+    def _replay(self, state, items, weights, staged):
+        leaves = _leaves(state)
+        if not self._holds(leaves):
+            self._release()
+            for b, t in zip(self.buf, leaves):
+                b.copy_(t)
+        self._stage(items, weights, staged)
+        self.graph.replay()
+        _kernel.set_launch_counts(_kernel.add_counts(
+            _kernel.launch_counts(), self.delta))
+        return self._out(state)
+
+
+@functools.lru_cache(maxsize=None)
+def _ingest_fn_cached(spec: SketchSpec, block: int,
+                      donate: bool = True) -> CompiledIngest:
+    return CompiledIngest(spec, block, donate)
+
+
+def _ingest_fn(spec: SketchSpec, block: int, donate: bool = True
+               ) -> CompiledIngest:
+    """The compiled ingest of one ``(spec, block, donate)`` cell, cached
+    for the process (unbounded, as the reference's: an eviction would
+    capture a live session's graph anew). The spec is normalised first
+    (``ingest_cache_spec``). A cell's CUDA graph holds the update's
+    intermediates in its own memory pool (PERF.md gives the main spec's
+    size)."""
+    return _ingest_fn_cached(ingest_cache_spec(spec), int(block),
+                             bool(donate))
+
+
+def ingest_cache_stats() -> Dict[str, int]:
+    """How many compiled-ingest cells exist (``entries``) and the cache's
+    hit and miss counts."""
+    info = _ingest_fn_cached.cache_info()
+    return {"entries": int(info.currsize), "hits": int(info.hits),
+            "misses": int(info.misses)}
 
 
 class StreamSession:
     """Streaming front-end over one :class:`SketchSpec` on one device.
 
-    ``block``: fixed ingest block length. ``window``: optional
-    bounded-deletion horizon, in pushes for ``push`` and in observations
-    for ``observe``. ``state``: resume from an existing state.
-    ``device``: where the state lives (CUDA unless asked).
+    ``block``: fixed ingest block length (one compiled ingest per spec).
+    ``window``: optional bounded-deletion horizon, in pushes for ``push``
+    and in observations for ``observe``. ``state``: resume from an
+    existing state. ``donate``: let the compiled ingest update the state
+    buffers in place on the card (see the module docstring); ``False``
+    keeps every state a caller took unchanged. ``device``: where the
+    state lives (CUDA unless asked).
     """
 
     def __init__(self, spec: SketchSpec, block: int = 8192,
                  window: Optional[int] = None, state=None,
-                 device=DEFAULT_DEVICE):
+                 donate: bool = True, device=DEFAULT_DEVICE):
         if block < 2:
             raise ValueError(f"block must be >= 2, got {block}")
         self.spec = spec
         self.block = int(block)
         self.window = window
+        self.donate = donate
         self.device = resolve_device(device)
         self.state = state if state is not None else api.make(spec, self.device)
+        self._compiled = _ingest_fn(spec, self.block, donate)
+        # one pinned host slot for ingest_block's copies to the card, and
+        # the event that says its last copy is done
+        self._pinned: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+        self._pinned_free: Optional[torch.cuda.Event] = None
         self.insertions = 0
         self.deletions = 0
         # positive mass validated into this session: the prior_mass bound
@@ -60,13 +289,30 @@ class StreamSession:
     # -- low-level ingest --------------------------------------------------
 
     def ingest_block(self, items, weights) -> None:
-        """Feed ONE exactly block-sized, already-padded int32 block."""
-        items = torch.as_tensor(items, dtype=torch.int32, device=self.device)
-        weights = torch.as_tensor(weights, dtype=torch.int32,
-                                  device=self.device)
-        self.state = api.adapter_for(self.spec).update(
-            self.spec, self.state, items, weights)
+        """Feed ONE exactly block-sized, already-padded int32 block through
+        the compiled ingest. On the card a host block goes through the
+        session's pinned slot, copied to the device without synchronising
+        the host; a block already on the card is used as it is."""
+        staged = None
+        if self.device.type == "cuda" and not (
+                isinstance(items, torch.Tensor) and items.is_cuda):
+            items, weights = self._pin(items, weights)
+            staged = self._pinned_free
+        self.state = self._compiled(self.state, items, weights, staged)
         self.blocks_ingested += 1
+
+    def _pin(self, items, weights):
+        """The block in the pinned slot, once the slot's last copy to the
+        card is done."""
+        if self._pinned is None:
+            self._pinned = tuple(
+                torch.empty(self.block, dtype=I32).pin_memory()
+                for _ in range(2))
+            self._pinned_free = torch.cuda.Event()
+        self._pinned_free.synchronize()
+        for slot, src in zip(self._pinned, (items, weights)):
+            slot.numpy()[:] = api.host_array(src)
+        return self._pinned
 
     def ingest(self, items, weights) -> None:
         """Validate, chunk to the session block, pad, and ingest now.
@@ -184,6 +430,11 @@ class StreamSession:
             self.ingest(di, -dw)
 
     @property
+    def batch_fifo(self) -> Deque[Tuple[np.ndarray, np.ndarray]]:
+        """The pending batch expiries (``push``), oldest first."""
+        return self._batch_fifo
+
+    @property
     def alpha_bound(self) -> float:
         """Empirical alpha = I / (I - D) (paper Table 2)."""
         return self.insertions / max(self.insertions - self.deletions, 1)
@@ -201,6 +452,38 @@ class StreamSession:
     def topk(self, m: int) -> Tuple[torch.Tensor, torch.Tensor]:
         self.flush()
         return api.topk(self.spec, self.state, m)
+
+    # -- merge / consolidation ---------------------------------------------
+
+    def merge_from(self, other: "StreamSession") -> None:
+        """Cross-host reduction (mergeable summaries): ``other``'s state is
+        merged into this one. The specs must agree on everything but
+        ``backend`` (an execution path, not a layout), and the windows
+        must match; the other session's pending expiries carry over, so
+        every scheduled deletion still fires once."""
+        if dataclasses.replace(self.spec, backend="kernel") != \
+                dataclasses.replace(other.spec, backend="kernel"):
+            raise ValueError(
+                f"cannot merge sessions of different layouts: {self.spec} "
+                f"vs {other.spec} (only `backend` may differ)")
+        if self.window != other.window:
+            raise ValueError(
+                f"cannot merge sessions with mismatched window schedules "
+                f"(window={self.window} vs window={other.window}): the "
+                f"absorbed session's pending expiries would fire on the "
+                f"wrong horizon")
+        self.flush()
+        other.flush()
+        self.state = api.merge(self.spec, self.state, other.state)
+        self.insertions += other.insertions
+        self.deletions += other.deletions
+        self._batch_fifo.extend(other._batch_fifo)
+        self._item_fifo.extend(other._item_fifo)
+
+    def consolidated(self):
+        """The single summary of the state (identity when unsharded)."""
+        self.flush()
+        return api.consolidate(self.spec, self.state)
 
     # -- checkpointing -----------------------------------------------------
 
@@ -249,6 +532,7 @@ class StreamSession:
         self.blocks_ingested = 0
         self.spec = api.infer_spec(self.spec, d)
         self.state = api.restore(self.spec, d, self.device)
+        self._compiled = _ingest_fn(self.spec, self.block, self.donate)
         if "sched_seq" in d:
             self._restore_schedule(d)
 
@@ -286,4 +570,84 @@ class StreamSession:
         self.blocks_ingested = int(np.asarray(d["sched_seq"]))
 
 
-__all__ = ["StreamSession"]
+class BlockFeeder:
+    """Host-side feeder that keeps the compiled ingest busy (reference
+    ``session.py:722``).
+
+    ``feed(items, weights)`` stages block i and dispatches block i-1: on
+    the card, block i is copied into a pinned host slot and from there to
+    a device slot on a copy stream, while block i-1 computes on the
+    caller's stream. Each slot has two events: its copy is done (the host
+    slot may be refilled; the ingest may read the device slot) and its
+    ingest has read it (the device slot may be refilled). At most
+    ``depth`` ingests stay in flight: the host waits for the oldest
+    beyond that. ``flush()`` dispatches the staged block, waits and
+    returns the state. Blocks are exactly session-block-sized and
+    zero-weight padded (the ``ingest_block`` contract); feeding is
+    bit-identical to calling ``ingest_block`` in order.
+    """
+
+    def __init__(self, session: StreamSession, depth: int = 2):
+        self.session = session
+        self.depth = max(1, int(depth))
+        self._staged = None
+        self._inflight: Deque = collections.deque()
+        self._next = 0
+        self._cuda = session.device.type == "cuda"
+        if self._cuda:
+            n, B, dev = self.depth + 1, session.block, session.device
+            self._host = [tuple(torch.empty(B, dtype=I32).pin_memory()
+                                for _ in range(2)) for _ in range(n)]
+            self._dev = [tuple(torch.empty(B, dtype=I32, device=dev)
+                               for _ in range(2)) for _ in range(n)]
+            self._copied = [torch.cuda.Event() for _ in range(n)]
+            self._read = [torch.cuda.Event() for _ in range(n)]
+            self._copy_stream = torch.cuda.Stream(dev)
+
+    def feed(self, items, weights) -> None:
+        staged = self._stage(items, weights)
+        if self._staged is not None:
+            self._dispatch(self._staged)
+        self._staged = staged
+
+    def _stage(self, items, weights):
+        if not self._cuda:
+            return (np.array(items, np.int32), np.array(weights, np.int32))
+        j = self._next
+        self._next = (j + 1) % len(self._host)
+        self._copied[j].synchronize()
+        for slot, src in zip(self._host[j], (items, weights)):
+            slot.numpy()[:] = api.host_array(src)
+        with torch.cuda.stream(self._copy_stream):
+            self._copy_stream.wait_event(self._read[j])
+            for dst, src in zip(self._dev[j], self._host[j]):
+                dst.copy_(src, non_blocking=True)
+            self._copied[j].record()
+        return j
+
+    def _dispatch(self, staged) -> None:
+        if not self._cuda:
+            self.session.ingest_block(*staged)
+            return
+        caller = torch.cuda.current_stream(self.session.device)
+        caller.wait_event(self._copied[staged])
+        self.session.ingest_block(*self._dev[staged])
+        self._read[staged].record(caller)
+        done = torch.cuda.Event()
+        done.record(caller)
+        self._inflight.append(done)
+        while len(self._inflight) > self.depth:
+            self._inflight.popleft().synchronize()
+
+    def flush(self):
+        """Dispatch the staged block, wait for the device, return state."""
+        if self._staged is not None:
+            self._dispatch(self._staged)
+            self._staged = None
+        while self._inflight:
+            self._inflight.popleft().synchronize()
+        return self.session.state
+
+
+__all__ = ["BlockFeeder", "CompiledIngest", "StreamSession", "_ingest_fn",
+           "ingest_cache_spec", "ingest_cache_stats"]

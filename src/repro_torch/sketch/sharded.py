@@ -4,7 +4,9 @@ Counterpart of ``repro/sketch/sharded.py`` on one device: shard s of
 the stacked (S, k) bank monitors the ids with ``shard_of(id, S) == s``.
 A block is routed with one shared sort (the sorted block broadcast to
 every row, foreign weights masked to 0) and ingested by one launch;
-queries read the owner shard, so there is no merge error.
+queries read the owner shard, so there is no merge error. ``merge``
+pairs two banks shard by shard; ``consolidate`` folds the shards into
+one summary for checkpoints.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import torch
 from ..kernels.sketch_update.ops import sketch_block_update_fused
 from ..platform import DEFAULT_DEVICE
 from . import bank as bk
+from . import state as st
 from .bank import HashShardRouter, shard_of
 from .blocks import block_update_batched
 from .state import VARIANT_SSPM, SketchState
@@ -89,10 +92,43 @@ def query_many(state: ShardedSketch, items: torch.Tensor) -> torch.Tensor:
     return bk.query_rows(state.bank, shard_of(items, state.num_shards), items)
 
 
+def query(state: ShardedSketch, item) -> torch.Tensor:
+    """Estimated frequency of one id, from its owner shard."""
+    item = int(item)
+    if not -2**31 <= item < 2**31:
+        raise OverflowError(f"item id {item} is out of bounds for int32")
+    ids = torch.tensor([item], dtype=torch.int32, device=state.bank.ids.device)
+    return query_many(state, ids)[0]
+
+
 def topk(state: ShardedSketch, m: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Global top-m (ids, counts): flat top-k over all S·k slots."""
     return bk.topk_bank(state.bank, m)
 
 
+def merge(a: ShardedSketch, b: ShardedSketch) -> ShardedSketch:
+    """Shard-wise mergeable-summaries merge of two same-shape banks: both
+    route with the same hash, so shard s of either only monitored ids
+    owned by s and the merged bank keeps the ownership invariant."""
+    return ShardedSketch(bank=bk.merge_banks(a.bank, b.bank))
+
+
+def consolidate(state: ShardedSketch) -> SketchState:
+    """All shards folded into one (k,) summary by ``bank.consolidate``'s
+    tree: the compact global view for checkpoints, with the merged
+    summary's error bounds (queries on the live bank have no merge
+    error). S·k counters collapse to k."""
+    return bk.consolidate(state.bank)
+
+
+def to_dict(state: ShardedSketch) -> dict:
+    """Union of the per-shard {item: (count, error)} (ids are disjoint)."""
+    out = {}
+    for s in range(state.num_shards):
+        out.update(st.to_dict(SketchState(*(t[s] for t in state.bank))))
+    return out
+
+
 __all__ = ["ShardedSketch", "init", "shard_of", "route_block",
-           "update_block", "query_many", "topk"]
+           "update_block", "query_many", "query", "topk", "merge",
+           "consolidate", "to_dict"]

@@ -322,6 +322,135 @@ def test_pad_bank_keeps_the_callers_bank(cuda):
     assert padded.ids.data_ptr() != bank.ids.data_ptr()
 
 
+# --- the captured ingest, the feeder and the stream --------------------------
+
+@pytest.mark.parametrize("shards,backend", [(8, "kernel"), (None, "kernel"),
+                                            (8, "block"), (None, "block")])
+def test_graph_replay_equals_the_eager_update(cuda, shards, backend):
+    """Each block through the session's CUDA graph equals the adapter's
+    eager update of the same state, and each block, the first (run
+    eagerly before the capture) included, counts the launches the eager
+    update makes: one of the path's kernel."""
+    from repro_torch.kernels.sketch_update import kernel
+    from repro_torch.sketch import api
+
+    spec = SketchSpec(k=3000, shards=shards, bits=16, backend=backend)
+    s = bounded_stream(20000, 0.5, universe=1 << 16, seed=12)
+    sess = StreamSession(spec, block=2048, device=cuda)
+    eager = api.make(spec, cuda)
+    name = ("sketch_update_kernel_fused" if backend == "kernel"
+            else "sketch_residual_kernel")
+    for lo in range(0, len(s) - 2048, 2048):
+        it, w = s[lo:lo + 2048, 0], s[lo:lo + 2048, 1]
+        c0 = kernel.launch_counts()
+        sess.ingest_block(it, w)
+        c1 = kernel.launch_counts()
+        eager = api.adapter_for(spec).update(
+            spec, eager, torch.as_tensor(it, device=cuda),
+            torch.as_tensor(w, device=cuda))
+        c2 = kernel.launch_counts()
+        got = sess.state.bank if shards else sess.state
+        want = eager.bank if shards else eager
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), f"block at {lo}"
+        replayed = kernel.launch_delta(c0, c1)
+        assert replayed == kernel.launch_delta(c1, c2)
+        assert list(replayed) == [name] and sum(replayed[name].values()) == 1
+
+
+def test_capture_with_a_synchronising_op_raises(cuda, monkeypatch):
+    """A synchronising op in the captured region fails the capture, and the
+    failure reaches the caller: nothing falls back to the eager path."""
+    from repro_torch.sketch import api
+
+    spec = SketchSpec(k=1234, bits=16)
+    real = api._FrequencyAdapter.update
+
+    def planted(self, spec, state, items, weights):
+        out = real(self, spec, state, items, weights)
+        int(out.counts.sum())          # reads a value back to the host
+        return out
+
+    monkeypatch.setattr(api._FrequencyAdapter, "update", planted)
+    sess = StreamSession(spec, block=512, device=cuda)
+    with pytest.raises(RuntimeError):
+        sess.ingest_block(np.arange(512, dtype=np.int32),
+                          np.ones(512, np.int32))
+    assert sess.blocks_ingested == 0
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("donate", [True, False])
+def test_donation_and_kept_states(cuda, donate):
+    """donate=False: a state kept from the session stays as it was after
+    the next ingest. donate=True: the next ingest overwrites it (the
+    difference from JAX, whose donated buffer raises when read). Either
+    way the session's own state is right, and two sessions sharing the
+    cached graph never see each other's blocks."""
+    spec = SketchSpec(k=777, shards=4, bits=16)
+    s = bounded_stream(9000, 0.5, universe=1 << 16, seed=13)
+    blocks = [(s[lo:lo + 1024, 0], s[lo:lo + 1024, 1])
+              for lo in range(0, 6144, 1024)]
+    a = StreamSession(spec, block=1024, donate=donate, device=cuda)
+    b = StreamSession(spec, block=1024, donate=donate, device=cuda)
+    ref_a = StreamSession(spec, block=1024, device="cpu")
+    ref_b = StreamSession(spec, block=1024, device="cpu")
+
+    def check():
+        for sess, ref in ((a, ref_a), (b, ref_b)):
+            for got, want in zip(sess.state.bank, ref.state.bank):
+                assert torch.equal(got.cpu(), want)
+
+    def ingest(sess, ref, i):
+        sess.ingest_block(*blocks[i])
+        ref.ingest_block(*blocks[i])
+
+    ingest(a, ref_a, 0)
+    kept = a.state.bank
+    kept_copy = [t.clone() for t in kept]
+    ingest(a, ref_a, 1)
+    same = all(torch.equal(x, y) for x, y in zip(kept, kept_copy))
+    assert same != donate
+    if donate:
+        assert all(torch.equal(x, y) for x, y in zip(kept, a.state.bank))
+    # two sessions of one cell, in turns
+    ingest(b, ref_b, 2)
+    check()
+    ingest(a, ref_a, 3)
+    ingest(b, ref_b, 4)
+    ingest(b, ref_b, 5)
+    check()
+
+
+@pytest.mark.parametrize("depth", [1, 2, 3])
+def test_block_feeder_and_stream_on_the_card(cuda, depth):
+    """The feeder's pinned slots and copy stream, and the device-resident
+    stream entry, give the bank of sequential ``ingest_block``."""
+    from repro_torch.kernels.sketch_update.ops import \
+        sketch_block_update_stream
+    from repro_torch.sketch.session import BlockFeeder
+
+    spec = SketchSpec(k=3000, shards=8, bits=16)
+    s = bounded_stream(30000, 0.5, universe=1 << 16, seed=14)
+    n = len(s) // 2048
+    items = s[:n * 2048, 0].reshape(n, 2048)
+    weights = s[:n * 2048, 1].reshape(n, 2048)
+    seq = StreamSession(spec, block=2048, device=cuda)
+    fed = StreamSession(spec, block=2048, donate=False, device=cuda)
+    feeder = BlockFeeder(fed, depth=depth)
+    for i in range(n):
+        seq.ingest_block(items[i], weights[i])
+        feeder.feed(items[i], weights[i])
+    state = feeder.flush()
+    for a, b in zip(state.bank, seq.state.bank):
+        assert torch.equal(a, b)
+    bank = sketch_block_update_stream(
+        bk.init(375, 8, device=cuda), torch.as_tensor(items),
+        torch.as_tensor(weights), bk.HashShardRouter(8, 16), 2)
+    for a, b in zip(bank, seq.state.bank):
+        assert torch.equal(a, b)
+
+
 # --- the attention kernels (5 and 6) against their plain versions ----------
 
 # B, S, T, H, KV, hd, causal, window: the reference's flash grid, a ragged
