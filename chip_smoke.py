@@ -22,7 +22,10 @@ result):
    1,048,577, at and past its layouts' limits), each case of kernels 1-3
    on the layout its size names (``kernel.fused_layout``,
    ``banked_layout``, ``residual_layout``; the limit cases on the layout
-   written beside them), kernels 1-3
+   written beside them), kernels 1-3 on dyadic banks of 24 layers
+   (the quantile kind's per-row capacities: K = 96,000 and 9,600
+   counters a layer, the top rows almost all BLOCKED, a (1, B) weight
+   row; kernel 3 at E = 24, k = 96,000), kernels 1-3
    on the SS± drain's edge cases (``drain_domains``: ties at the
    threshold, rem at a prefix sum or past the total, error sums past
    2^31, errors of every sign, EMPTY and BLOCKED slots), and the serial
@@ -71,16 +74,43 @@ result):
      bit, the merged bank within the summed Thm 4 bound over both
      streams with every item above it monitored; ``consolidated()`` of
      the main session equal to the CPU's consolidate;
+   - the quantile kind (Dyadic SpaceSaving±, ``quantile_phase``) on the
+     main stream (32 blocks) unless named: quantile sspm,
+     ``SketchSpec(kind="quantile", bits=24, eps=1e-3, alpha=2)`` (24
+     layers of up to 96,000 counters, 899,070 live, a 27.6 MB bank),
+     through the captured ingest, kernel 1 unstaged; quantile lazy
+     (eps=1e-2, 24 x 9,600, 16 blocks of another stream), kernel 1
+     staged; quantile block and bank (the sspm spec on ``"block"``,
+     kernel 3 summary+chain at E = 24, and on ``"bank"``, kernel 2
+     unstaged), each bank equal to the sspm run's; quantile sharded
+     (``shards=8`` on ``"bank"``: 192 rows, 221 MB, 8 blocks), kernel
+     2 unstaged. Each launches its kernel once a block and no other;
+     the sspm, lazy and sharded runs equal the plain versions over all
+     their blocks, the block and bank runs over their first 8 (kernel
+     and plain on the path's framework side); every layer row holds its
+     Thm 4 / Thm 2 bound with the layer's own live capacity against the
+     exact frequencies of ``x >> l``, every node above it monitored.
+     ``rank_many`` on 4,097 points (the live values' quantiles, 0 and
+     2^24 - 1) and ``quantile_many`` at 101 q (0, the percentiles, 1)
+     of the sspm, lazy and sharded states are within eps·|F|₁ of the
+     exact ranks and equal the CPU copies', and the rank check rejects
+     a planted fault; ``sketch_block_update_stream`` with a
+     ``DyadicLevelRouter`` equals the sspm bank; the sspm state merged
+     with a state of the lazy stream on the sspm spec equals the CPU's
+     merge and holds the summed bound; ``consolidated()`` of the sharded
+     state equals the CPU's;
 5. times: per-block ms and updates/s of each run; each kernel's device
    ms at its run's shapes (the kernels the profiler sees, per call; and
    the time per call from the host, which holds the wrapper's host time,
    the median of five rounds)
    beside its bound and the plain version's ms; kernel 1 also on the
    lazy run's block 1, kernel 3 also on path B's last block and on the
-   block-lazy run's block 1, and for kernels 1-3 each timed block's
+   block-lazy run's block 1, kernels 1-3 on each quantile run's next
+   block from its final bank, and for kernels 1-3 each timed block's
    evictions and SS± drain steps (in all and the most in one sketch or
-   row) and the us per eviction; ``torch.profiler`` windows over blocks
-   of the main, lazy, path A and path B specs, each twice in one call:
+   row) and the us per eviction; ``rank_many`` and ``quantile_many`` ms;
+   ``torch.profiler`` windows over blocks of the main, lazy, path A,
+   path B and quantile sspm specs, each twice in one call:
    eager (``api.adapter_for(spec).update`` per block on a pageable copy)
    and captured (``StreamSession.ingest_block``: the graph, the pinned
    slot): wall and device-busy ms per block, the idle share, the host's
@@ -194,9 +224,10 @@ def kernel_cases():
     stages in shared memory) and 24,577 (past it: the row stays in device
     memory, its chunk minima in a scratch), the drain cases
     (``drain_domains``, on rows of 3,001 and 30,000 slots, after
-    DRAIN_INSERTS evictions), and rows at one count whose water level's
-    probe sums pass 2^31 (``wrap_fused``). A case that names a layout
-    must run on it."""
+    DRAIN_INSERTS evictions), rows at one count whose water level's
+    probe sums pass 2^31 (``wrap_fused``), and dyadic banks of 24 layers
+    (``case_block``'s ``"dyadic"`` block) at K = 96,000 (unstaged) and
+    9,600 (staged). A case that names a layout must run on it."""
     cases = []
     for v in (2, 1):
         cases += [
@@ -215,6 +246,12 @@ def kernel_cases():
             ("warm R=1 K=24577", 1, 24577, v, "warm", "stream", "unstaged"),
             ("wrap R=1 K=24576", 1, 24576, v, "equal", "wrap", "staged"),
             ("wrap R=1 K=65536", 1, 65536, v, "equal", "wrap", "unstaged"),
+            ("dyadic cold R=24 K=96000", 24, 96000, v, "cold", "dyadic",
+             "unstaged"),
+            ("dyadic warm R=24 K=96000", 24, 96000, v, "warm", "dyadic",
+             "unstaged"),
+            ("dyadic warm R=24 K=9600", 24, 9600, v, "warm", "dyadic",
+             "staged"),
         ]
         cases += [(f"drain {kind} R=3 K=3001", 3, 3001, v, kind, "drain")
                   for kind in DRAIN_KINDS]
@@ -227,9 +264,10 @@ def banked_cases():
     """(name, R, K, variant, bank state, block kind[, layout]) grid of
     kernel 2: besides the states above, K = 24,576 (the largest row it
     stages in shared memory), 24,577 and 400,000 (past it: the row stays
-    in device memory, its chunk minima in a scratch), and the drain cases
+    in device memory, its chunk minima in a scratch), the drain cases
     (``drain_domains``, on unpadded rows of 3,001 slots: rows off 16-byte
-    alignment). A case that names a layout must run on it."""
+    alignment), and dyadic banks of 24 layers at K = 96,000 and 9,600. A
+    case that names a layout must run on it."""
     cases = []
     for v in (2, 1):
         cases += [
@@ -243,6 +281,10 @@ def banked_cases():
             ("warm R=1 K=24577", 1, 24577, v, "warm", "stream", "unstaged"),
             ("warm R=1 K=400000", 1, 400000, v, "warm", "stream",
              "unstaged"),
+            ("dyadic warm R=24 K=96000", 24, 96000, v, "warm", "dyadic",
+             "unstaged"),
+            ("dyadic warm R=24 K=9600", 24, 9600, v, "warm", "dyadic",
+             "staged"),
         ]
         cases += [(f"drain {kind} R=3 K=3001", 3, 3001, v, kind, "drain")
                   for kind in DRAIN_KINDS]
@@ -258,9 +300,11 @@ def split_cases():
     Besides the states above: k = 16,384 (R = 128, the largest sketch it
     stages in shared memory), 16,385 (R = 129: the rows stay in device
     memory, summarised over the card), 1,048,577 (R = 8,193: the
-    summaries no longer fit shared memory and stay in the scratch), and
-    the drain cases (``drain_domains``) on both sides of the staged
-    layout's limit. A case that names a layout must run on it."""
+    summaries no longer fit shared memory and stay in the scratch), the
+    drain cases (``drain_domains``) on both sides of the staged layout's
+    limit, and the 24 layers of a dyadic bank of 96,000 counters a layer
+    as E = 24 sketches of R = 750 rows. A case that names a layout must
+    run on it."""
     cases = []
     for v in (2, 1):
         cases += [
@@ -278,6 +322,8 @@ def split_cases():
              "summary+chain"),
             ("warm E=1 k=1048577", 1, 1048577, v, "warm", "stream",
              "summary+chain/scratch"),
+            ("dyadic warm E=24 k=96000", 24, 96000, v, "warm", "dyadic",
+             "summary+chain"),
         ]
         cases += [(f"drain {kind} E=3 k=3000", 3, 3000, v, kind, "drain")
                   for kind in DRAIN_KINDS]
@@ -472,19 +518,30 @@ def _block(stream, lo, n, torch, device):
 
 def case_block(R, K, variant, state, block, device, seed, B=65536):
     """An (R, K) bank and a raw block for one case, built with the plain
-    version. Returns ``(bank, items, weights, router)``."""
+    version. Returns ``(bank, items, weights, router)``. Block kind
+    ``"dyadic"``: the bank of an R-bit dyadic sketch of K counters a
+    layer (layer l holds min(K, 2^(R-l)) live slots, the rest BLOCKED),
+    the block over 2^R ids routed by ``DyadicLevelRouter`` (one (1, B)
+    weight row)."""
     import torch
+    from repro_torch.core.quantiles import dyadic_layer_capacities
     from repro_torch.core.streams import bounded_stream
     from repro_torch.kernels.sketch_update.ops import block_update_with
     from repro_torch.kernels.sketch_update.ref import fused_update_ref
     from repro_torch.sketch import bank as bk
-    from repro_torch.sketch.state import SketchState, sat_add
+    from repro_torch.sketch.state import BLOCKED, SketchState, sat_add
 
     n_warm = 0 if state == "cold" else 2
+    bits = R if block == "dyadic" else 20
     stream = bounded_stream(math.ceil((n_warm + 1) * B / 1.5) + 1, 0.5,
-                            universe=1 << 20, seed=seed)
-    router = bk.HashShardRouter(R, 20)
-    bank = bk.init(K, R, device=device)
+                            universe=1 << bits, seed=seed)
+    if block == "dyadic":
+        router = bk.DyadicLevelRouter(R)
+        bank = bk.init(dyadic_layer_capacities(R, total_counters=R * K),
+                       device=device)
+    else:
+        router = bk.HashShardRouter(R, 20)
+        bank = bk.init(K, R, device=device)
     for i in range(n_warm):
         it, w = _block(stream, i * B, B, torch, device)
         bank = block_update_with(fused_update_ref, bank,
@@ -495,8 +552,9 @@ def case_block(R, K, variant, state, block, device, seed, B=65536):
         # third of the rest take distinct ids outside the stream's universe
         # with small counts and errors
         g = torch.Generator(device=device).manual_seed(seed)
-        empty = (bank.ids == -1) | (torch.rand(
+        empty = (bank.ids == -1) | ((torch.rand(
             bank.ids.shape, generator=g, device=device) < 0.3)
+            & (bank.ids != BLOCKED))
         fresh = (1 << 21) + torch.arange(bank.ids.numel(), device=device,
                                          dtype=torch.int32).view_as(bank.ids)
         c = torch.randint(1, 6, bank.ids.shape, generator=g, device=device,
@@ -551,9 +609,10 @@ def split_case(E, k, variant, state, block, device, seed):
         return drain_split(E, k, variant, state, device, seed)
     bank, it, w, router = case_block(E, k, variant, state, block, device,
                                      seed)
-    if E == 1:
+    if E == 1 and block != "dyadic":
         return split_operands(bank, it[None], w[None], variant, False)
-    return split_operands(bank, *router.route_dense(it, w), variant, True)
+    ri, rw = router.route_dense(it, w)    # rw: (1, B) for the dyadic router
+    return split_operands(bank, ri, rw.expand(ri.shape), variant, True)
 
 
 def serial_case(_, k, variant, state, block, device, seed):
@@ -703,18 +762,21 @@ def padded_blocks(stream, block):
 
 
 def initial_bank(spec, device):
-    """The spec's empty state as an (R, k) bank (R = 1 when unsharded)."""
+    """The spec's empty state as an (R, k) bank (``_bank_of``)."""
     from repro_torch.sketch import api
-    from repro_torch.sketch.state import SketchState
 
-    state = api.make(spec, device)
-    return state.bank if spec.shards else SketchState(*(t[None] for t in state))
+    return _bank_of(api.make(spec, device))
 
 
 def _router(spec, bank):
-    from repro_torch.sketch.bank import HashShardRouter
+    """The router the spec's adapter routes a block with."""
+    from repro_torch.sketch import bank as bk
 
-    return HashShardRouter(bank.ids.shape[0], spec.bits)
+    if spec.kind == "quantile":
+        if spec.shards:
+            return bk.ShardLevelRouter(spec.bits, spec.shards)
+        return bk.DyadicLevelRouter(spec.bits)
+    return bk.HashShardRouter(bank.ids.shape[0], spec.bits)
 
 
 # Each path's kernel operands for one raw block (it, w) on the (R, k) bank.
@@ -733,6 +795,11 @@ def banked_path(spec, bank, it, w):
 
 
 def split_path(spec, bank, it, w):
+    if spec.kind == "quantile":
+        # the layers as stacked sketches, each with the shared weight row
+        ri, rw = _router(spec, bank).route_dense(it, w)
+        return split_operands(bank, ri, rw.expand(ri.shape), spec.variant_id,
+                              True)
     if spec.shards:
         return split_operands(bank, *_router(spec, bank).route_dense(it, w),
                               spec.variant_id, True)
@@ -782,7 +849,10 @@ def run_session(spec, stream, block, device):
     seconds of the other blocks, and the first block's ms with the device
     memory it kept reserved (the graph's memory pool and its static
     buffers, where it captured), beside the host ms per block that
-    ``ingest``'s validation of the other blocks takes alone."""
+    ``ingest``'s validation of the other blocks takes alone (that call
+    finds the session's positive mass at 0: the first block went in
+    without validation) and takes against the first block's positive
+    mass, as a later call on a session does (the per-item net check)."""
     import numpy as np
     import torch
     from repro_torch.sketch import api
@@ -804,10 +874,15 @@ def run_session(spec, stream, block, device):
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     # the host's share: ingest validates the whole call before its blocks
-    t0 = time.perf_counter()
-    api.validate_block(spec, stream[block:, 0], stream[block:, 1])
-    first["validate_ms_per_block"] = ((time.perf_counter() - t0) * 1e3
-                                      / (sess.blocks_ingested - 1))
+    rest = stream[block:]
+    prior = api.validate_block(spec, stream[:block, 0], stream[:block, 1])
+    for key, prior_mass in (("validate_ms_per_block", 0),
+                            ("validate_prior_ms_per_block", prior)):
+        t0 = time.perf_counter()
+        api.validate_block(spec, rest[:, 0], rest[:, 1],
+                           prior_mass=prior_mass)
+        first[key] = ((time.perf_counter() - t0) * 1e3
+                      / (sess.blocks_ingested - 1))
     return sess, secs, first
 
 
@@ -891,8 +966,7 @@ def run_path(label, spec, stream, block, device, factor, kernel, path, plain,
         raise SystemExit(f"{label}: the session did not run its CUDA graph")
     bank, last, plain_secs = run_plain(spec, stream, block, device, path,
                                        plain, at)
-    live = sess.state.bank if spec.shards else type(bank)(
-        *(t[None] for t in sess.state))
+    live = _bank_of(sess.state)
     if not _same(live, bank):
         raise SystemExit(f"{label}: the session's bank differs from the "
                          f"plain version's")
@@ -957,18 +1031,21 @@ def run_ops_path(label, spec, stream, block, device, factor, kernel, path,
 
 
 def _bank_of(state):
-    """The (R, k) bank of a session state (R = 1 when unsharded)."""
+    """The (R, k) bank of a state: R = 1 for a plain sketch, the shards
+    or the layers, or the S * bits rows of a sharded quantile bank."""
     from repro_torch.sketch.state import SketchState
 
+    if hasattr(state, "flat_bank"):
+        return state.flat_bank
     if hasattr(state, "bank"):
         return state.bank
     return SketchState(*(t[None] for t in state))
 
 
-def run_fed(label, stream, block, device, want, feed):
+def run_fed(label, stream, block, device, want, feed, layout="staged"):
     """``feed(items, weights)`` ingests the padded blocks (each a host
     array) and returns the (R, k) bank, which must equal ``want`` bit for
-    bit, with one staged launch of kernel 1 per block and no other
+    bit, with one launch of kernel 1 per block on ``layout`` and no other
     kernel. Returns the run's record."""
     import torch
 
@@ -981,7 +1058,7 @@ def run_fed(label, stream, block, device, want, feed):
     secs = time.perf_counter() - t0
     launches = check_launches(label, read_counts(),
                               "sketch_update_kernel_fused", len(items),
-                              "staged")
+                              layout)
     if not _same(bank, want):
         raise SystemExit(f"{label}: the bank differs from the main run's")
     out = dict(label=label, blocks=len(items), launches=launches,
@@ -1063,6 +1140,408 @@ def merge_phase(spec, main, stream, block, device, main_stream) -> dict:
                merged_items_above_bound=n_hot,
                consolidated_live=int((cons.ids >= 0).sum()))
     log(f"merge and consolidate: {json.dumps(out)}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 4, the quantile kind: Dyadic SpaceSaving± on kernels 1-3
+# ---------------------------------------------------------------------------
+
+Q_BITS = 24
+QUANTILE_BLOCKS = 32          # the quantile sspm, block and bank runs
+QUANTILE_LAZY_BLOCKS = 16
+QUANTILE_SHARDED_BLOCKS = 8
+# the sspm, lazy and sharded runs are held to the plain versions over all
+# their blocks; the block and bank runs, whose banks must equal the sspm
+# run's, over their first 8 (their plain chains cost 0.1-1 s a block at
+# K = 96,000)
+QUANTILE_PLAIN_BLOCKS = 8
+RANK_POINTS = 4097
+QUANTILE_QS = (0.0, *(i / 100 for i in range(1, 100)), 1.0)
+
+
+def quantile_specs(bits=Q_BITS):
+    """The quantile runs' specs: sspm, a value or latency monitor over a
+    2^bits bucket universe at 0.1 % rank error in the paper's alpha = 2
+    regime (§4.2 sizing: 96,000 counters a layer at bits = 24), on the
+    ``kernel``, ``block`` and ``bank`` backends; lazy at eps = 1e-2; and
+    the shard × level bank, 8 shards of the sspm sizing, on ``bank``."""
+    import dataclasses
+
+    from repro_torch.sketch.api import SketchSpec
+
+    sspm = SketchSpec(kind="quantile", bits=bits, eps=1e-3, alpha=2.0,
+                      variant="sspm", backend="kernel")
+    return dict(sspm=sspm,
+                lazy=dataclasses.replace(sspm, eps=1e-2, variant="lazy"),
+                block=dataclasses.replace(sspm, backend="block"),
+                bank=dataclasses.replace(sspm, backend="bank"),
+                sharded=dataclasses.replace(sspm, shards=8, backend="bank"))
+
+
+def check_layers(spec, bank, stream, device, factor):
+    """Every (shard,) layer row of a quantile bank (``_bank_of``'s rows,
+    row = s * bits + l) against the exact frequencies of ``x >> l``: each
+    node's error within ``factor * I_row / k_l`` (Thm 4, SS±: factor 2;
+    Thm 2, Lazy: 1; I_row the inserts whose level-l node the row owns,
+    k_l the layer's live capacity, ``spec.layer_capacities()``), every
+    node above it monitored, no node in two slots or in a row that does
+    not own it. Returns (worst error over bound, nodes above bound)."""
+    import torch
+    from repro_torch.sketch.bank import shard_of
+
+    bits, S = spec.bits, spec.shards or 1
+    caps = spec.layer_capacities()
+    items = torch.as_tensor(stream[:, 0], device=device).long()
+    signs = torch.as_tensor(stream[:, 1], device=device).long()
+    ins = signs > 0
+    ids = bank.ids.reshape(S, bits, -1)
+    counts = bank.counts.reshape(S, bits, -1).long()
+    s_ids = torch.sort(ids, dim=-1).values
+    if bool(((s_ids[..., 1:] == s_ids[..., :-1]) & (s_ids[..., 1:] >= 0))
+            .any()):
+        raise SystemExit("a node is monitored by two slots of a row")
+    worst_ratio, n_hot = 0.0, 0
+    for l in range(bits):
+        U = 1 << (bits - l)
+        nodes = items >> l
+        freq = torch.zeros(U, dtype=torch.long, device=device).index_add_(
+            0, nodes, signs)
+        owner = shard_of(torch.arange(U, device=device), S).long()
+        row_ids, row_counts = ids[:, l], counts[:, l]
+        live = row_ids >= 0
+        shard = torch.arange(S, device=device)[:, None].expand_as(row_ids)
+        if bool((owner[row_ids[live].long()] != shard[live]).any()):
+            raise SystemExit(f"layer {l}: a row monitors a node it does not "
+                             f"own")
+        est = torch.zeros(U, dtype=torch.long, device=device)
+        est[row_ids[live].long()] = row_counts[live]
+        ins_row = torch.zeros(S, dtype=torch.float64, device=device)
+        ins_row.index_add_(0, owner[nodes[ins]], torch.ones(
+            int(ins.sum()), dtype=torch.float64, device=device))
+        bound = factor * ins_row / caps[l]
+        err = (est - freq).abs().double()
+        worst = torch.zeros(S, dtype=torch.float64, device=device)
+        worst = worst.scatter_reduce(0, owner, err, "amax")
+        if bool((worst > bound).any()):
+            r = int(torch.argmax(worst - bound))
+            raise SystemExit(f"layer {l}, shard {r}: error {float(worst[r])} "
+                             f"> bound {float(bound[r])}")
+        hot = freq.double() > bound[owner]
+        if bool((hot & (est <= 0)).any()):
+            raise SystemExit(f"layer {l}: a node above the error bound is "
+                             f"not monitored")
+        ratio = torch.where(bound > 0, worst / bound, 0.0)
+        worst_ratio = max(worst_ratio, float(ratio.max()))
+        n_hot += int(hot.sum())
+    return worst_ratio, n_hot
+
+
+def exact_ranks(stream, bits):
+    """rank(x) = |{v <= x}| of the stream's final multiset, for every x in
+    [0, 2^bits)."""
+    import numpy as np
+
+    freq = np.bincount(stream[:, 0], weights=stream[:, 1],
+                       minlength=1 << bits)
+    return np.cumsum(freq.astype(np.int64))
+
+
+def rank_grid(cum, n=RANK_POINTS):
+    """n query points: the live values' quantiles at n - 2 evenly spaced
+    q (the smallest x with rank(x) >= q·|F|₁, at least the smallest live
+    value), then 0 and the universe's last value."""
+    import numpy as np
+
+    mass = int(cum[-1])
+    targets = np.maximum(np.linspace(0.0, 1.0, n - 2) * mass, 1)
+    xs = np.minimum(np.searchsorted(cum, targets), len(cum) - 1)
+    return np.concatenate([[0], xs, [len(cum) - 1]]).astype(np.int32)
+
+
+def check_ranks(label, est, xs, cum, eps) -> float:
+    """Every estimated rank within eps·|F|₁ of the exact one; returns the
+    worst error over that bound."""
+    import numpy as np
+
+    limit = eps * int(cum[-1])
+    err = np.abs(np.asarray(est, np.int64) - cum[xs])
+    if (err > limit).any():
+        i = int(np.argmax(err))
+        raise SystemExit(f"{label}: rank({xs[i]}) = {est[i]}, exact "
+                         f"{cum[xs[i]]}: off by {err[i]} > eps·|F|1 = "
+                         f"{limit}")
+    return float(err.max() / limit) if limit else 0.0
+
+
+def check_quantiles(label, got, qs, cum, eps) -> None:
+    """Each returned x_q within eps·|F|₁ in rank of its target q·|F|₁
+    (formed in float32, as the sketch forms it): rank(x_q) >= target -
+    eps·|F|₁ and rank(x_q - 1) < target + eps·|F|₁."""
+    import numpy as np
+
+    mass = int(cum[-1])
+    limit = eps * mass
+    targets = np.asarray(qs, np.float32) * np.float32(mass)
+    for q, x, t in zip(qs, np.asarray(got, np.int64), targets.astype(float)):
+        below = cum[x - 1] if x > 0 else 0
+        if not (0 <= x < len(cum) and cum[x] >= t - limit
+                and below < t + limit):
+            raise SystemExit(f"{label}: quantile({q}) = {x} is not within "
+                             f"eps·|F|1 = {limit} in rank of {t}")
+
+
+def _state_to(state, device):
+    """A quantile state's copy on ``device``."""
+    from repro_torch.sketch.state import SketchState
+
+    return type(state)(bank=SketchState(*(t.to(device) for t in state.bank)),
+                       mass=state.mass.to(device))
+
+
+def quantile_queries(label, spec, state, stream, device, reps=3) -> dict:
+    """``rank_many`` on ``rank_grid``'s points and ``quantile_many`` at
+    QUANTILE_QS, each within eps·|F|₁ of the exact ranks, each equal to
+    the same query of a CPU copy of the state, and the rank check shown
+    to reject a planted fault (one rank off by more than the bound).
+    Times: ms per call, the median of ``reps``."""
+    import numpy as np
+    import torch
+    from repro_torch.sketch import api
+
+    cum = exact_ranks(stream, spec.bits)
+    if int(state.mass) != int(cum[-1]):
+        raise SystemExit(f"{label}: mass {int(state.mass)}, exact "
+                         f"{int(cum[-1])}")
+    xs = rank_grid(cum)
+    out = {}
+    for name, call, arg in (("rank_many", api.rank_many, xs),
+                            ("quantile_many", api.quantile_many,
+                             QUANTILE_QS)):
+        ms = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = call(spec, state, arg)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        want = call(spec, _state_to(state, "cpu"), arg)
+        if not torch.equal(got.cpu(), want):
+            raise SystemExit(f"{label}: {name} on the card differs from the "
+                             f"CPU's")
+        out[f"{name}_ms"] = sorted(ms)[reps // 2]
+        out[name] = got.cpu().numpy()
+    eps = spec.eps
+    out["rank_err_over_bound"] = check_ranks(label, out["rank_many"], xs, cum,
+                                             eps)
+    check_quantiles(label, out["quantile_many"], QUANTILE_QS, cum, eps)
+    planted = out["rank_many"].astype(np.int64)
+    mid = len(xs) // 2
+    planted[mid] = cum[xs[mid]] + math.floor(eps * int(cum[-1])) + 1
+    try:
+        check_ranks(f"{label} (planted)", planted, xs, cum, eps)
+    except SystemExit:
+        pass
+    else:
+        raise SystemExit(f"{label}: the rank check let a planted fault pass")
+    del out["rank_many"], out["quantile_many"]
+    return dict(out, points=len(xs), qs=len(QUANTILE_QS),
+                mass=int(cum[-1]))
+
+
+def run_quantile(label, spec, stream, block, device, factor, kernel, path,
+                 plain, layout, n_plain):
+    """One quantile session run: ``StreamSession.ingest`` of the stream
+    (through the captured ingest), one launch of ``kernel`` a block on
+    ``layout`` and no other kernel or layout, the session's bank equal to
+    the same blocks through the plain versions (or, where ``n_plain`` is
+    below the run's blocks, the kernel and the plain versions on the
+    path's framework side over the first ``n_plain`` blocks), and every
+    layer's bound. Returns the record and the session."""
+    from repro_torch.kernels.sketch_update import kernel as kernels
+
+    reset_counts()
+    sess, secs, first = run_session(spec, stream, block, device)
+    launches = check_launches(label, read_counts(), kernel,
+                              sess.blocks_ingested, layout)
+    if device.type == "cuda" and sess._compiled.graph is None:
+        raise SystemExit(f"{label}: the session did not run its CUDA graph")
+    n = min(n_plain, sess.blocks_ingested)
+    want, _, plain_secs = run_plain(spec, stream[:n * block], block, device,
+                                    path, plain)
+    if n == sess.blocks_ingested:
+        got = _bank_of(sess.state)
+    else:
+        got, _, _ = run_plain(spec, stream[:n * block], block, device, path,
+                              getattr(kernels, kernel))
+    if not _same(got, want):
+        raise SystemExit(f"{label}: the bank after {n} blocks differs from "
+                         f"the plain versions'")
+    bank = _bank_of(sess.state)
+    ratio, n_hot = check_layers(spec, bank, stream, device, factor)
+    rest = sess.blocks_ingested - 1
+    out = dict(label=label, kernel=kernel, layout=layout,
+               blocks=sess.blocks_ingested, launches=launches,
+               events=len(stream), rows=bank.ids.shape[0],
+               k_per_row=bank.ids.shape[1],
+               live_counters=int((bank.ids != -2).sum()),
+               bank_mb=3 * bank.ids.numel() * 4 / 1e6,
+               ms_per_block=secs * 1e3 / rest,
+               updates_per_s=(len(stream) - block) / secs, **first,
+               plain_blocks=n, plain_ms_per_block=plain_secs * 1e3 / n,
+               worst_err_over_bound=ratio, nodes_above_bound=n_hot)
+    log(f"{label}: {json.dumps(out)}")
+    return out, sess
+
+
+def quantile_phase(specs, streams, block, device, hold=QUANTILE_PLAIN_BLOCKS):
+    """The quantile runs (``quantile_specs``) on the streams ``main`` (the
+    sspm, block, bank and stream runs), ``lazy`` and ``sharded``, each
+    checked by ``run_quantile``, over all its blocks or (block and bank)
+    its first ``hold``; the block and bank banks and the stream
+    entry's (``ops.sketch_block_update_stream`` with a
+    ``DyadicLevelRouter``) equal to the sspm run's, bit for bit; ranks
+    and quantiles of the sspm, lazy and sharded states
+    (``quantile_queries``); the sspm state merged with a state of the
+    lazy stream on the sspm spec, on the card and on CPU copies (equal,
+    and within the summed bound); ``consolidate`` of the sharded state
+    equal to the CPU's. Returns (runs, extra records, each run's final
+    (R, k) bank and its next block's raw items and weights for the
+    kernel times)."""
+    import torch
+    from repro_torch.kernels.sketch_update import ref
+    from repro_torch.kernels.sketch_update.ops import \
+        sketch_block_update_stream
+    from repro_torch.sketch import api
+
+    fused, banked = "sketch_update_kernel_fused", \
+        "sketch_residual_kernel_banked"
+    split = "sketch_residual_kernel"
+    every = 1 << 30
+    plan = (
+        ("sspm", "main", QUANTILE_BLOCKS, every, 2.0, fused, fused_path,
+         ref.fused_update_ref),
+        ("lazy", "lazy", QUANTILE_LAZY_BLOCKS, every, 1.0, fused, fused_path,
+         ref.fused_update_ref),
+        ("block", "main", QUANTILE_BLOCKS, hold, 2.0, split, split_path,
+         ref.residual_phase),
+        ("bank", "main", QUANTILE_BLOCKS, hold, 2.0, banked, banked_path,
+         ref.residual_phase_banked),
+        ("sharded", "sharded", QUANTILE_SHARDED_BLOCKS, every, 2.0, banked,
+         banked_path, ref.residual_phase_banked),
+    )
+    from repro_torch.kernels.sketch_update import kernel as k_
+
+    layouts = {fused: lambda R, K: k_.fused_layout(K),
+               banked: lambda R, K: k_.banked_layout(K),
+               split: lambda R, K: k_.residual_layout(-(-K // 128))}
+    runs, sessions, finals, extra = {}, {}, {}, {}
+    for name, src, n_blocks, n_plain, factor, kernel, path, plain in plan:
+        spec = specs[name]
+        stream = streams[src][:n_blocks * block]
+        bank0 = initial_bank(spec, device)
+        layout = layouts[kernel](*bank0.ids.shape)
+        label = f"quantile {name}"
+        runs[name], sessions[name] = run_quantile(
+            label, spec, stream, block, device, factor, kernel, path, plain,
+            layout, min(n_plain, n_blocks))
+        bank = _bank_of(sessions[name].state)
+        finals[name] = (type(bank)(*(t.clone() for t in bank)),
+                        padded_blocks(streams[src][n_blocks * block:
+                                                   (n_blocks + 1) * block],
+                                      block))
+        if name in ("block", "bank") and not _same(
+                bank, _bank_of(sessions["sspm"].state)):
+            raise SystemExit(f"{label}: the bank differs from the quantile "
+                             f"sspm run's")
+        if name in ("sspm", "lazy", "sharded"):
+            extra[f"queries {name}"] = quantile_queries(
+                label, spec, sessions[name].state, stream, device)
+            log(f"{label} queries: {json.dumps(extra[f'queries {name}'])}")
+    sspm = specs["sspm"]
+    main = streams["main"][:QUANTILE_BLOCKS * block]
+
+    def streamed(items, weights):
+        bank = initial_bank(sspm, device)
+        return sketch_block_update_stream(
+            bank, torch.as_tensor(items, device=device),
+            torch.as_tensor(weights, device=device), _router(sspm, bank),
+            sspm.variant_id)
+
+    extra["quantile stream"] = run_fed(
+        "quantile sketch_block_update_stream", main, block, device,
+        _bank_of(sessions["sspm"].state), streamed, runs["sspm"]["layout"])
+    # merge: the sspm state and a state of the lazy stream on the sspm spec
+    lazy_stream = streams["lazy"][:QUANTILE_LAZY_BLOCKS * block]
+    other, _, _ = run_session(sspm, lazy_stream, block, device)
+    a, b = sessions["sspm"].state, other.state
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    merged = api.merge(sspm, a, b)
+    torch.cuda.synchronize()
+    merge_ms = (time.perf_counter() - t0) * 1e3
+    want = api.merge(sspm, _state_to(a, "cpu"), _state_to(b, "cpu"))
+    if not (_same(_state_to(merged, "cpu").bank, want.bank)
+            and int(merged.mass) == int(want.mass)):
+        raise SystemExit("quantile merge on the card differs from the CPU's")
+    import numpy as np
+
+    ratio, n_hot = check_layers(sspm, merged.bank,
+                                np.concatenate([main, lazy_stream]), device,
+                                2.0)
+    sharded = sessions["sharded"]
+    t0 = time.perf_counter()
+    cons = sharded.consolidated()
+    torch.cuda.synchronize()
+    consolidate_ms = (time.perf_counter() - t0) * 1e3
+    want = api.consolidate(specs["sharded"], _state_to(sharded.state, "cpu"))
+    if not (_same(_state_to(cons, "cpu").bank, want.bank)
+            and int(cons.mass) == int(want.mass)):
+        raise SystemExit("quantile consolidate on the card differs from the "
+                         "CPU's")
+    extra["quantile merge"] = dict(
+        merge_ms=merge_ms, merged_worst_err_over_bound=ratio,
+        merged_nodes_above_bound=n_hot, consolidate_ms=consolidate_ms,
+        consolidated_live=int((cons.bank.ids >= 0).sum()))
+    log(f"quantile merge and consolidate: "
+        f"{json.dumps(extra['quantile merge'])}")
+    return runs, extra, finals
+
+
+def quantile_times(specs, finals, device) -> dict:
+    """Kernels 1-3 at the quantile runs' shapes, on each run's next block
+    from its final bank (``time_kernel``: device ms, the plain version's
+    ms, the bound, evictions and drain steps, us per eviction)."""
+    import torch
+    from repro_torch.kernels.sketch_update import kernel, ref
+
+    grid = (
+        ("sketch_update_kernel_fused sspm", "sspm", fused_path,
+         kernel.sketch_update_kernel_fused, ref.fused_update_ref, fused_bound,
+         10),
+        ("sketch_update_kernel_fused lazy", "lazy", fused_path,
+         kernel.sketch_update_kernel_fused, ref.fused_update_ref, fused_bound,
+         10),
+        ("sketch_residual_kernel block", "block", split_path,
+         kernel.sketch_residual_kernel, ref.residual_phase, split_bound, 10),
+        ("sketch_residual_kernel_banked bank", "bank", banked_path,
+         kernel.sketch_residual_kernel_banked, ref.residual_phase_banked,
+         banked_bound, 10),
+        ("sketch_residual_kernel_banked sharded", "sharded", banked_path,
+         kernel.sketch_residual_kernel_banked, ref.residual_phase_banked,
+         banked_bound, 4),
+    )
+    out = {}
+    for label, name, path, run, plain, bound, reps in grid:
+        spec = specs[name]
+        bank, (items, weights) = finals[name]
+        it = torch.as_tensor(items[0], device=device)
+        w = torch.as_tensor(weights[0], device=device)
+        last = path(spec, bank, it, w)
+        out[label] = time_kernel(run, plain, last, spec.variant_id, bound,
+                                 reps, 1)
+        out[label]["shape"] = list(last[0][0].shape)
+        log(f"{label} at the quantile shapes: {json.dumps(out[label])}")
     return out
 
 
@@ -1925,6 +2404,14 @@ def main() -> int:
 
     import torch
 
+    start = time.perf_counter()
+    elapsed = {}
+
+    def phase_done(name):
+        """Seconds since the start at the end of each phase (logged)."""
+        elapsed[name] = time.perf_counter() - start
+        log(f"-- {name} done: {elapsed[name]:.1f} s since the start")
+
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one",
               file=sys.stderr)
@@ -1953,7 +2440,9 @@ def main() -> int:
     log(f"build: {time.perf_counter() - t0:.1f} s "
         f"({len(sources)} sources in parallel)")
 
+    phase_done("build")
     worst = check_all_cases(device)
+    phase_done("kernel cases")
 
     B = 65536
     main_spec = SketchSpec(kind="frequency", eps=1e-5, alpha=2.0,
@@ -2019,6 +2508,14 @@ def main() -> int:
         "serial sspm k=4000", serial_spec, make_stream(8, B, seed=5), B,
         device, 2.0, "sketch_update_kernel_serial", serial_path, serial)
 
+    phase_done("frequency runs")
+    q_specs = quantile_specs()
+    q_streams = dict(main=main_stream, sharded=main_stream,
+                     lazy=make_stream(QUANTILE_LAZY_BLOCKS + 1, B, seed=8))
+    q_runs, q_extra, q_finals = quantile_phase(q_specs, q_streams, B, device)
+    phase_done("quantile runs")
+    runs.update({f"quantile {name}": r for name, r in q_runs.items()})
+
     times = {
         fused: time_kernel(kernel.sketch_update_kernel_fused,
                            ref.fused_update_ref, last["main"], 2,
@@ -2053,9 +2550,12 @@ def main() -> int:
         f"{json.dumps(times_lazy)}")
     serial_by_path = serial_paths(last["serial"], B)
     log(f"sketch_update_kernel_serial by path: {json.dumps(serial_by_path)}")
+    q_times = quantile_times(q_specs, q_finals, device)
+    phase_done("kernel times")
     prof = {label: profile_blocks(spec, B, 8, seed=3, device=device)
             for label, spec in (("main", main_spec), ("lazy", lazy_spec),
-                                ("path_a", a_spec), ("path_b", b_spec))}
+                                ("path_a", a_spec), ("path_b", b_spec),
+                                ("quantile", q_specs["sspm"]))}
     log(f"profile of the sessions: {json.dumps(prof)}")
     for label, p in prof.items():
         log(f"profile {label}: " + "; ".join(
@@ -2065,7 +2565,9 @@ def main() -> int:
             f"{p[way]['device_idle_share']}, host launch "
             f"{p[way]['host_cuda_ms_per_block']['launch']:.3f} ms/block"
             for way in ("eager", "captured")))
+    phase_done("profiles")
     attention_entries, attention = attention_phase(device)
+    phase_done("attention")
 
     replaces = {fused: 144, "sketch_residual_kernel_banked": 278,
                 split: 220, "sketch_update_kernel_serial": 396}
@@ -2103,7 +2605,8 @@ def main() -> int:
         kernel_times=times,
         fused_times_lazy_block=times_fused_lazy,
         residual_times_path_b=times_b, residual_times_lazy_block=times_lazy,
-        serial_paths=serial_by_path,
+        serial_paths=serial_by_path, quantile=q_extra, elapsed_s=elapsed,
+        quantile_kernel_times=q_times,
         profile=prof, attention=attention,
         kernels=kernels), indent=1))
     print(json.dumps({"kernels": kernels}))

@@ -1,7 +1,8 @@
 """State carried between the reference package and the port.
 
 The interchange is the reference's ``api.save`` dict: numpy arrays
-with the integer ``layout`` tag (``repro/sketch/api.py:450, :497``).
+with the integer ``layout`` tag (``repro/sketch/api.py:450, :497``),
+for the frequency and the quantile kinds (the latter with its ``mass``).
 Both packages save and restore that layout, so a checkpoint written by
 either loads in the other and both compute the same thing from it.
 """
@@ -14,18 +15,31 @@ import numpy as np
 from .platform import DEFAULT_DEVICE
 from .sketch import api
 from .sketch.api import SketchSpec
+from .sketch.state import BLOCKED
 
 
 def spec_for(d: Dict[str, Any], variant: str = "sspm",
              bits: Optional[int] = None) -> SketchSpec:
-    """The frequency spec whose layout a checkpoint dict holds.
+    """The spec whose layout a checkpoint dict holds.
 
-    The dict does not record the variant or the universe bound (the
-    state is the same for both), so the caller names them.
+    The dict does not record the variant or the sizing (the state is the
+    same for both variants), so the caller names the variant. A
+    quantile dict (tagged so, or untagged with a ``mass``) gives
+    ``kind="quantile"`` with ``bits`` its layer count and ``k`` one
+    shard's live counters; a frequency dict gives ``k`` its slot count
+    and the caller's ``bits``.
     """
+    ids = np.asarray(d["ids"])
     shards = int(np.asarray(d["shards"])) if "shards" in d else None
-    k = int(np.asarray(d["ids"]).size)
-    spec = SketchSpec(k=k, variant=variant, shards=shards or None, bits=bits)
+    probe = api.infer_spec(SketchSpec(k=1, bits=bits), d)
+    if probe.kind == "quantile":
+        k = int((ids != BLOCKED).sum()) // (shards or 1)
+        spec = SketchSpec(kind="quantile", k=k, variant=variant,
+                          shards=shards or None, bits=ids.shape[-2],
+                          backend="bank" if shards else "kernel")
+    else:
+        spec = SketchSpec(k=int(ids.size), variant=variant,
+                          shards=shards or None, bits=bits)
     return api.infer_spec(spec, d)
 
 

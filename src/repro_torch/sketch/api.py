@@ -1,13 +1,20 @@
 """One spec-driven front-end over the port's SpaceSaving± layouts.
 
-Counterpart of ``repro/sketch/api.py`` for the layouts this port has:
-``kind="frequency"`` with ``variant`` "sspm" or "lazy", plain
-(``shards=None``) or hash-sharded (``shards=S``), on the fused-kernel
-backend (``"kernel"``) or the two-phase block backend (``"block"``).
-``SketchSpec`` keeps the reference's field names; every other value
-raises ``NotImplementedError`` naming the ROADMAP.md item that
-ports it. Checkpoints are the reference's tagged numpy dicts, so a
-state saved by either package restores in the other.
+Counterpart of ``repro/sketch/api.py`` for the layouts this port has,
+each with ``variant`` "sspm" or "lazy":
+
+- ``kind="frequency"``, plain (``shards=None``) or hash-sharded
+  (``shards=S``), on the fused-kernel backend (``"kernel"``) or the
+  two-phase block backend (``"block"``);
+- ``kind="quantile"`` (Dyadic SpaceSaving±, ``sketch/dyadic.py``) on
+  ``"kernel"``, ``"bank"`` (the dense core) or ``"block"``, and its
+  shard × level bank (``shards=S``, ``sketch/dyadic_sharded.py``) on
+  ``"bank"``, with the rank and quantile queries.
+
+``SketchSpec`` keeps the reference's field names; a value the reference
+has and the port lacks raises ``NotImplementedError`` naming the
+ROADMAP.md item that ports it. Checkpoints are the reference's tagged
+numpy dicts, so a state saved by either package restores in the other.
 """
 from __future__ import annotations
 
@@ -17,10 +24,14 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..core.quantiles import dyadic_layer_capacities
 from ..core.spacesaving import capacity_for
 from ..kernels.sketch_update.ops import sketch_block_update_fused
 from ..platform import DEFAULT_DEVICE, resolve_device
+from . import bank as bk
 from . import blocks
+from . import dyadic as dy
+from . import dyadic_sharded as dysh
 from . import sharded as shd
 from . import state as st
 from .bank import HashShardRouter
@@ -28,7 +39,9 @@ from .state import VARIANT_LAZY, VARIANT_SSPM, SketchState
 
 KINDS = ("frequency", "quantile")
 VARIANTS = {"sspm": VARIANT_SSPM, "lazy": VARIANT_LAZY}
-BACKENDS = ("block", "kernel")
+# the reference's backend values (api.py:73); backends_for says which a
+# layout runs in the port
+BACKENDS = ("bank", "block", "kernel", "serial")
 
 # the reference's integer layout tags (api.py:79-82)
 LAYOUT_FREQUENCY = 1
@@ -38,12 +51,11 @@ LAYOUT_CRPRECIS = 4
 
 _FAMILY = "ROADMAP.md Queue 1 item 11 (sketch/family.py)"
 _NOT_PORTED = {
-    "quantile": "ROADMAP.md Queue 1 item 9 (sketch/dyadic.py)",
     "double": _FAMILY,
     "unbiased": _FAMILY,
     "crprecis": _FAMILY,
     "tenants": "ROADMAP.md Queue 1 item 12 (sketch/tenant.py)",
-    "bank": "ROADMAP.md Queue 1 item 5 (bank.update_block_fused, the "
+    "bank": "ROADMAP.md Queue 1 item 5 (bank._fused_partition, the "
             "partition core)",
     "serial": "ROADMAP.md Queue 1 item 4 (blocks.block_update_serial, the "
               "serial backend)",
@@ -59,13 +71,15 @@ def _not_ported(what: str, key: str):
 class SketchSpec:
     """Frozen description of one SpaceSaving± summary.
 
-    Size with exactly one of ``k`` (total live counters, split per shard)
-    or ``eps`` (+ ``alpha``, the paper's Thm 2/4 prescription).
-    ``bits`` bounds the item universe to [0, 2^bits) and enables the
-    packed single-sort router. ``backend`` is "kernel" (the fused bank
-    update) or "block" (the two-phase block update, whose phase 2 is the
-    residual kernel): the CUDA kernel on the card, its plain PyTorch
-    version on the CPU. Both give the same state, bit for bit.
+    Size with exactly one of ``k`` (total live counters, split per shard,
+    or per layer for quantile kinds) or ``eps`` (+ ``alpha``, the paper's
+    Thm 2/4 and §4.2 prescriptions). ``bits`` bounds the item universe to
+    [0, 2^bits): required for quantile kinds (it fixes the layer count),
+    optional for frequency kinds (it enables the packed single-sort
+    router). ``backend`` picks the execution path, not the result: every
+    backend of a spec gives the same state, bit for bit, the CUDA kernels
+    on the card and their plain PyTorch versions on the CPU.
+    ``backends_for(kind, shards)`` lists what a layout runs.
     """
 
     kind: str = "frequency"
@@ -83,16 +97,19 @@ class SketchSpec:
         if self.kind not in KINDS:
             raise ValueError(
                 f"SketchSpec.kind must be one of {KINDS}, got {self.kind!r}")
-        if self.kind != "frequency":
-            _not_ported(f"kind={self.kind!r}", self.kind)
         if self.variant in ("double", "unbiased"):
+            if self.kind != "frequency":
+                raise ValueError(
+                    f"variant={self.variant!r} (the Double/unbiased "
+                    f"SpaceSaving± family) is a frequency-kind layout; "
+                    f"kind={self.kind!r} does not support it")
             _not_ported(f"variant={self.variant!r}", self.variant)
         if self.variant not in VARIANTS:
             raise ValueError(
                 f"SketchSpec.variant must be one of {tuple(VARIANTS)}, got "
                 f"{self.variant!r}")
-        if self.backend in _NOT_PORTED:
-            _not_ported(f"backend={self.backend!r}", self.backend)
+        if self.backend == "crprecis":
+            _not_ported("backend='crprecis'", "crprecis")
         if self.backend not in BACKENDS:
             raise ValueError(
                 f"SketchSpec.backend must be one of {BACKENDS}, got "
@@ -103,8 +120,22 @@ class SketchSpec:
             raise ValueError(
                 "size the spec with exactly one of k (total counters) or "
                 f"eps (+ alpha); got k={self.k}, eps={self.eps}")
+        if self.kind == "quantile" and self.bits is None:
+            raise ValueError(
+                "kind='quantile' needs bits (the dyadic universe bound "
+                "[0, 2^bits) fixes the layer count)")
         if self.shards is not None and self.shards < 1:
             raise ValueError(f"shards must be >= 1 or None, got {self.shards}")
+        supported = backends_for(self.kind, self.shards)
+        if self.backend not in supported:
+            if self.backend in _reference_backends(self.kind, self.shards):
+                _not_ported(f"backend={self.backend!r} for "
+                            f"kind={self.kind!r}", self.backend)
+            raise ValueError(
+                f"backend {self.backend!r} is not supported for "
+                f"kind={self.kind!r}, shards={self.shards}, "
+                f"variant={self.variant!r}, tenants={self.tenants}; "
+                f"supported: {supported}")
 
     @property
     def variant_id(self) -> int:
@@ -113,11 +144,38 @@ class SketchSpec:
 
     @property
     def capacity(self) -> int:
-        """Resolved total live-counter budget."""
+        """Resolved total live-counter budget of one frequency summary."""
+        if self.kind != "frequency":
+            raise ValueError(
+                "capacity is the frequency-kind budget; quantile kinds size "
+                "per layer — use layer_capacities()")
         if self.k is not None:
             return int(self.k)
         return capacity_for(self.eps, self.alpha,
                             "lazy" if self.variant == "lazy" else "ss_pm")
+
+    def layer_capacities(self) -> list:
+        """Per-layer counters of one quantile summary."""
+        if self.kind != "quantile":
+            raise ValueError("layer_capacities() applies to quantile kinds")
+        return dyadic_layer_capacities(
+            self.bits, total_counters=self.k, eps=self.eps, alpha=self.alpha)
+
+
+def _reference_backends(kind: str, shards: Optional[int]) -> Tuple[str, ...]:
+    """The backends the reference runs a base layout on (api.py:243)."""
+    return ("bank",) if kind == "quantile" and shards else BACKENDS
+
+
+def backends_for(kind: str, shards: Optional[int]) -> Tuple[str, ...]:
+    """The execution paths the port runs a (kind, sharded?) layout on:
+    quantile banks on the dense core (``"bank"``), and unsharded also on
+    the fused kernel and the block backend; frequency layouts on the
+    fused kernel and the block backend (their ``"bank"`` is the partition
+    core, ROADMAP.md Queue 1 item 5; ``"serial"`` is item 4)."""
+    if kind == "quantile":
+        return ("bank",) if shards else ("bank", "block", "kernel")
+    return ("block", "kernel")
 
 
 # ---------------------------------------------------------------------------
@@ -130,8 +188,9 @@ def validate_block(spec: SketchSpec, items, weights, *,
 
     Ids are non-negative ints (negative ids are sentinels) that fit
     int32; weight > 0 inserts, < 0 deletes, 0 pads; the block's weight
-    magnitudes sum within int32, and no item's net weight could carry a
-    counter already holding up to ``prior_mass`` past int32. Returns the
+    magnitudes sum within int32, no item's net weight could carry a
+    counter already holding up to ``prior_mass`` past int32, and for
+    quantile kinds every real item lies in [0, 2^bits). Returns the
     block's positive mass.
     """
     i_shape = np.shape(items)
@@ -190,11 +249,16 @@ def validate_block(spec: SketchSpec, items, weights, *,
                 f"{int(prior_mass)} positive mass: its counter could cross "
                 f"int32 max ({int32_max}). Split the block, rescale "
                 f"weights, or checkpoint-and-reset the session.")
+    if spec.kind == "quantile" and i64.size and i64.max() >= 1 << spec.bits:
+        bad = int(i_real[i64 >= 1 << spec.bits][0])
+        raise ValueError(
+            f"item {bad} is outside the dyadic universe [0, 2^{spec.bits}"
+            f"); raise SketchSpec.bits or bucket ids before ingest")
     return pos_mass
 
 
 # ---------------------------------------------------------------------------
-# Adapters: the plain and the hash-sharded frequency layouts
+# Adapters: the frequency and quantile layouts, plain and hash-sharded
 # ---------------------------------------------------------------------------
 
 def _fields(d, device) -> SketchState:
@@ -205,6 +269,39 @@ def _fields(d, device) -> SketchState:
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
+
+
+def _tagged(layout: int, bank: SketchState, **extra) -> Dict[str, Any]:
+    """A checkpoint dict: the layout tag, the bank's three fields as numpy
+    arrays, then ``extra`` (``mass``, ``shards``)."""
+    return {"layout": np.int32(layout), "ids": _to_numpy(bank.ids),
+            "counts": _to_numpy(bank.counts),
+            "errors": _to_numpy(bank.errors), **extra}
+
+
+def _shard_fields(spec, d, device) -> SketchState:
+    """A sharded checkpoint's fields, refused unless it holds the spec's
+    shard count."""
+    fields = _fields(d, device)
+    if fields.ids.shape[0] != spec.shards:
+        raise ValueError(
+            f"checkpoint has {fields.ids.shape[0]} shards, spec asks for "
+            f"{spec.shards}; restore with a matching spec (or consolidate "
+            f"first)")
+    return fields
+
+
+def _mass(d, device) -> torch.Tensor:
+    """A checkpoint's |F|_1 as a 0-d int32 tensor."""
+    return torch.as_tensor(np.asarray(d["mass"]).astype(np.int32).reshape(()),
+                           device=device)
+
+
+def _no_rank(spec: SketchSpec):
+    raise ValueError(
+        f"rank/quantile queries need kind='quantile'; this spec is "
+        f"kind={spec.kind!r}. Build a SketchSpec(kind='quantile', "
+        f"bits=..., ...) to get the dyadic bank.")
 
 
 class _FrequencyAdapter:
@@ -234,6 +331,11 @@ class _FrequencyAdapter:
     def topk(self, spec, state, m):
         return st.topk(state, m)
 
+    def rank_many(self, spec, state, xs):
+        _no_rank(spec)
+
+    quantile_many = rank_many
+
     def merge(self, spec, a, b):
         return st.merge(a, b)
 
@@ -241,10 +343,7 @@ class _FrequencyAdapter:
         return state
 
     def save(self, spec, state) -> Dict[str, Any]:
-        return {"layout": np.int32(LAYOUT_FREQUENCY),
-                "ids": _to_numpy(state.ids),
-                "counts": _to_numpy(state.counts),
-                "errors": _to_numpy(state.errors)}
+        return _tagged(LAYOUT_FREQUENCY, state)
 
     def restore(self, spec, d, device) -> SketchState:
         return _fields(d, device)
@@ -273,6 +372,11 @@ class _ShardedFrequencyAdapter:
     def topk(self, spec, state, m):
         return shd.topk(state, m)
 
+    def rank_many(self, spec, state, xs):
+        _no_rank(spec)
+
+    quantile_many = rank_many
+
     def merge(self, spec, a, b):
         return shd.merge(a, b)
 
@@ -280,27 +384,110 @@ class _ShardedFrequencyAdapter:
         return shd.consolidate(state)
 
     def save(self, spec, state) -> Dict[str, Any]:
-        return {"layout": np.int32(LAYOUT_FREQUENCY),
-                "ids": _to_numpy(state.bank.ids),
-                "counts": _to_numpy(state.bank.counts),
-                "errors": _to_numpy(state.bank.errors),
-                "shards": np.int32(spec.shards)}
+        return _tagged(LAYOUT_FREQUENCY, state.bank,
+                       shards=np.int32(spec.shards))
 
     def restore(self, spec, d, device) -> shd.ShardedSketch:
-        fields = _fields(d, device)
-        if fields.ids.shape[0] != spec.shards:
-            raise ValueError(
-                f"checkpoint has {fields.ids.shape[0]} shards, spec asks for "
-                f"{spec.shards}; restore with a matching spec")
-        return shd.ShardedSketch(bank=fields)
+        return shd.ShardedSketch(bank=_shard_fields(spec, d, device))
 
 
-_PLAIN = _FrequencyAdapter()
-_SHARDED = _ShardedFrequencyAdapter()
+class _DyadicAdapter:
+    """shards=None quantile: the (bits, k) dyadic layer bank."""
+
+    def make(self, spec, device) -> dy.DyadicState:
+        return dy.init(spec.bits, total_counters=spec.k, eps=spec.eps,
+                       alpha=spec.alpha, device=device)
+
+    def device_of(self, state) -> torch.device:
+        return state.bank.ids.device
+
+    def update(self, spec, state, items, weights):
+        return dy.update_block(state, items, weights, spec.variant_id,
+                               path=spec.backend)
+
+    def query_many(self, spec, state, items):
+        # leaf-layer reads: layer 0 monitors x >> 0 = x itself
+        return st.query_many(SketchState(*(t[0] for t in state.bank)), items)
+
+    def topk(self, spec, state, m):
+        # the leaf row through the BLOCKED-aware bank top-k
+        return bk.topk_bank(SketchState(*(t[:1] for t in state.bank)), m)
+
+    def rank_many(self, spec, state, xs):
+        return dy.rank_many(state, xs)
+
+    def quantile_many(self, spec, state, qs):
+        return dy.quantile_many(state, qs)
+
+    def merge(self, spec, a, b):
+        return dy.merge(a, b)
+
+    def consolidate(self, spec, state):
+        return state
+
+    def save(self, spec, state) -> Dict[str, Any]:
+        return _tagged(LAYOUT_QUANTILE, state.bank,
+                       mass=np.int32(int(state.mass)))
+
+    def restore(self, spec, d, device) -> dy.DyadicState:
+        return dy.DyadicState(bank=_fields(d, device), mass=_mass(d, device))
+
+
+class _DyadicShardedAdapter:
+    """shards=S quantile: the shard × level bank."""
+
+    def make(self, spec, device) -> dysh.DyadicShardedState:
+        return dysh.init(spec.bits, spec.shards, total_counters=spec.k,
+                         eps=spec.eps, alpha=spec.alpha, device=device)
+
+    def device_of(self, state) -> torch.device:
+        return state.bank.ids.device
+
+    def update(self, spec, state, items, weights):
+        return dysh.update_block(state, items, weights, spec.variant_id,
+                                 path="auto")
+
+    def query_many(self, spec, state, items):
+        # leaf-layer reads from each id's owner (shard, level 0) row
+        items = items.to(torch.int32)
+        leaf = SketchState(*(t[:, 0] for t in state.bank))
+        return bk.query_rows(leaf, bk.shard_of(items, state.num_shards),
+                             items)
+
+    def topk(self, spec, state, m):
+        return bk.topk_bank(SketchState(*(t[:, 0] for t in state.bank)), m)
+
+    def rank_many(self, spec, state, xs):
+        return dysh.rank_many(state, xs)
+
+    def quantile_many(self, spec, state, qs):
+        return dysh.quantile_many(state, qs)
+
+    def merge(self, spec, a, b):
+        return dysh.merge(a, b)
+
+    def consolidate(self, spec, state):
+        return dysh.consolidate(state)
+
+    def save(self, spec, state) -> Dict[str, Any]:
+        return _tagged(LAYOUT_QUANTILE, state.bank,
+                       mass=np.int32(int(state.mass)),
+                       shards=np.int32(spec.shards))
+
+    def restore(self, spec, d, device) -> dysh.DyadicShardedState:
+        return dysh.DyadicShardedState(bank=_shard_fields(spec, d, device),
+                                       mass=_mass(d, device))
+
+
+# (kind, sharded?) -> adapter
+_ADAPTERS = {("frequency", False): _FrequencyAdapter(),
+             ("frequency", True): _ShardedFrequencyAdapter(),
+             ("quantile", False): _DyadicAdapter(),
+             ("quantile", True): _DyadicShardedAdapter()}
 
 
 def adapter_for(spec: SketchSpec):
-    return _PLAIN if spec.shards is None else _SHARDED
+    return _ADAPTERS[(spec.kind, spec.shards is not None)]
 
 
 # ---------------------------------------------------------------------------
@@ -360,8 +547,35 @@ def query(spec: SketchSpec, state, item) -> torch.Tensor:
 
 
 def topk(spec: SketchSpec, state, m: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Top-m (ids, counts) heavy hitters by estimated count."""
+    """Top-m (ids, counts) heavy hitters by estimated count (of the leaf
+    layer for quantile kinds)."""
     return adapter_for(spec).topk(spec, state, m)
+
+
+def rank_many(spec: SketchSpec, state, xs) -> torch.Tensor:
+    """Estimated rank(x) = |{v <= x}| per query (quantile kinds only)."""
+    ad = adapter_for(spec)
+    return ad.rank_many(spec, state, _as_ids(xs, ad.device_of(state)))
+
+
+def rank(spec: SketchSpec, state, x) -> int:
+    return int(rank_many(spec, state, [x])[0])
+
+
+def quantile_many(spec: SketchSpec, state, qs) -> torch.Tensor:
+    """Smallest x with rank(x) >= q·|F|₁ per query (quantile kinds only);
+    the q values are taken as float32, as the reference takes them."""
+    ad = adapter_for(spec)
+    dev = ad.device_of(state)
+    if isinstance(qs, torch.Tensor):
+        qs = qs.to(device=dev, dtype=torch.float32)
+    else:
+        qs = torch.as_tensor(np.asarray(qs, np.float32), device=dev)
+    return ad.quantile_many(spec, state, qs)
+
+
+def quantile(spec: SketchSpec, state, q: float) -> int:
+    return int(quantile_many(spec, state, [q])[0])
 
 
 def merge(spec: SketchSpec, a, b):
@@ -385,30 +599,47 @@ def save(spec: SketchSpec, state) -> Dict[str, Any]:
 
 
 def infer_spec(spec: SketchSpec, d: Dict[str, Any]) -> SketchSpec:
-    """Adapt ``spec``'s shard count to a checkpoint dict (reference
-    ``api.py:812``); layouts this port lacks raise NotImplementedError."""
+    """Adapt ``spec``'s layout axes (kind, shards) to a checkpoint dict
+    (reference ``api.py:812``). An untagged dict is a quantile one where
+    it holds ``mass``; a quantile spec without ``bits`` takes them from
+    the dict's layer count. Where the stored layout does not run the
+    spec's backend, the backend becomes one it does. Layouts this port
+    lacks raise NotImplementedError."""
     tag = int(np.asarray(d["layout"])) if "layout" in d else None
-    if tag == LAYOUT_QUANTILE or (tag is None and "mass" in d):
-        _not_ported("a quantile checkpoint", "quantile")
     if tag in (LAYOUT_DOUBLE, LAYOUT_CRPRECIS):
         _not_ported(f"a checkpoint with layout tag {tag}", "double")
-    if tag not in (None, LAYOUT_FREQUENCY):
+    if tag not in (None, LAYOUT_FREQUENCY, LAYOUT_QUANTILE):
         raise ValueError(
             f"unknown checkpoint layout tag {tag}; the dict is corrupted or "
             f"written by a newer layout")
     if d.get("tenants") is not None:
         _not_ported("a multi-tenant checkpoint", "tenants")
+    kind = ("quantile" if tag == LAYOUT_QUANTILE
+            or (tag is None and "mass" in d) else "frequency")
     shards = int(np.asarray(d["shards"])) if "shards" in d else 0
     shards = shards or None
+    changes: Dict[str, Any] = {}
+    if kind != spec.kind:
+        changes["kind"] = kind
+        if kind == "quantile" and spec.bits is None:
+            changes["bits"] = int(np.asarray(d["ids"]).shape[-2])
     if shards != spec.shards:
-        return dataclasses.replace(spec, shards=shards)
-    return spec
+        changes["shards"] = shards
+    if not changes:
+        return spec
+    supported = backends_for(kind, shards)
+    if spec.backend not in supported:
+        changes["backend"] = "kernel" if "kernel" in supported else "bank"
+    return dataclasses.replace(spec, **changes)
 
 
-def _validate_checkpoint(d: Dict[str, Any]) -> None:
-    """Reject truncated or corrupted dicts before any state is built."""
+def _validate_checkpoint(spec: SketchSpec, d: Dict[str, Any]) -> None:
+    """Reject truncated or corrupted dicts before any state is built: the
+    keys present (``mass`` too for quantile kinds), integer counter
+    fields of one shape, an integer scalar mass."""
     keys = ("ids", "counts", "errors")
-    missing = [k for k in keys if k not in d]
+    required = keys + (("mass",) if spec.kind == "quantile" else ())
+    missing = [k for k in required if k not in d]
     if missing:
         raise ValueError(
             f"checkpoint dict is missing key(s) {missing} (truncated write?)")
@@ -422,23 +653,32 @@ def _validate_checkpoint(d: Dict[str, Any]) -> None:
         shapes[key] = arr.shape
     if len(set(shapes.values())) != 1:
         raise ValueError(f"checkpoint counter fields disagree in shape: {shapes}")
+    if spec.kind == "quantile":
+        mass = np.asarray(d["mass"])
+        if mass.dtype.kind not in "iu" or mass.size != 1:
+            raise ValueError(
+                f"checkpoint field 'mass' must be an integer scalar "
+                f"(|F|₁), got dtype {mass.dtype}, shape {mass.shape}")
 
 
 def restore(spec: SketchSpec, d: Dict[str, Any], device=DEFAULT_DEVICE):
     """State from a ``save`` dict of either package (or the untagged
-    pre-redesign frequency layout), on ``device``."""
+    pre-redesign layouts), on ``device``. The spec's kind and shards must
+    be the dict's (``infer_spec`` adapts a spec)."""
     inferred = infer_spec(spec, d)
-    if inferred.shards != spec.shards:
+    if (inferred.kind, inferred.shards) != (spec.kind, spec.shards):
         raise ValueError(
-            f"checkpoint layout has shards={inferred.shards}, the spec says "
+            f"checkpoint layout is kind={inferred.kind!r}, "
+            f"shards={inferred.shards}, but the spec says kind={spec.kind!r}, "
             f"shards={spec.shards}; restore through infer_spec(spec, d) "
             f"(StreamSession.load does)")
-    _validate_checkpoint(d)
+    _validate_checkpoint(spec, d)
     return adapter_for(spec).restore(spec, d, resolve_device(device))
 
 
 __all__ = ["KINDS", "VARIANTS", "BACKENDS", "LAYOUT_FREQUENCY",
            "LAYOUT_QUANTILE", "LAYOUT_DOUBLE", "LAYOUT_CRPRECIS",
-           "SketchSpec", "validate_block", "host_array", "adapter_for",
-           "make", "update", "query_many", "query", "topk", "merge",
+           "SketchSpec", "backends_for", "validate_block", "host_array",
+           "adapter_for", "make", "update", "query_many", "query", "topk",
+           "rank_many", "rank", "quantile_many", "quantile", "merge",
            "consolidate", "save", "infer_spec", "restore"]

@@ -1,50 +1,76 @@
 """Bank engine: the stacked (R, k) SketchState and its per-row phases.
 
-Counterpart of ``repro/sketch/bank.py`` for what the kernel path needs:
-``init``, ``shard_of``, ``sort_block``, the ``HashShardRouter``, the
-framework-side prep ``phase1_dense_prep`` (sorts, ``searchsorted``,
-grouping: plain torch ops here, as they stayed XLA outside the Pallas
-kernel), the banked residual loop ``residual_phase_banked``, the
+Counterpart of ``repro/sketch/bank.py`` for what the kernel and dense
+paths need: ``init`` (per-row capacities) and ``row_capacities``,
+``shard_of``, ``sort_block``, the routers (``HashShardRouter``,
+``DyadicLevelRouter``, ``ShardLevelRouter``), the framework-side prep
+``phase1_dense_prep`` (sorts, ``searchsorted``, grouping: plain torch
+ops here, as they stayed XLA outside the Pallas kernel), the banked
+residual loop ``residual_phase_banked``, the dense fused core
+(``update_rows``, ``update_block_fused`` for dense routers), the
 bank-wide reads ``query_rows``/``topk_bank`` and the reductions
-``merge_banks``/``consolidate``.
+``merge_banks``/``consolidate``. The partition core
+(``_fused_partition``) is not ported yet (ROADMAP.md Queue 1 item 5).
 
-Row layout contract (as in the reference): BLOCKED slots (here only the
-column padding ``ops.py`` adds) hold INT_MAX counts and zero errors,
-inert under every phase. Weight > 0 inserts, < 0 deletes, 0 pads; item
-ids are non-negative (negative ids are sentinels).
+Row layout contract (as in the reference): BLOCKED slots (a row's tail
+past its capacity, and the column padding ``ops.py`` adds) hold INT_MAX
+counts and zero errors, inert under every phase. Weight > 0 inserts,
+< 0 deletes, 0 pads; item ids are non-negative (negative ids are
+sentinels).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+import numbers
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
 from ..platform import DEFAULT_DEVICE, resolve_device
 from .phases import (fill_empty_slots, segment_nets, stable_partition_perm,
                      waterfill_unit_inserts)
-from .state import (EMPTY, I32, VARIANT_LAZY, SketchState, merge, sat_add,
-                    top_m)
+from .state import (BLOCKED, EMPTY, I32, INT_MAX, VARIANT_LAZY, SketchState,
+                    merge, sat_add, top_m)
 
 _U32 = 0xFFFFFFFF
 
 
-def init(capacity: int, num_rows: int, device=DEFAULT_DEVICE) -> SketchState:
-    """Empty (R, k) bank of ``num_rows`` rows of ``capacity`` counters.
+def init(capacities: Union[int, Sequence[int]],
+         num_rows: Optional[int] = None,
+         device=DEFAULT_DEVICE) -> SketchState:
+    """Empty (R, k) bank with per-row live capacities.
 
-    (The reference's per-row capacity lists, which pad short rows with
-    BLOCKED slots, arrive with the dyadic layers that need them.)
+    ``capacities``: a per-row capacity list (a row with fewer than k =
+    max(capacities) counters fills its tail with BLOCKED slots: ids -2,
+    INT_MAX counts, zero errors, inert under every phase), or one int
+    for ``num_rows`` equal rows.
     """
-    if num_rows < 1 or capacity < 1:
-        raise ValueError(f"need capacity >= 1 and num_rows >= 1, got "
-                         f"{capacity}, {num_rows}")
+    if isinstance(capacities, numbers.Integral):
+        if num_rows is None:
+            raise ValueError("an int capacity needs num_rows")
+        caps = [int(capacities)] * num_rows
+    else:
+        caps = [int(c) for c in capacities]
+        if num_rows is not None and num_rows != len(caps):
+            raise ValueError(f"{len(caps)} capacities for num_rows="
+                             f"{num_rows}")
+    if not caps or min(caps) < 1:
+        raise ValueError(f"need every capacity >= 1 and at least one row, "
+                         f"got {caps[:8]}")
     dev = resolve_device(device)
-    shape = (num_rows, capacity)
+    k = max(caps)
+    live = (torch.arange(k, device=dev)[None, :]
+            < torch.tensor(caps, device=dev)[:, None])
     return SketchState(
-        ids=torch.full(shape, EMPTY, dtype=I32, device=dev),
-        counts=torch.zeros(shape, dtype=I32, device=dev),
-        errors=torch.zeros(shape, dtype=I32, device=dev),
+        ids=torch.where(live, EMPTY, BLOCKED).to(I32),
+        counts=torch.where(live, 0, INT_MAX).to(I32),
+        errors=torch.zeros((len(caps), k), dtype=I32, device=dev),
     )
+
+
+def row_capacities(bank: SketchState) -> list:
+    """Live (non-BLOCKED) counters per row: the inverse of ``init``."""
+    return (bank.ids != BLOCKED).sum(dim=1).tolist()
 
 
 def shard_of(items: torch.Tensor, num_shards: int) -> torch.Tensor:
@@ -81,6 +107,7 @@ class HashShardRouter:
 
     num_shards: int
     universe_bits: Optional[int] = None
+    kind = "partition"
 
     @property
     def num_rows(self) -> int:
@@ -103,6 +130,60 @@ class HashShardRouter:
         w_routed = torch.where(self.owner_of(s_items)[None, :] == rows,
                                s_w[None, :], 0)
         return s_items[None, :].expand(self.num_rows, -1), w_routed
+
+
+@dataclasses.dataclass(frozen=True)
+class DyadicLevelRouter:
+    """Broadcast router: row l monitors ``x >> l`` (the dyadic layers)."""
+
+    bits: int
+    kind = "dense"
+
+    @property
+    def num_rows(self) -> int:
+        return self.bits
+
+    def route_dense(self, items: torch.Tensor, weights: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(B,) block -> (bits, B) per-layer node views from ONE shared sort
+        (a right shift keeps every view ascending) and the (1, B) sorted
+        weight row that every layer shares."""
+        items = items.to(I32)
+        weights = weights.to(I32)
+        order = sort_block(items, self.bits)
+        shifts = torch.arange(self.bits, dtype=I32, device=items.device)
+        return items[order][None, :] >> shifts[:, None], weights[order][None, :]
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardLevelRouter:
+    """Composed shard × level router: row (s, l) = ``s * bits + l``
+    monitors the level-l nodes owned by hash shard s."""
+
+    bits: int
+    num_shards: int
+    kind = "dense"
+
+    @property
+    def num_rows(self) -> int:
+        return self.bits * self.num_shards
+
+    def route_dense(self, items: torch.Tensor, weights: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(B,) block -> (S * bits, B): the level views repeated per shard,
+        each shard's weights masked to the nodes it owns."""
+        nodes, w_l = DyadicLevelRouter(self.bits).route_dense(items, weights)
+        shape = (self.num_rows, nodes.shape[1])
+        rows = nodes[None].expand(self.num_shards, -1, -1).reshape(shape)
+        return rows, self.mask_shards(nodes, w_l).reshape(shape)
+
+    def mask_shards(self, nodes: torch.Tensor, w_l: torch.Tensor
+                    ) -> torch.Tensor:
+        """(bits, B) level weights -> (S, bits, B), foreign weights 0."""
+        owner = shard_of(nodes, self.num_shards)
+        shards = torch.arange(self.num_shards, dtype=I32,
+                              device=nodes.device)[:, None, None]
+        return torch.where(owner[None] == shards, w_l[None], 0)
 
 
 # ---------------------------------------------------------------------------
@@ -237,6 +318,36 @@ def phase1_dense(bank: SketchState, row_items: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# The dense fused core
+# ---------------------------------------------------------------------------
+
+def update_rows(bank: SketchState, row_items: torch.Tensor,
+                row_weights: torch.Tensor, variant: int = 2) -> SketchState:
+    """Ingest pre-routed row-sorted (R, B) views (reference ``bank.py:545``,
+    ``_fused_dense``): ``phase1_dense``, then the banked residual loop.
+    ``row_weights`` may be the (1, B) row every row shares. The loop is
+    kernel 2 for CUDA banks, ``residual_phase_banked`` for CPU banks
+    (``ops.sketch_block_update_banked``, the one dispatch)."""
+    # ops imports this module, so it is imported here
+    from ..kernels.sketch_update import ops
+
+    return ops.sketch_block_update_banked(bank, row_items, row_weights,
+                                          variant)
+
+
+def update_block_fused(bank: SketchState, items: torch.Tensor,
+                       weights: torch.Tensor, router,
+                       variant: int = 2) -> SketchState:
+    """Ingest one (B,) block into the whole bank (reference ``bank.py:719``)
+    through a dense router's views and ``update_rows``."""
+    if router.kind == "partition":
+        raise NotImplementedError(
+            "the partition core (bank._fused_partition) is not ported to "
+            "repro_torch yet; ROADMAP.md Queue 1 item 5 ports it")
+    return update_rows(bank, *router.route_dense(items, weights), variant)
+
+
+# ---------------------------------------------------------------------------
 # Bank-wide reads
 # ---------------------------------------------------------------------------
 
@@ -270,18 +381,20 @@ def merge_banks(a: SketchState, b: SketchState) -> SketchState:
     return merge(a, b)
 
 
-def consolidate(bank: SketchState) -> SketchState:
-    """Fold the row axis of an (R, k) bank into one (k,) summary
-    (reference ``bank.py:818``): a tree of ``state.merge`` pairing rows
-    (0, 1), (2, 3), ... with an odd last row carried up a level, as the
-    reference pairs them. Merge keeps the top k, so it is not
+def consolidate(bank: SketchState, merge_fn=merge) -> SketchState:
+    """Fold the leading axis of an (R, ..., k) bank into one (..., k)
+    summary (reference ``bank.py:818``): a tree of ``merge_fn`` pairing
+    rows (0, 1), (2, 3), ... with an odd last row carried up a level, as
+    the reference pairs them. Merge keeps the top k, so it is not
     associative: another pairing would give another summary. Each level
-    is one batched merge."""
+    is one batched merge; ``state.merge`` batches over every leading
+    axis, so an (S, bits, k) bank folds to (bits, k) with it as it is
+    (the reference passes a level-vmapped merge for that)."""
     rows = bank
     while rows.ids.shape[0] > 1:
         n = rows.ids.shape[0] // 2
-        merged = merge_banks(SketchState(*(t[0:2 * n:2] for t in rows)),
-                             SketchState(*(t[1:2 * n:2] for t in rows)))
+        merged = merge_fn(SketchState(*(t[0:2 * n:2] for t in rows)),
+                          SketchState(*(t[1:2 * n:2] for t in rows)))
         if rows.ids.shape[0] % 2:
             merged = SketchState(*(torch.cat([m, t[-1:]])
                                    for m, t in zip(merged, rows)))
@@ -289,7 +402,8 @@ def consolidate(bank: SketchState) -> SketchState:
     return SketchState(*(t[0] for t in rows))
 
 
-__all__ = ["init", "shard_of", "sort_block", "HashShardRouter",
+__all__ = ["init", "row_capacities", "shard_of", "sort_block",
+           "HashShardRouter", "DyadicLevelRouter", "ShardLevelRouter",
            "residual_phase_banked", "phase1_dense_prep", "phase1_apply",
-           "phase1_dense", "query_rows",
+           "phase1_dense", "update_rows", "update_block_fused", "query_rows",
            "topk_bank", "merge_banks", "consolidate"]

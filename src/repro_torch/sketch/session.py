@@ -4,9 +4,10 @@ Counterpart of ``repro/sketch/session.py`` (``StreamSession``, :132):
 block buffering (``extend``/``observe`` auto-flush full blocks, the
 tail zero-weight padded), validated ``ingest``, windowed deletion
 scheduling (``push`` expires whole batches, ``observe`` single items,
-after ``window`` steps), queries that flush first, merge and
-consolidation, and tagged checkpoints with an optional scheduling
-snapshot.
+after ``window`` steps), queries that flush first (frequency reads,
+and ranks and quantiles of a quantile spec), merge and consolidation,
+and tagged checkpoints with an optional scheduling snapshot. A quantile
+state's 0-d ``mass`` is a state buffer like its bank's three.
 
 Ingest goes through one cached compiled ingest per ``(spec, block,
 donate)`` (``_ingest_fn``, as the reference's jitted one): on the card a
@@ -62,15 +63,27 @@ def ingest_cache_spec(spec: SketchSpec) -> SketchSpec:
 
 
 def _leaves(state) -> List[torch.Tensor]:
-    """The (ids, counts, errors) tensors of a plain or sharded state."""
+    """The tensors of a state: (ids, counts, errors) of a plain or sharded
+    state, and a dyadic state's 0-d ``mass`` after them."""
+    if hasattr(state, "mass"):
+        return [*state.bank, state.mass]
     return list(state.bank if hasattr(state, "bank") else state)
 
 
 def _like(state, leaves):
     """A state of ``state``'s type holding ``leaves``."""
+    if hasattr(state, "mass"):
+        return type(state)(bank=SketchState(*leaves[:3]), mass=leaves[3])
     if hasattr(state, "bank"):
         return type(state)(bank=SketchState(*leaves))
     return SketchState(*leaves)
+
+
+def _layout(spec: SketchSpec) -> dict:
+    """A spec's fields but ``backend``: what two merged sessions must
+    share."""
+    return {f.name: getattr(spec, f.name) for f in dataclasses.fields(spec)
+            if f.name != "backend"}
 
 
 def _alias(t: torch.Tensor) -> torch.Tensor:
@@ -361,6 +374,11 @@ class StreamSession:
             raise ValueError(
                 f"negative item id {item}: ids must be >= 0 (negative ids "
                 f"are the EMPTY/BLOCKED sentinels)")
+        if self.spec.kind == "quantile" and item >= (1 << self.spec.bits):
+            raise ValueError(
+                f"item {item} is outside the dyadic universe "
+                f"[0, 2^{self.spec.bits}); raise SketchSpec.bits or bucket "
+                f"ids before ingest")
         int32_max = int(np.iinfo(np.int32).max)
         if abs(weight) > int32_max:
             raise ValueError(f"weight {weight} does not fit int32")
@@ -453,6 +471,22 @@ class StreamSession:
         self.flush()
         return api.topk(self.spec, self.state, m)
 
+    def rank_many(self, xs) -> torch.Tensor:
+        self.flush()
+        return api.rank_many(self.spec, self.state, xs)
+
+    def rank(self, x) -> int:
+        self.flush()
+        return api.rank(self.spec, self.state, x)
+
+    def quantile_many(self, qs) -> torch.Tensor:
+        self.flush()
+        return api.quantile_many(self.spec, self.state, qs)
+
+    def quantile(self, q: float) -> int:
+        self.flush()
+        return api.quantile(self.spec, self.state, q)
+
     # -- merge / consolidation ---------------------------------------------
 
     def merge_from(self, other: "StreamSession") -> None:
@@ -461,8 +495,7 @@ class StreamSession:
         ``backend`` (an execution path, not a layout), and the windows
         must match; the other session's pending expiries carry over, so
         every scheduled deletion still fires once."""
-        if dataclasses.replace(self.spec, backend="kernel") != \
-                dataclasses.replace(other.spec, backend="kernel"):
+        if _layout(self.spec) != _layout(other.spec):
             raise ValueError(
                 f"cannot merge sessions of different layouts: {self.spec} "
                 f"vs {other.spec} (only `backend` may differ)")

@@ -56,9 +56,11 @@ def wrap_add(a: torch.Tensor, b) -> torch.Tensor:
     """int32 add that wraps modulo 2**32, as JAX's int32 ``+`` does.
 
     Taken in int64 and folded back, so the wrap is defined rather than
-    left to the C++ signed overflow under torch's int32 kernels.
+    left to the C++ signed overflow under torch's int32 kernels. A Python
+    number stays a kernel argument (no host-to-device copy).
     """
-    x = a.to(torch.int64) + torch.as_tensor(b, device=a.device).to(torch.int64)
+    b = b.to(torch.int64) if isinstance(b, torch.Tensor) else int(b)
+    x = a.to(torch.int64) + b
     return (torch.remainder(x + 2**31, 2**32) - 2**31).to(I32)
 
 

@@ -31,6 +31,18 @@ def _chip_smoke():
     return mod
 
 
+def _written_back(plain, wrapper):
+    """``plain`` written back into its state operands, as the kernel
+    ``wrapper`` updates them in place, with a counter like the wrapper's."""
+    def run(ids, counts, errors, *args, variant):
+        for t, out in zip((ids, counts, errors),
+                          plain(ids, counts, errors, *args, variant=variant)):
+            t.copy_(out)
+        return ids, counts, errors
+    run.launches = dict(wrapper.launches)
+    return run
+
+
 def _in_place(ids, counts, errors, *prep, variant):
     """``fused_update_ref`` written back into its operands, as kernel 1
     updates them."""
@@ -159,3 +171,161 @@ def test_host_cuda_ms_sums_the_launch_calls():
     assert got["launch"] == pytest.approx((800 + 40) / 1e3 / 4)
     assert list(got["calls"]) == ["cudaLaunchKernel", "cudaMemcpyAsync",
                                   "cudaGraphLaunch"]
+
+
+# -- the quantile phase's checks ------------------------------------------
+
+def _small_quantile_specs():
+    import dataclasses
+
+    sspm = SketchSpec(kind="quantile", bits=10, eps=0.1, alpha=2.0,
+                      variant="sspm", backend="kernel")
+    return dict(sspm=sspm,
+                lazy=dataclasses.replace(sspm, eps=0.2, variant="lazy"),
+                block=dataclasses.replace(sspm, backend="block"),
+                bank=dataclasses.replace(sspm, backend="bank"),
+                sharded=dataclasses.replace(sspm, shards=3, backend="bank"))
+
+
+def test_quantile_specs_are_the_papers_sizing():
+    cs = _chip_smoke()
+    specs = cs.quantile_specs()
+    caps = specs["sspm"].layer_capacities()
+    assert (len(caps), max(caps), sum(caps)) == (24, 96000, 899070)
+    assert max(specs["lazy"].layer_capacities()) == 9600
+    assert specs["sharded"].shards == 8
+    assert {s.backend for s in specs.values()} == {"kernel", "block", "bank"}
+
+
+def test_exact_ranks_and_the_rank_grid():
+    import numpy as np
+
+    cs = _chip_smoke()
+    stream = np.array([[3, 1], [3, 1], [5, 1], [3, -1], [0, 1], [7, 1],
+                       [5, -1]])
+    cum = cs.exact_ranks(stream, 3)
+    # final multiset {0, 3, 7}
+    np.testing.assert_array_equal(cum, [1, 1, 1, 2, 2, 2, 2, 3])
+    xs = cs.rank_grid(cum, n=7)
+    assert len(xs) == 7 and xs[0] == 0 and xs[-1] == 7
+    # the live values' quantiles: smallest x with rank(x) >= q·|F|
+    np.testing.assert_array_equal(xs[1:-1], [0, 0, 3, 7, 7])
+
+
+def test_rank_check_rejects_a_planted_fault():
+    import numpy as np
+
+    cs = _chip_smoke()
+    rng = np.random.default_rng(0)
+    stream = np.stack([rng.integers(0, 256, 4000),
+                       np.ones(4000, np.int64)], axis=1)
+    cum = cs.exact_ranks(stream, 8)
+    xs = cs.rank_grid(cum, n=101)
+    eps = 0.01
+    exact = cum[xs]
+    assert cs.check_ranks("exact", exact, xs, cum, eps) == 0.0
+    near = exact + int(eps * 4000)                        # at the bound
+    assert cs.check_ranks("near", near, xs, cum, eps) == 1.0
+    planted = exact.copy()
+    planted[50] += int(eps * 4000) + 1
+    with pytest.raises(SystemExit, match="off by 41"):
+        cs.check_ranks("planted", planted, xs, cum, eps)
+    planted = exact.copy()
+    planted[0] -= 41
+    with pytest.raises(SystemExit):
+        cs.check_ranks("planted", planted, xs, cum, eps)
+
+
+def test_quantile_check_holds_the_float32_target():
+    import numpy as np
+
+    cs = _chip_smoke()
+    stream = np.stack([np.repeat(np.arange(100), 10),
+                       np.ones(1000, np.int64)], axis=1)
+    cum = cs.exact_ranks(stream, 7)
+    qs = cs.QUANTILE_QS
+    exact = [int(np.searchsorted(cum, q * 1000)) for q in qs]
+    cs.check_quantiles("exact", exact, qs, cum, 0.01)
+    wrong = list(exact)
+    wrong[50] += 2                                         # 20 ranks off
+    with pytest.raises(SystemExit, match=r"quantile\(0.5\)"):
+        cs.check_quantiles("wrong", wrong, qs, cum, 0.01)
+
+
+@pytest.mark.parametrize("variant", [2, 1])
+def test_check_layers_uses_each_rows_capacity(variant):
+    """The per-layer bound holds with each layer's own live capacity and
+    fails when a bank is off by more than it; the sharded form reads
+    owner rows."""
+    import numpy as np
+
+    from repro_torch.sketch import api
+
+    cs = _chip_smoke()
+    specs = _small_quantile_specs()
+    cpu = torch.device("cpu")
+    stream = bounded_stream(3000, 0.5, universe=1 << 10, seed=9)
+    for name in ("sspm", "sharded"):
+        spec = specs[name]
+        state = api.make(spec, cpu)
+        for lo in range(0, len(stream), 512):
+            part = stream[lo:lo + 512]
+            state = api.update(spec, state, part[:, 0], part[:, 1])
+        bank = cs._bank_of(state)
+        factor = 2.0 if variant == 2 else 1.0
+        ratio, n_hot = cs.check_layers(spec, bank, stream, cpu, factor)
+        assert 0.0 <= ratio <= 1.0 and n_hot > 0
+        # layer 0's capacity sets its bound: a count raised past it fails
+        ins = int((stream[:, 1] > 0).sum())
+        bound0 = factor * ins / spec.layer_capacities()[0]
+        live = int(np.flatnonzero(bank.ids[0].numpy() >= 0)[0])
+        off = bank.counts.clone()
+        off[0, live] += int(bound0) + 2
+        with pytest.raises(SystemExit, match="layer 0"):
+            cs.check_layers(spec, bank._replace(counts=off), stream, cpu,
+                            factor)
+    # a node monitored twice in a row is refused
+    dup = bank.ids.clone()
+    dup[0, :2] = dup[0, 2]
+    with pytest.raises(SystemExit, match="two slots"):
+        cs.check_layers(spec, bank._replace(ids=dup), stream, cpu, 2.0)
+
+
+def test_quantile_phase_rehearsal(monkeypatch):
+    """The quantile runs at a small size: each launch check recorded on
+    its layout, every run's bank checked against the plain versions and
+    the others, the queries and the merge phase."""
+    from repro_torch.kernels.sketch_update import kernel, ref
+
+    cs = _chip_smoke()
+    checked = _on_the_cpu(monkeypatch, cs)
+    # the block and bank runs drive their kernel over the first blocks:
+    # here its plain version, written back in place as the kernel does
+    for name, plain in (("sketch_residual_kernel", ref.residual_phase),
+                        ("sketch_residual_kernel_banked",
+                         ref.residual_phase_banked)):
+        monkeypatch.setattr(kernel, name,
+                            _written_back(plain, getattr(kernel, name)))
+    monkeypatch.setattr(cs, "QUANTILE_BLOCKS", 6)
+    monkeypatch.setattr(cs, "QUANTILE_LAZY_BLOCKS", 4)
+    monkeypatch.setattr(cs, "QUANTILE_SHARDED_BLOCKS", 3)
+
+    def stream(n, seed):
+        return bounded_stream(n * BLOCK * 2 // 3, 0.5, universe=1 << 10,
+                              skew=1.0, seed=seed)
+
+    streams = dict(main=stream(7, 1), lazy=stream(5, 2))
+    streams["sharded"] = streams["main"]
+    runs, extra, finals = cs.quantile_phase(
+        _small_quantile_specs(), streams, BLOCK, torch.device("cpu"), hold=3)
+    assert [(c[1], c[2]) for c in checked] == [
+        ("sketch_update_kernel_fused", 6), ("sketch_update_kernel_fused", 4),
+        ("sketch_residual_kernel", 6), ("sketch_residual_kernel_banked", 6),
+        ("sketch_residual_kernel_banked", 3),
+        ("sketch_update_kernel_fused", 6)]
+    assert [r["plain_blocks"] for r in runs.values()] == [6, 4, 3, 3, 3]
+    assert {"queries sspm", "queries lazy", "queries sharded",
+            "quantile stream", "quantile merge"} == set(extra)
+    assert extra["queries sspm"]["points"] == cs.RANK_POINTS
+    for name, (bank, (items, weights)) in finals.items():
+        assert items.shape == (1, BLOCK), name

@@ -451,6 +451,70 @@ def test_block_feeder_and_stream_on_the_card(cuda, depth):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("shards,backend", [(None, "kernel"),
+                                            (None, "bank"), (None, "block"),
+                                            (3, "bank")])
+@pytest.mark.parametrize("donate", [True, False])
+def test_quantile_graph_carries_the_mass_leaf(cuda, shards, backend, donate):
+    """A quantile session's CUDA graph updates the 0-d mass in place with
+    the bank, block after block: its state equals the CPU session's (bank
+    and mass) and each block counts one launch of the path's kernel. With
+    donation a kept state's mass moves with the session's; without it, it
+    stays. Ranks and quantiles on the card equal the CPU's."""
+    from repro_torch.kernels.sketch_update import kernel
+
+    spec = SketchSpec(kind="quantile", k=8 * 400, bits=12, shards=shards,
+                      backend=backend)
+    s = bounded_stream(12000, 0.5, universe=1 << 12, seed=15)
+    sess = StreamSession(spec, block=2048, donate=donate, device=cuda)
+    ref = StreamSession(spec, block=2048, device="cpu")
+    name = {"kernel": "sketch_update_kernel_fused",
+            "bank": "sketch_residual_kernel_banked",
+            "block": "sketch_residual_kernel"}[backend]
+    kept = None
+    for lo in range(0, len(s) - 2048, 2048):
+        it, w = s[lo:lo + 2048, 0], s[lo:lo + 2048, 1]
+        c0 = kernel.launch_counts()
+        sess.ingest_block(it, w)
+        delta = kernel.launch_delta(c0, kernel.launch_counts())
+        assert list(delta) == [name] and sum(delta[name].values()) == 1
+        ref.ingest_block(it, w)
+        for a, b in zip(sess.state.bank, ref.state.bank):
+            assert torch.equal(a.cpu(), b), f"block at {lo}"
+        assert sess.state.mass.shape == () and sess.state.mass.is_cuda
+        assert int(sess.state.mass) == int(ref.state.mass)
+        if kept is None:
+            kept, kept_mass = sess.state, int(sess.state.mass)
+    assert int(kept.mass) == (int(sess.state.mass) if donate else kept_mass)
+    xs = np.arange(0, 1 << 12, 7)
+    assert torch.equal(sess.rank_many(xs).cpu(), ref.rank_many(xs))
+    qs = np.linspace(0, 1, 33)
+    assert torch.equal(sess.quantile_many(qs).cpu(), ref.quantile_many(qs))
+
+
+def test_dyadic_stream_entry_on_the_card(cuda):
+    """``sketch_block_update_stream`` with a ``DyadicLevelRouter`` on a
+    per-row-capacity bank equals the session's bank."""
+    from repro_torch.kernels.sketch_update.ops import \
+        sketch_block_update_stream
+
+    spec = SketchSpec(kind="quantile", k=12 * 400, bits=12)
+    s = bounded_stream(12000, 0.5, universe=1 << 12, seed=16)
+    n = len(s) // 2048
+    items = s[:n * 2048, 0].reshape(n, 2048)
+    weights = s[:n * 2048, 1].reshape(n, 2048)
+    sess = StreamSession(spec, block=2048, device=cuda)
+    for i in range(n):
+        sess.ingest_block(items[i], weights[i])
+    from repro_torch.sketch import api
+
+    bank = sketch_block_update_stream(
+        api.make(spec, cuda).bank, torch.as_tensor(items),
+        torch.as_tensor(weights), bk.DyadicLevelRouter(12), 2)
+    for a, b in zip(bank, sess.state.bank):
+        assert torch.equal(a, b)
+
+
 # --- the attention kernels (5 and 6) against their plain versions ----------
 
 # B, S, T, H, KV, hd, causal, window: the reference's flash grid, a ragged

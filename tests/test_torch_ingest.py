@@ -174,7 +174,23 @@ def test_tenant_specs_raise_until_the_tenant_layout_is_ported():
 @pytest.mark.parametrize("shards", [None, 4])
 @pytest.mark.parametrize("backend", ["kernel", "block"])
 def test_compiled_ingest_on_the_cpu_is_the_eager_update(shards, backend):
-    spec = tapi.SketchSpec(k=96, shards=shards, bits=BITS, backend=backend)
+    _compiled_ingest_is_the_eager_update(
+        tapi.SketchSpec(k=96, shards=shards, bits=BITS, backend=backend))
+
+
+QUANTILE_LAYOUTS = [(None, "kernel"), (None, "bank"), (None, "block"),
+                    (3, "bank")]
+
+
+@pytest.mark.parametrize("shards,backend", QUANTILE_LAYOUTS)
+def test_compiled_quantile_ingest_on_the_cpu_is_the_eager_update(shards,
+                                                                 backend):
+    _compiled_ingest_is_the_eager_update(
+        tapi.SketchSpec(kind="quantile", k=96, shards=shards, bits=BITS,
+                        backend=backend))
+
+
+def _compiled_ingest_is_the_eager_update(spec):
     rng = np.random.default_rng(1)
     items = rng.integers(0, 1 << BITS, 256).astype(np.int32)
     weights = rng.choice([-1, 1, 1, 2], 256).astype(np.int32)
@@ -183,6 +199,13 @@ def test_compiled_ingest_on_the_cpu_is_the_eager_update(shards, backend):
         spec, state, torch.from_numpy(items), torch.from_numpy(weights))
     got = tsession._ingest_fn(spec, 256)(state, items, weights)
     _assert_same(want, got)
+    if spec.kind == "quantile":
+        assert int(got.mass) == int(want.mass) == int(weights.sum())
+        # the state's leaves, the 0-d mass last, rebuild the state
+        leaves = tsession._leaves(got)
+        assert len(leaves) == 4 and leaves[3].shape == ()
+        back = tsession._like(got, leaves)
+        assert type(back) is type(got) and back.mass is got.mass
     with pytest.raises(ValueError, match="blocks of 256"):
         tsession._ingest_fn(spec, 256)(state, items[:10], weights)
 
@@ -222,6 +245,24 @@ def test_captured_update_holds_no_host_synchronisation(monkeypatch, shards,
     monkeypatch.setattr(tops, "residual_phase", _kernel_stand_in)
     spec = tapi.SketchSpec(k=96, shards=shards, bits=BITS, variant=variant,
                            backend=backend)
+    _audit_update(spec)
+
+
+@pytest.mark.parametrize("shards,backend", QUANTILE_LAYOUTS)
+@pytest.mark.parametrize("variant", ["sspm", "lazy"])
+def test_captured_quantile_update_holds_no_host_synchronisation(
+        monkeypatch, shards, backend, variant):
+    """The quantile adapters' update, the mass included: kernel 1, the
+    dense core (kernel 2) and the stacked layers (kernel 3)."""
+    monkeypatch.setattr(tops, "fused_update_ref", _kernel_stand_in)
+    monkeypatch.setattr(tops, "residual_phase", _kernel_stand_in)
+    monkeypatch.setattr(tops, "residual_phase_banked", _kernel_stand_in)
+    _audit_update(tapi.SketchSpec(
+        kind="quantile", k=96, shards=shards, bits=BITS, variant=variant,
+        backend=backend))
+
+
+def _audit_update(spec):
     rng = np.random.default_rng(2)
     items = torch.from_numpy(rng.integers(0, 1 << BITS, 256).astype(np.int32))
     weights = torch.from_numpy(rng.choice([-1, 1, 2], 256).astype(np.int32))
@@ -326,7 +367,7 @@ def test_block_feeder_does_not_alias_the_callers_arrays():
 def test_stream_entry_matches_sequential(variant, R, K):
     """The multi-block stream == folding ``sketch_block_update_fused``
     over the routed blocks, and == the reference's scanned stream (Pallas
-    in interpret mode). The dyadic layout waits for ROADMAP.md item 9."""
+    in interpret mode). The dyadic layout: the test below."""
     rng = np.random.default_rng(11)
     nb, n = 3, 256
     items = rng.integers(0, 1 << 16, (nb, n)).astype(np.int32)
@@ -346,6 +387,43 @@ def test_stream_entry_matches_sequential(variant, R, K):
                    jbk.HashShardRouter(R, 16), variant, True)
     _assert_same(want, got, "reference")
     assert torch.equal(bank.ids, torch.full((R, K), -1, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("variant", [1, 2])
+@pytest.mark.parametrize("bits,per_layer", [(8, 40), (10, 300)])
+def test_stream_entry_dyadic_matches_sequential(variant, bits, per_layer):
+    """``test_kernels_banked.py:111``'s dyadic case: a per-row-capacity
+    bank (BLOCKED tails) and the router's (1, B) weight row, against the
+    fold of ``bank.update_block_fused`` and the reference's stream."""
+    from repro_torch.core.quantiles import dyadic_layer_capacities
+
+    rng = np.random.default_rng(11 + bits)
+    nb, n = 3, 256
+    items = rng.integers(0, 1 << bits, (nb, n)).astype(np.int32)
+    weights = rng.choice([-1, 1, 1, 2], (nb, n)).astype(np.int32)
+    caps = dyadic_layer_capacities(bits, total_counters=bits * per_layer)
+    router = tbk.DyadicLevelRouter(bits)
+    bank = tbk.init(caps, device="cpu")
+    seq = bank
+    for b in range(nb):
+        seq = tbk.update_block_fused(seq, torch.from_numpy(items[b]),
+                                     torch.from_numpy(weights[b]), router,
+                                     variant)
+    got = tops.sketch_block_update_stream(
+        bank, torch.from_numpy(items), torch.from_numpy(weights), router,
+        variant)
+    _assert_same(seq, got, "fold")
+    want = jstream(jbk.init(caps), jnp.asarray(items), jnp.asarray(weights),
+                   jbk.DyadicLevelRouter(bits), variant, True)
+    _assert_same(want, got, "reference")
+    assert tbk.row_capacities(got) == caps
+
+
+def test_update_block_fused_refuses_a_partition_router():
+    bank = tbk.init(8, 2, device="cpu")
+    one = torch.ones(4, dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="item 5"):
+        tbk.update_block_fused(bank, one, one, tbk.HashShardRouter(2))
 
 
 def test_stream_entry_of_no_blocks_is_the_bank():

@@ -4,8 +4,9 @@
 update, run on the CPU through the kernel's plain version) against
 ``repro``'s ``StreamSession`` with ``backend='kernel'`` (the Pallas
 kernel in interpret mode) on bounded-deletion streams made with numpy,
-plus checkpoints carried across in both directions, the spec's scope,
-block validation, the default device and the stream helpers.
+for the frequency and the quantile kinds, plus checkpoints carried
+across in both directions, the spec's scope, block validation, the
+default device and the stream helpers.
 """
 from __future__ import annotations
 
@@ -164,7 +165,8 @@ def test_eps_sizing_matches_reference(eps, alpha, variant):
 
 
 @pytest.mark.parametrize("fields,item", [
-    (dict(kind="quantile", k=64, bits=8), "item 9"),
+    (dict(kind="quantile", k=64, bits=8, backend="serial"), "item 4"),
+    (dict(kind="frequency", k=64, bits=8, backend="bank"), "item 5"),
     (dict(k=64, variant="double"), "item 11"),
     (dict(k=64, variant="unbiased"), "item 11"),
     (dict(k=64, backend="crprecis"), "item 11"),
@@ -287,3 +289,201 @@ def test_port_streams_are_valid_and_counted_like_the_reference():
     bad = np.array([[1, 1], [2, -1]])
     with pytest.raises(ValueError):
         tstreams.exact_stats(bad)
+
+
+# -- the quantile kind through the spec and the session ------------------
+
+QBITS = 10
+
+
+def _qspecs(shards=None, variant="sspm", backend="kernel", **size):
+    size = size or {"k": 512}
+    jb = "bank" if shards else backend
+    return (japi.SketchSpec(kind="quantile", variant=variant, shards=shards,
+                            bits=QBITS, backend=jb, **size),
+            tapi.SketchSpec(kind="quantile", variant=variant, shards=shards,
+                            bits=QBITS, backend=jb, **size))
+
+
+def _qstream(seed=0, n_insert=1500):
+    s = tstreams.bounded_stream(n_insert, 0.5, universe=1 << QBITS, skew=1.1,
+                                seed=seed)
+    return s[:, 0], s[:, 1]
+
+
+def _assert_qstate(js, ts, msg=""):
+    _assert_same(japi.save(js.spec, js.state), tapi.save(ts.spec, ts.state),
+                 msg)
+    assert int(js.state.mass) == int(ts.state.mass), msg
+
+
+@pytest.mark.parametrize("fields", [
+    dict(kind="quantile", k=64),                           # no bits
+    dict(kind="quantile", k=64, bits=8, shards=2, backend="kernel"),
+    dict(kind="quantile", k=64, bits=8, shards=2, backend="block"),
+    dict(kind="quantile", k=64, bits=8, shards=2, backend="serial"),
+    dict(kind="quantile", k=64, bits=8, variant="double"),
+])
+def test_quantile_spec_errors_match_the_reference(fields):
+    with pytest.raises(ValueError) as want:
+        japi.SketchSpec(**fields)
+    with pytest.raises(ValueError) as got:
+        tapi.SketchSpec(**fields)
+    assert str(got.value).split(";")[0] == str(want.value).split(";")[0]
+
+
+@pytest.mark.parametrize("shards", [None, 3])
+@pytest.mark.parametrize("size", [dict(k=512), dict(eps=0.01, alpha=3.0)])
+def test_quantile_sizing_matches_the_reference(shards, size):
+    jspec, tspec = _qspecs(shards, **size)
+    assert tspec.layer_capacities() == jspec.layer_capacities()
+    for spec in (jspec, tspec):
+        with pytest.raises(ValueError, match="layer_capacities"):
+            spec.capacity
+    freq = _specs(None, "sspm")
+    for spec in freq:
+        with pytest.raises(ValueError, match="quantile kinds"):
+            spec.layer_capacities()
+    state = tapi.make(tspec, device="cpu")
+    assert state.bank.ids.shape[-2:] == (QBITS, max(
+        tspec.layer_capacities()))
+
+
+def test_backends_the_port_runs():
+    assert tapi.backends_for("quantile", None) == ("bank", "block", "kernel")
+    assert tapi.backends_for("quantile", 4) == ("bank",)
+    assert tapi.backends_for("frequency", None) == ("block", "kernel")
+    assert tapi.backends_for("frequency", 4) == ("block", "kernel")
+    for kind in ("frequency", "quantile"):
+        for shards in (None, 4):
+            assert set(tapi.backends_for(kind, shards)) <= set(
+                japi.backends_for(kind, shards))
+
+
+@pytest.mark.parametrize("items,weights", [
+    (np.array([5, 1 << QBITS]), np.array([1, 1])),         # past the universe
+    (np.array([5, (1 << QBITS) + 9, 2**31 - 1]), np.array([1, -1, 1])),
+    (np.array([-1, 1 << QBITS]), np.array([1, 1])),        # negative first
+])
+def test_validate_block_universe_message_matches_the_reference(items,
+                                                               weights):
+    jspec, tspec = _qspecs()
+    with pytest.raises(ValueError) as want:
+        japi.validate_block(jspec, items, weights)
+    with pytest.raises(ValueError) as got:
+        tapi.validate_block(tspec, items, weights)
+    assert str(got.value) == str(want.value)
+    # a padding entry outside the universe is fine
+    ok = np.array([1 << QBITS, 3])
+    assert tapi.validate_block(tspec, ok, np.array([0, 2])) == \
+        japi.validate_block(jspec, ok, np.array([0, 2])) == 2
+
+
+@pytest.mark.parametrize("shards,backend", [(None, "kernel"), (None, "bank"),
+                                            (None, "block"), (3, "bank")])
+@pytest.mark.parametrize("variant", ["sspm", "lazy"])
+def test_quantile_session_matches_reference(shards, backend, variant):
+    """``extend`` in uneven pieces, then the queries: frequency reads of
+    the leaf layer, top-k, ranks and quantiles; the checkpoint dicts."""
+    jspec, tspec = _qspecs(shards, variant, backend)
+    js, ts = JSession(jspec, block=BLOCK), TSession(tspec, block=BLOCK,
+                                                    device="cpu")
+    items, weights = _qstream(seed=3 if shards else 4)
+    cuts = np.sort(np.random.default_rng(1).integers(0, len(items), 7))
+    for lo, hi in zip(np.r_[0, cuts], np.r_[cuts, len(items)]):
+        js.extend(items[lo:hi], weights[lo:hi])
+        ts.extend(items[lo:hi], weights[lo:hi])
+    probe = np.arange(0, 1 << QBITS, 5)
+    np.testing.assert_array_equal(np.asarray(js.rank_many(probe)),
+                                  ts.rank_many(probe).numpy())
+    qs = np.linspace(0, 1, 21)
+    np.testing.assert_array_equal(np.asarray(js.quantile_many(qs)),
+                                  ts.quantile_many(qs).numpy())
+    assert (js.rank(77), js.quantile(0.9)) == (ts.rank(77), ts.quantile(0.9))
+    np.testing.assert_array_equal(np.asarray(js.query_many(probe)),
+                                  ts.query_many(probe).numpy())
+    for a, b in zip(js.topk(8), ts.topk(8)):
+        np.testing.assert_array_equal(np.asarray(a), b.numpy())
+    _assert_qstate(js, ts, f"{shards}/{backend}/{variant}")
+    assert js.state.bank.ids.shape == tuple(ts.state.bank.ids.shape)
+
+
+@pytest.mark.parametrize("shards", [None, 3])
+def test_quantile_observe_and_push_match_reference(shards):
+    jspec, tspec = _qspecs(shards)
+    rng = np.random.default_rng(7)
+    js = JSession(jspec, block=64, window=40)
+    ts = TSession(tspec, block=64, window=40, device="cpu")
+    for x in rng.zipf(1.3, 300) % (1 << QBITS):
+        js.observe(int(x))
+        ts.observe(int(x))
+    _assert_qstate(js, ts, "observe")
+    for s in (js, ts):
+        with pytest.raises(ValueError, match="outside the dyadic universe"):
+            s.observe(1 << QBITS)
+    jp = JSession(jspec, block=64, window=3)
+    tp = TSession(tspec, block=64, window=3, device="cpu")
+    for _ in range(8):
+        batch = rng.integers(0, 1 << QBITS, 50)
+        w = rng.integers(1, 4, 50)
+        jp.push(batch, w)
+        tp.push(batch, w)
+    _assert_qstate(jp, tp, "push")
+    np.testing.assert_array_equal(np.asarray(jp.quantile_many([0.25, 0.75])),
+                                  tp.quantile_many([0.25, 0.75]).numpy())
+
+
+@pytest.mark.parametrize("shards", [None, 3])
+def test_quantile_merge_from_and_checkpoints_match_reference(shards):
+    jspec, tspec = _qspecs(shards, backend="bank")
+    a_items, a_w = _qstream(seed=11)
+    b_items, b_w = _qstream(seed=12, n_insert=700)
+    sessions = []
+    for spec, cls, kw in ((jspec, JSession, {}),
+                          (tspec, TSession, {"device": "cpu"})):
+        a, b = cls(spec, block=BLOCK, **kw), cls(spec, block=BLOCK, **kw)
+        a.ingest(a_items, a_w)
+        b.ingest(b_items, b_w)
+        a.merge_from(b)
+        sessions.append(a)
+    _assert_qstate(*sessions, "merge_from")
+    js, ts = sessions
+    d = ts.save(include_schedule=True)
+    jback = JSession(japi.SketchSpec(k=64, bits=QBITS), block=BLOCK)
+    jback.load(d)
+    assert jback.spec.kind == "quantile" and jback.spec.shards == shards
+    tback = TSession(tapi.SketchSpec(k=64, bits=QBITS), block=BLOCK,
+                     device="cpu")
+    tback.load(japi.save(js.spec, js.state))
+    assert (tback.spec.kind, tback.spec.shards) == ("quantile", shards)
+    _assert_qstate(jback, tback, "load")
+    probe = np.arange(0, 1 << QBITS, 9)
+    np.testing.assert_array_equal(np.asarray(jback.rank_many(probe)),
+                                  tback.rank_many(probe).numpy())
+    # converted both ways through repro_torch.convert
+    spec, state = convert.to_port(japi.save(js.spec, js.state), device="cpu")
+    assert (spec.kind, spec.bits, spec.shards) == ("quantile", QBITS, shards)
+    _assert_same(japi.save(js.spec, js.state), convert.to_reference(spec,
+                                                                     state))
+
+
+def test_rank_queries_need_a_quantile_spec():
+    for api, spec in zip((japi, tapi), _specs(None, "sspm")):
+        state = api.make(spec) if api is japi else api.make(spec, "cpu")
+        for call in (api.rank_many, api.quantile_many):
+            with pytest.raises(ValueError, match="kind='quantile'"):
+                call(spec, state, [1])
+
+
+def test_quantile_entry_points_default_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is usable here")
+    from repro_torch.sketch import dyadic, dyadic_sharded
+
+    _, spec = _qspecs()
+    for call in (lambda: tapi.make(spec), lambda: TSession(spec),
+                 lambda: dyadic.init(8, eps=0.5),
+                 lambda: dyadic_sharded.init(8, 2, eps=0.5),
+                 lambda: tbk.init([4, 2])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
