@@ -25,7 +25,11 @@ result):
    written beside them), kernels 1-3 on dyadic banks of 24 layers
    (the quantile kind's per-row capacities: K = 96,000 and 9,600
    counters a layer, the top rows almost all BLOCKED, a (1, B) weight
-   row; kernel 3 at E = 24, k = 96,000), kernels 1-3
+   row; kernel 3 at E = 24, k = 96,000), kernel 1 on the partition
+   prep's flat layout (each row's run from ``uoff[r]``, the ``"bank"``
+   backend) at S = 1, 7 and 128, with idle rows, rows whose inserts the
+   empty fill consumes entirely, runs that fill the layout to its last
+   entry and K = 40,000 and 400,000, kernels 1-3
    on the SS± drain's edge cases (``drain_domains``: ties at the
    threshold, rem at a prefix sum or past the total, error sums past
    2^31, errors of every sign, EMPTY and BLOCKED slots), and the serial
@@ -51,6 +55,18 @@ result):
      main run's blocks, kernel 2; its bank must equal the main run's;
    - serial sspm k=4000: ``ops.sketch_block_update_serial`` on one
      sketch of ``capacity_for(1e-3, 2)`` counters, 8 blocks, kernel 4.
+   - the bank phase (``bank_phase``): the ``"bank"`` backend (the
+     partition core, one kernel-1 launch a block on the flat layout) on
+     the main spec (64 blocks, staged), the lazy spec (16, through
+     ``bank.update_single``) and path A's spec (32, R = 1, K = 400,000,
+     unstaged), each bank equal to its ``kernel``/``block`` twin's and
+     to the plain version (lazy over its first 4 blocks, k=400000 over
+     its first 8); ``backend="serial"`` on the serial spec (kernel 4 over
+     each block's aggregated uniques, its insert adds saturating), held
+     to the plain version over 2 blocks; the sharded serial oracle at
+     ``shards=8`` (one kernel-3 launch per shard) equal to the bank path
+     over 2 blocks; the quantile ``"serial"`` path at bits = 12 (one
+     kernel-4 launch per layer) equal to the quantile ``"bank"`` path.
    The session runs go through ``StreamSession``'s cached compiled
    ingest: each spec's first block runs eagerly and its CUDA graph is
    captured after it (timed apart, with the device memory the capture
@@ -104,13 +120,14 @@ result):
    the time per call from the host, which holds the wrapper's host time,
    the median of five rounds)
    beside its bound and the plain version's ms; kernel 1 also on the
-   lazy run's block 1, kernel 3 also on path B's last block and on the
+   lazy run's block 1 and on the partition layout (the bank main run's
+   last block, bank lazy's block 1, bank k=400000's block 8), kernel 3 also on path B's last block and on the
    block-lazy run's block 1, kernels 1-3 on each quantile run's next
    block from its final bank, and for kernels 1-3 each timed block's
    evictions and SS± drain steps (in all and the most in one sketch or
    row) and the us per eviction; ``rank_many`` and ``quantile_many`` ms;
    ``torch.profiler`` windows over blocks of the main, lazy, path A,
-   path B and quantile sspm specs, each twice in one call:
+   path B, quantile sspm and bank main specs, each twice in one call:
    eager (``api.adapter_for(spec).update`` per block on a pageable copy)
    and captured (``StreamSession.ingest_block``: the graph, the pinned
    slot): wall and device-busy ms per block, the idle share, the host's
@@ -227,7 +244,12 @@ def kernel_cases():
     DRAIN_INSERTS evictions), rows at one count whose water level's
     probe sums pass 2^31 (``wrap_fused``), and dyadic banks of 24 layers
     (``case_block``'s ``"dyadic"`` block) at K = 96,000 (unstaged) and
-    9,600 (staged). A case that names a layout must run on it."""
+    9,600 (staged), and the partition prep's flat layout (the ``"bank"``
+    backend, each row's run from ``uoff[r]``: ``"partition*"`` blocks,
+    ``fused_case``) at S = 1, 7 and 128, with rows given no work, rows
+    whose inserts the empty fill consumes entirely, runs that fill the
+    layout to its last entry, and K = 40,000 and 400,000 (unstaged). A
+    case that names a layout must run on it."""
     cases = []
     for v in (2, 1):
         cases += [
@@ -235,6 +257,24 @@ def kernel_cases():
             ("warm R=7 K=200", 7, 200, v, "warm", "stream"),
             ("warm R=128 K=3125", 128, 3125, v, "warm", "stream"),
             ("warm R=1 K=2000", 1, 2000, v, "warm", "stream"),
+            ("partition cold S=1 K=77", 1, 77, v, "cold", "partition"),
+            ("partition warm S=1 K=2000", 1, 2000, v, "warm", "partition"),
+            ("partition warm S=128 K=3125", 128, 3125, v, "warm",
+             "partition"),
+            ("partition rail+ S=7 K=1000", 7, 1000, v, "rail+",
+             "partition"),
+            ("partition idle rows S=128 K=3125", 128, 3125, v, "warm",
+             "partition sparse"),
+            ("partition consumed S=7 K=20000", 7, 20000, v, "cold",
+             "partition consumed"),
+            ("partition G full S=1 K=2000", 1, 2000, v, "warm",
+             "partition full"),
+            ("partition G full S=128 K=3125", 128, 3125, v, "warm",
+             "partition full"),
+            ("partition consumed S=1 K=40000", 1, 40000, v, "cold",
+             "partition consumed", "unstaged"),
+            ("partition warm S=1 K=400000", 1, 400000, v, "warm",
+             "partition", "unstaged"),
             ("rail+ R=7 K=1000", 7, 1000, v, "rail+", "stream"),
             # the water level's probe is false even at INT_MAX: the
             # bisection ends with lo past hi
@@ -574,12 +614,24 @@ def case_block(R, K, variant, state, block, device, seed, B=65536):
     it, w = _block(stream, n_warm * B, B, torch, device)
     if block == "padding":
         w = torch.zeros_like(w)
+    elif block == "partition sparse":
+        w[64:] = 0               # most rows get no entry
+    elif block == "partition full":
+        # B distinct new ids, all inserts: every entry is a residual insert
+        it = (1 << 22) + torch.arange(B, dtype=torch.int32, device=device)
+        w = 1 + torch.randint(0, 3, (B,), dtype=torch.int32, device=device,
+                              generator=torch.Generator(device=device)
+                              .manual_seed(seed))
     return SketchState(*(t.contiguous() for t in bank)), it, w, router
 
 
 def fused_case(R, K, variant, state, block, device, seed):
     """Kernel 1's operands: the bank and its prep (``drain_fused``'s or
-    ``wrap_fused``'s for those cases)."""
+    ``wrap_fused``'s for those cases). A ``"partition*"`` block takes the
+    partition prep (a flat layout and ``uoff``), and the case must be what
+    its kind names: idle rows (``sparse``), every row's inserts consumed
+    by the fill (``consumed``), the runs ending at the layout's last
+    entry (``full``)."""
     from repro_torch.sketch import bank as bk
 
     if block == "drain":
@@ -588,6 +640,17 @@ def fused_case(R, K, variant, state, block, device, seed):
         return wrap_fused(R, K, device)
     bank, it, w, router = case_block(R, K, variant, state, block, device,
                                      seed)
+    if block.startswith("partition"):
+        prep = bk.phase1_partition_prep(bank, it, w, router, variant)
+        delta, h_uids, h_net, i0, mu, nnu, w_del, uoff = prep
+        work = i0 + mu + nnu + w_del
+        if not {"partition sparse": bool((work == 0).any()),
+                "partition consumed": bool(((mu + nnu) == 0).all()
+                                           and (i0 > 0).all()),
+                "partition full": int(uoff[-1] + mu[-1] + nnu[-1] + i0[-1])
+                == len(it)}.get(block, True):
+            raise SystemExit(f"the {block} case S={R} K={K} is not one")
+        return list(bank), list(prep)
     ri, rw = router.route_dense(it, w)
     return list(bank), list(bk.phase1_dense_prep(bank, ri, rw, variant))
 
@@ -789,6 +852,16 @@ def fused_path(spec, bank, it, w):
     return list(padded), list(prep)
 
 
+def partition_path(spec, bank, it, w):
+    """The ``"bank"`` backend's kernel-1 operands: the padded bank and the
+    partition prep of the raw block."""
+    from repro_torch.kernels.sketch_update.ops import prep_partition
+
+    padded, prep = prep_partition(bank, it, w, _router(spec, bank),
+                                  spec.variant_id)
+    return list(padded), list(prep)
+
+
 def banked_path(spec, bank, it, w):
     return banked_operands(bank, *_router(spec, bank).route_dense(it, w),
                            spec.variant_id)
@@ -808,6 +881,17 @@ def split_path(spec, bank, it, w):
 
 def serial_path(spec, bank, it, w):
     return serial_operands(bank, it, w)
+
+
+def serial_scan_path(spec, bank, it, w):
+    """The ``"serial"`` backend's kernel-4 operands: the block's
+    aggregated uniques in id order, EMPTY entries at weight 0."""
+    import torch
+    from repro_torch.sketch.blocks import _aggregate_block
+
+    uids, net = _aggregate_block(it[None], w[None])
+    return serial_operands(bank, uids[0],
+                           torch.where(uids[0] == -1, 0, net[0]))
 
 
 def _unpad(out, bank):
@@ -948,15 +1032,20 @@ def _same(a, b) -> bool:
 
 
 def run_path(label, spec, stream, block, device, factor, kernel, path, plain,
-             at=-1, layout=None):
+             at=-1, layout=None, hold=None, kernel_fn=None):
     """One session run: ``StreamSession.ingest`` of the stream (through
     the captured ingest), its launches of ``kernel`` (one per block on
     ``layout``, no other kernel or layout), equality with the plain
-    version's run, the error bound, and the read path. Returns the run's
-    record, block ``at``'s kernel operands and the session. ``ms_per_block``
+    version's run, the error bound, and the read path. Where ``hold`` is
+    below the run's blocks, the kernel (``kernel_fn``, by default the
+    wrapper named ``kernel``) and the plain version run on the path's
+    framework side over the first ``hold`` blocks instead, and must
+    agree. Returns the run's record, block ``at``'s kernel operands (of
+    the blocks the plain version ran) and the session. ``ms_per_block``
     leaves the first block out (``first_block_ms``: it may hold the
     capture)."""
     import torch
+    from repro_torch.kernels.sketch_update import kernel as kernels
 
     reset_counts()
     sess, secs, first = run_session(spec, stream, block, device)
@@ -964,12 +1053,18 @@ def run_path(label, spec, stream, block, device, factor, kernel, path, plain,
                               sess.blocks_ingested, layout)
     if device.type == "cuda" and sess._compiled.graph is None:
         raise SystemExit(f"{label}: the session did not run its CUDA graph")
-    bank, last, plain_secs = run_plain(spec, stream, block, device, path,
-                                       plain, at)
+    n = min(hold or sess.blocks_ingested, sess.blocks_ingested)
+    bank, last, plain_secs = run_plain(spec, stream[:n * block], block,
+                                       device, path, plain, at)
     live = _bank_of(sess.state)
-    if not _same(live, bank):
-        raise SystemExit(f"{label}: the session's bank differs from the "
-                         f"plain version's")
+    if n < sess.blocks_ingested:
+        live_n, _, _ = run_plain(spec, stream[:n * block], block, device,
+                                 path, kernel_fn or getattr(kernels, kernel))
+    else:
+        live_n = live
+    if not _same(live_n, bank):
+        raise SystemExit(f"{label}: the bank after {n} blocks differs from "
+                         f"the plain version's")
     ratio, n_hot = check_truth(spec, live, stream, device, factor)
     # the user's read path agrees with the bank
     hot_ids, hot_counts = sess.topk(16)
@@ -982,7 +1077,7 @@ def run_path(label, spec, stream, block, device, factor, kernel, path, plain,
                k_per_row=live.ids.shape[1],
                ms_per_block=secs * 1e3 / rest,
                updates_per_s=(len(stream) - block) / secs, **first,
-               plain_ms_per_block=plain_secs * 1e3 / sess.blocks_ingested,
+               plain_blocks=n, plain_ms_per_block=plain_secs * 1e3 / n,
                worst_err_over_bound=ratio, items_above_bound=n_hot)
     log(f"{label}: {json.dumps(out)}")
     return out, last, sess
@@ -1103,6 +1198,131 @@ def feeder_phase(spec, stream, block, device, want) -> dict:
     runs["sketch_block_update_stream"] = run_fed(
         "sketch_block_update_stream", stream, block, device, want, streamed)
     return runs
+
+
+# The bank phase: the reference's default backend (the partition core) on
+# kernel 1, and the serial backend on kernel 4. Blocks held to the plain
+# version where the plain chains are slow (a Python loop per eviction or
+# per update on the card).
+BANK_LAZY_PLAIN_BLOCKS = 4
+BANK_A_PLAIN_BLOCKS = 8
+SERIAL_API_PLAIN_BLOCKS = 2
+SERIAL_SHARDED_BLOCKS = 2
+SERIAL_QUANTILE_BLOCKS = 2
+
+
+def api_run(label, spec, stream, block, device, kernel, per_block,
+            layout=None):
+    """``api.update`` over the padded blocks (each a host array, validated
+    on the host as a user's call is), ``per_block`` launches of ``kernel``
+    a block and no other kernel. Returns the record and the state."""
+    import torch
+    from repro_torch.sketch import api
+
+    items, weights = padded_blocks(stream, block)
+    state = api.make(spec, device)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for it, w in zip(items, weights):
+        state = api.update(spec, state, it, w)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = check_launches(label, read_counts(), kernel,
+                              per_block * len(items), layout)
+    out = dict(label=label, kernel=kernel, layout=layout, blocks=len(items),
+               launches=launches, ms_per_block=secs * 1e3 / len(items))
+    log(f"{label}: {json.dumps(out)}")
+    return out, state
+
+
+def bank_phase(specs, streams, twins, block, device):
+    """The ``"bank"`` backend (the partition core: one kernel-1 launch a
+    block on the flat layout) through the captured ingest, on the specs
+    and streams of its twins: main (``shards=128``, staged), lazy (k =
+    2,000, through ``bank.update_single``) and path A's spec (the main
+    spec unsharded: R = 1, K = 400,000, unstaged); each bank equal to its
+    twin's (the ``kernel`` or ``block`` run's) and to the plain version
+    over all blocks (lazy: the first BANK_LAZY_PLAIN_BLOCKS; path A's:
+    the first BANK_A_PLAIN_BLOCKS). Then the ``"serial"`` backend:
+    ``specs["serial"]`` through the captured ingest (kernel 4 over each
+    block's aggregated uniques, its insert adds saturating), held to the
+    plain version over SERIAL_API_PLAIN_BLOCKS blocks; the sharded
+    serial oracle (``update_block_serial_reference``, one kernel-3
+    launch per shard) at ``shards=8`` over SERIAL_SHARDED_BLOCKS blocks,
+    equal to the ``"bank"`` path's; the quantile ``"serial"`` path at
+    bits = 12 (one kernel-4 launch per layer; every layer holds its node
+    universe, so no eviction reorders) equal to the quantile ``"bank"``
+    path's. Returns (runs, each bank run's timed kernel operands)."""
+    import dataclasses
+    import functools
+
+    import numpy as np
+    from repro_torch.core.streams import bounded_stream
+    from repro_torch.kernels.sketch_update import kernel, ref
+    from repro_torch.sketch.api import SketchSpec
+
+    fused, serial = "sketch_update_kernel_fused", "sketch_update_kernel_serial"
+    runs, last = {}, {}
+    plan = (("bank main", "bank sspm shards=128", "main", 2.0, None, -1),
+            ("bank lazy", "bank lazy k=2000", "lazy", 1.0,
+             BANK_LAZY_PLAIN_BLOCKS, 1),
+            ("bank a", "bank sspm k=400000", "a", 2.0, BANK_A_PLAIN_BLOCKS,
+             -1))
+    for key, label, src, factor, hold, at in plan:
+        spec = dataclasses.replace(specs[src], backend="bank")
+        # kernel 1's layout for the bank padded to a LANES multiple
+        layout = kernel.fused_layout(
+            -(-initial_bank(spec, device).ids.shape[1] // 128) * 128)
+        runs[key], last[key], sess = run_path(
+            label, spec, streams[src], block, device, factor, fused,
+            partition_path, ref.fused_update_ref, at=at, layout=layout,
+            hold=hold)
+        if not _same(_bank_of(sess.state), twins[src]):
+            raise SystemExit(f"{label}: the bank differs from its "
+                             f"{specs[src].backend} twin's")
+    runs["serial api"], _, _ = run_path(
+        "serial api sspm k=4000", specs["serial"], streams["serial"], block,
+        device, 2.0, serial, serial_scan_path,
+        functools.partial(ref.serial_update_ref, saturate=True),
+        hold=SERIAL_API_PLAIN_BLOCKS,
+        kernel_fn=functools.partial(kernel.sketch_update_kernel_serial,
+                                    saturate=True))
+    # the sharded oracle against the partition core
+    sh = dataclasses.replace(specs["main"], shards=8, backend="serial")
+    stream = streams["main"][:SERIAL_SHARDED_BLOCKS * block]
+    R = -(-sh.capacity // sh.shards // 128)
+    runs["serial sharded"], want = api_run(
+        "serial sharded=8", sh, stream, block, device,
+        "sketch_residual_kernel", sh.shards,
+        kernel.residual_layout(R))
+    K = -(-sh.capacity // sh.shards)
+    runs["bank sharded"], got = api_run(
+        "bank sharded=8", dataclasses.replace(sh, backend="bank"), stream,
+        block, device, fused, 1, kernel.fused_layout(K))
+    if not _same(want.bank, got.bank):
+        raise SystemExit("the sharded serial oracle's bank differs from the "
+                         "bank path's")
+    runs["serial sharded"]["worst_err_over_bound"], _ = check_truth(
+        sh, got.bank, stream, device, 2.0)
+    # the quantile serial path against the quantile bank path
+    q = SketchSpec(kind="quantile", bits=12, eps=1e-3, alpha=2.0,
+                   backend="serial")
+    stream = bounded_stream(SERIAL_QUANTILE_BLOCKS * block * 2 // 3, 0.5,
+                            universe=1 << 12, skew=1.0, seed=9)
+    runs["serial quantile"], want = api_run(
+        "serial quantile bits=12", q, stream, block, device, serial,
+        q.bits)
+    K = max(q.layer_capacities())
+    runs["bank quantile"], got = api_run(
+        "bank quantile bits=12", dataclasses.replace(q, backend="bank"),
+        stream, block, device, "sketch_residual_kernel_banked", 1,
+        kernel.banked_layout(K))
+    if not (_same(want.bank, got.bank) and int(want.mass) == int(got.mass)
+            == int(np.asarray(stream[:, 1]).sum())):
+        raise SystemExit("the quantile serial path's state differs from the "
+                         "bank path's")
+    return runs, last
 
 
 def merge_phase(spec, main, stream, block, device, main_stream) -> dict:
@@ -1662,7 +1882,7 @@ def fused_trips(st, args, out, variant) -> dict:
     """Kernel 1's work on a block: its empty fills, unit inserts (the
     water-fill), non-unit evictions and SS± drain steps (slots drained),
     the evictions and drain steps also the most in one row."""
-    delta, h_uids, h_net, i0, mu, nnu, w_del = args
+    i0, mu, nnu = args[3:6]
     ev = nnu.long()
     drained = _spread_slots(st, out, variant)
     return dict(fills=int(i0.sum()), unit_inserts=int(mu.sum()),
@@ -1678,13 +1898,14 @@ def fused_bound(bank, prep, out, variant):
     delta to; a row's ids in full where the empty fill must find its
     EMPTY slots (i0 > 0); a row's errors in full where the SS± drain
     must find the largest (w_del > 0); each changed element written
-    once; the grouped (uid, net) entries used and the four per-row
-    scalars read once. One operation per slot read, one pass over a row
+    once; the grouped (uid, net) entries used and the per-row scalars
+    read once (four; five with the partition layout's offsets). One
+    operation per slot read, one pass over a row
     for its water level and one for the placement (rows with unit
     inserts), and ``STEP_OPS`` per eviction and per drained slot. The
     evictions form one dependent chain per row: its latency, not this
     bound's rates, limits the kernel."""
-    delta, h_uids, h_net, i0, mu, nnu, w_del = prep
+    delta, h_uids, h_net, i0, mu, nnu, w_del = prep[:7]
     R, K = bank[0].shape
     changed = [a != b for a, b in zip(bank, out)]
     scans = (mu + nnu) > 0
@@ -1695,7 +1916,7 @@ def fused_bound(bank, prep, out, variant):
     reads = R * K + counts_read + ids_read + errors_read
     writes = sum(int(c.sum()) for c in changed)
     used = int((i0.long() + mu.long() + nnu.long()).sum())
-    nbytes = 4 * (reads + writes + 2 * used + 4 * R)
+    nbytes = 4 * (reads + writes + 2 * used + (len(prep) - 3) * R)
     steps = int(nnu.long().sum()) + int(_spread_slots(bank, out, variant).sum())
     return nbytes, reads + 2 * K * int((mu > 0).sum()) + STEP_OPS * steps
 
@@ -2469,9 +2690,11 @@ def main() -> int:
         "lazy k=2000", lazy_spec, lazy_stream, B, device, 1.0, fused,
         fused_path, ref.fused_update_ref, at=1, layout="staged")
     lazy_bank = _bank_of(sess.state)
-    runs["path_a"], last["path_a"], _ = run_path(
-        "block sspm k=400000", a_spec, make_stream(32, B, seed=4), B, device,
-        2.0, split, split_path, ref.residual_phase, layout="summary+chain")
+    a_stream = make_stream(32, B, seed=4)
+    runs["path_a"], last["path_a"], sess = run_path(
+        "block sspm k=400000", a_spec, a_stream, B, device, 2.0, split,
+        split_path, ref.residual_phase, layout="summary+chain")
+    a_bank = _bank_of(sess.state)
     runs["lazy_block"], last["lazy_block"], sess = run_path(
         "block lazy k=2000", lazy_block_spec, lazy_stream, B, device, 1.0,
         split, split_path, ref.residual_phase, at=1, layout="staged")
@@ -2504,11 +2727,20 @@ def main() -> int:
             SketchState(*(t[0] for t in bank)), it, w, 2)
         return SketchState(*(t[None] for t in out))
 
+    serial_stream = make_stream(8, B, seed=5)
     runs["serial"], last["serial"], _ = run_ops_path(
-        "serial sspm k=4000", serial_spec, make_stream(8, B, seed=5), B,
-        device, 2.0, "sketch_update_kernel_serial", serial_path, serial)
+        "serial sspm k=4000", serial_spec, serial_stream, B, device, 2.0,
+        "sketch_update_kernel_serial", serial_path, serial)
 
     phase_done("frequency runs")
+    bank_runs, bank_last = bank_phase(
+        dict(main=main_spec, lazy=lazy_spec, a=a_spec,
+             serial=dataclasses.replace(serial_spec, backend="serial")),
+        dict(main=main_stream, lazy=lazy_stream, a=a_stream,
+             serial=serial_stream),
+        dict(main=main_bank, lazy=lazy_bank, a=a_bank), B, device)
+    runs.update(bank_runs)
+    phase_done("bank runs")
     q_specs = quantile_specs()
     q_streams = dict(main=main_stream, sharded=main_stream,
                      lazy=make_stream(QUANTILE_LAZY_BLOCKS + 1, B, seed=8))
@@ -2551,11 +2783,24 @@ def main() -> int:
     serial_by_path = serial_paths(last["serial"], B)
     log(f"sketch_update_kernel_serial by path: {json.dumps(serial_by_path)}")
     q_times = quantile_times(q_specs, q_finals, device)
+    # kernel 1 on the partition layout: the bank main run's last block,
+    # the bank lazy run's block 1, the bank k=400000 run's last held block
+    bank_times = {
+        f"{fused} {key}": time_kernel(
+            kernel.sketch_update_kernel_fused, ref.fused_update_ref,
+            bank_last[key], variant, fused_bound, reps, plain_reps)
+        for key, variant, reps, plain_reps in (("bank main", 2, 20, 3),
+                                               ("bank lazy", 1, 10, 1),
+                                               ("bank a", 2, 10, 1))}
+    for label, t in bank_times.items():
+        log(f"{label} on the partition layout: {json.dumps(t)}")
     phase_done("kernel times")
     prof = {label: profile_blocks(spec, B, 8, seed=3, device=device)
             for label, spec in (("main", main_spec), ("lazy", lazy_spec),
                                 ("path_a", a_spec), ("path_b", b_spec),
-                                ("quantile", q_specs["sspm"]))}
+                                ("quantile", q_specs["sspm"]),
+                                ("bank", dataclasses.replace(
+                                    main_spec, backend="bank")))}
     log(f"profile of the sessions: {json.dumps(prof)}")
     for label, p in prof.items():
         log(f"profile {label}: " + "; ".join(
@@ -2605,6 +2850,7 @@ def main() -> int:
         kernel_times=times,
         fused_times_lazy_block=times_fused_lazy,
         residual_times_path_b=times_b, residual_times_lazy_block=times_lazy,
+        fused_times_partition=bank_times,
         serial_paths=serial_by_path, quantile=q_extra, elapsed_s=elapsed,
         quantile_kernel_times=q_times,
         profile=prof, attention=attention,

@@ -35,8 +35,7 @@ def spec_for(d: Dict[str, Any], variant: str = "sspm",
     if probe.kind == "quantile":
         k = int((ids != BLOCKED).sum()) // (shards or 1)
         spec = SketchSpec(kind="quantile", k=k, variant=variant,
-                          shards=shards or None, bits=ids.shape[-2],
-                          backend="bank" if shards else "kernel")
+                          shards=shards or None, bits=ids.shape[-2])
     else:
         spec = SketchSpec(k=int(ids.size), variant=variant,
                           shards=shards or None, bits=bits)

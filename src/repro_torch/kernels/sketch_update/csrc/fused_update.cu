@@ -11,6 +11,9 @@
 //   5. (SS±, variant 2) the unmonitored deletion weight drains greedily
 //      from the maximum-error slots.
 // Steps 4-5 are bank.residual_phase_banked, which kernel 2 computes alone.
+// A row reads its residual inserts from one flat grouped layout at its own
+// offset: the dense prep's (R, B) rows, row r at r * B, or the partition
+// prep's runs back to back (bank._fused_partition, reference bank.py:560).
 //
 // The same file holds kernel 2, residual_banked_kernel: steps 4-5 alone,
 // for the split path whose phase 1 ran in torch. It replaces the Pallas
@@ -174,7 +177,10 @@ __device__ int water_level(const int* ct, const int* cmin, int K, int lo,
   // gets there first: while hi - lo >= 1 each trip shrinks [lo, hi] to at
   // most half, rounded up; from hi == lo a trip is fixed (probe true) or
   // moves lo to hi + 1 (false), which is fixed. That is at most
-  // bit_length(m) + 1 trips, and m <= B <= R*B.
+  // bit_length(m) + 1 trips, and m <= G, the flat layout's length, whose
+  // bit_length(G) + 1 trips the reference runs: a row's m units are
+  // entries of its own run (m <= B <= R*B = G in the dense layout, m <=
+  // G = B in the partition layout).
   for (int buf = 0;; buf ^= 1) {
     // the thresholds of the next kLevels trips: node n's interval and
     // midpoint, its children 2n + 1 (probe true) and 2n + 2 (false)
@@ -251,8 +257,8 @@ __global__ void __launch_bounds__(kThreads) fused_update_kernel(
     const int* __restrict__ delta, const int* __restrict__ h_uids,
     const int* __restrict__ h_net, const int* __restrict__ i0,
     const int* __restrict__ mu, const int* __restrict__ nnu,
-    const int* __restrict__ w_del, int* __restrict__ scratch, int K, int B,
-    int variant) {
+    const int* __restrict__ w_del, const int* __restrict__ uoff,
+    int* __restrict__ scratch, int K, int G, int variant) {
   extern __shared__ int4 smem4[];
   __shared__ FusedScratch sh;
   const int r = blockIdx.x;
@@ -263,9 +269,12 @@ __global__ void __launch_bounds__(kThreads) fused_update_kernel(
   int* gct = counts + base;
   int* ger = errors + base;
   const int* rd = delta + base;
-  // the grouped layout is one flat (R*B,) array; row r's run starts at r*B
-  const int g_last = gridDim.x * B - 1;
-  const int row0 = r * B;
+  // the grouped layout is one flat (G,) array; row r's run starts at
+  // uoff[r], or with no uoff (the dense prep's (R, B) rows, G = R * B) at
+  // r * B; every read clips to the array, as the reference's bank phases
+  // clip to the whole array
+  const int g_last = G - 1;
+  const int row0 = uoff != nullptr ? uoff[r] : r * (G / gridDim.x);
   const int n_fill = i0[r], m = mu[r], nn = nnu[r];
   const int rem = variant == 1 ? 0 : w_del[r];
   const bool staged = K <= kFusedStageSlots;
@@ -573,7 +582,9 @@ int staged_bytes(int K) { return 4 * (2 * ((K + 3) & ~3) + chunks(K)); }
 
 }  // namespace
 
-// C entry point of kernel 1 (bound with ctypes). Launches on `stream`,
+// C entry point of kernel 1 (bound with ctypes). `h_uids`/`h_net` are the
+// flat (G,) grouped layout, row r's run from `uoff[r]` (`uoff` NULL: the
+// (R, B) rows, G = R * B, row r's run at r * B). Launches on `stream`,
 // returns cudaGetLastError() as an int (0 = launched). `layout` is the
 // caller's name for the layout of rows of K slots and `scratch` holds
 // `n_scratch` ints; a launch where either disagrees with what this file
@@ -582,9 +593,10 @@ extern "C" int sketch_fused_update(void* ids, void* counts, void* errors,
                                    const void* delta, const void* h_uids,
                                    const void* h_net, const void* i0,
                                    const void* mu, const void* nnu,
-                                   const void* w_del, void* scratch, int R,
-                                   int K, int B, int variant, int layout,
-                                   int n_scratch, void* stream) {
+                                   const void* w_del, const void* uoff,
+                                   void* scratch, int R, int K, int G,
+                                   int variant, int layout, int n_scratch,
+                                   void* stream) {
   if (layout != fused_layout(K) || n_scratch < fused_scratch_ints(R, K))
     return static_cast<int>(cudaErrorInvalidValue);
   const int bytes = layout == 0 ? staged_bytes(K) : 0;
@@ -596,7 +608,8 @@ extern "C" int sketch_fused_update(void* ids, void* counts, void* errors,
       static_cast<const int*>(h_uids), static_cast<const int*>(h_net),
       static_cast<const int*>(i0), static_cast<const int*>(mu),
       static_cast<const int*>(nnu), static_cast<const int*>(w_del),
-      static_cast<int*>(scratch), K, B, variant);
+      static_cast<const int*>(uoff), static_cast<int*>(scratch), K, G,
+      variant);
   return static_cast<int>(cudaGetLastError());
 }
 

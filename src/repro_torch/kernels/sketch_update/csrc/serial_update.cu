@@ -14,6 +14,10 @@
 //          it.
 // The adds are the reference's plain int32 adds, which wrap: they are
 // taken in unsigned 32-bit here (signed overflow is undefined in CUDA).
+// With `saturate` set, the two insert adds (a monitored slot's count + w,
+// and mc + w) saturate at +-(2^31 - 1) instead: the reference's
+// blocks.apply_update (sat_add), which its serial backend
+// (blocks.block_update_serial) and process_stream scan item by item.
 //
 // Design: the paper's efficient implementation, not a rescan per item.
 // The four answers an item needs come from structures kept beside the
@@ -403,13 +407,15 @@ __device__ __forceinline__ void place(View& v, int j, int id, int c, int e) {
   if (e != old_e) refresh<true>(v, j, e);
 }
 
-__device__ __forceinline__ void apply(View& v, int item, int w, int variant) {
+__device__ __forceinline__ void apply(View& v, int item, int w, int variant,
+                                      bool saturate) {
   int val = 0;
   const unsigned pos = item >= 0 ? find(v, item, val) : kNone;
   const int mon = pos != kNone ? (val & kSlotMask) : -1;
   if (w > 0) {
     if (mon >= 0) {
-      const int c = wrap_add(v.counts[mon], w);
+      const int c = saturate ? sat_add(v.counts[mon], w)
+                             : wrap_add(v.counts[mon], w);
       v.counts[mon] = c;
       refresh<false>(v, mon, c);
       return;
@@ -420,7 +426,7 @@ __device__ __forceinline__ void apply(View& v, int item, int w, int variant) {
     } else {
       int mc;
       top<false>(v, mc, j);
-      place(v, j, item, wrap_add(mc, w), mc);
+      place(v, j, item, saturate ? sat_add(mc, w) : wrap_add(mc, w), mc);
     }
     return;
   }
@@ -450,7 +456,7 @@ template <bool kShared>
 __global__ void __launch_bounds__(kThreads) serial_kernel(
     int* __restrict__ ids, int* __restrict__ counts, int* __restrict__ errors,
     const int* __restrict__ items, const int* __restrict__ weights,
-    int* __restrict__ scratch, Plan plan, int B, int variant) {
+    int* __restrict__ scratch, Plan plan, int B, int variant, bool saturate) {
   extern __shared__ int4 smem4[];
   int* smem = reinterpret_cast<int*>(smem4);
   View v = make_view<kShared>(plan, smem, scratch, ids, counts, errors);
@@ -508,7 +514,8 @@ __global__ void __launch_bounds__(kThreads) serial_kernel(
       for (int i = 0; i < m; ++i) {
         const int w = __shfl_sync(kFull, wt, i);
         const int item = __shfl_sync(kFull, it, i);
-        if (w != 0) apply(v, item, w, variant);  // 0: padding, no change
+        // 0: padding, no change
+        if (w != 0) apply(v, item, w, variant, saturate);
       }
       it = it_next;
       wt = wt_next;
@@ -537,7 +544,7 @@ long long smem_budget() {
 template <bool kShared>
 cudaError_t launch(int* ids, int* counts, int* errors, const int* items,
                    const int* weights, int* scratch, const Plan& plan, int B,
-                   int variant, cudaStream_t stream) {
+                   int variant, bool saturate, cudaStream_t stream) {
   if (plan.smem_bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         serial_kernel<kShared>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -545,7 +552,8 @@ cudaError_t launch(int* ids, int* counts, int* errors, const int* items,
     if (err != cudaSuccess) return err;
   }
   serial_kernel<kShared><<<1, kThreads, plan.smem_bytes, stream>>>(
-      ids, counts, errors, items, weights, scratch, plan, B, variant);
+      ids, counts, errors, items, weights, scratch, plan, B, variant,
+      saturate);
   return cudaGetLastError();
 }
 
@@ -558,12 +566,13 @@ extern "C" long long sketch_serial_scratch_ints(int n) {
 }
 
 // C entry point (bound with ctypes). n is a multiple of 128; `scratch`
-// holds sketch_serial_scratch_ints(n) ints. Launches on `stream`, returns
-// a cudaError_t as an int (0 = launched).
+// holds sketch_serial_scratch_ints(n) ints; `saturate` (0 or 1) picks the
+// insert adds (see the top). Launches on `stream`, returns a cudaError_t
+// as an int (0 = launched).
 extern "C" int sketch_serial_update(void* ids, void* counts, void* errors,
                                     const void* items, const void* weights,
                                     void* scratch, int n, int B, int variant,
-                                    void* stream) {
+                                    int saturate, void* stream) {
   if (n < 128 || n % 128 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const Plan plan = make_plan(n, smem_budget());
@@ -575,6 +584,8 @@ extern "C" int sketch_serial_update(void* ids, void* counts, void* errors,
   auto* w = static_cast<const int*>(weights);
   auto* scr = static_cast<int*>(scratch);
   return static_cast<int>(
-      plan.shared ? launch<true>(i, c, e, it, w, scr, plan, B, variant, st)
-             : launch<false>(i, c, e, it, w, scr, plan, B, variant, st));
+      plan.shared
+          ? launch<true>(i, c, e, it, w, scr, plan, B, variant, saturate, st)
+          : launch<false>(i, c, e, it, w, scr, plan, B, variant, saturate,
+                          st));
 }

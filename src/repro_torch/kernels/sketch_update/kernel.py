@@ -129,32 +129,43 @@ def _check_variant(variant: int) -> None:
 
 
 def sketch_update_kernel_fused(ids, counts, errors, delta, h_uids, h_net,
-                               i0, mu, nnu, w_del, *, variant: int = 2):
+                               i0, mu, nnu, w_del, uoff=None, *,
+                               variant: int = 2):
     """Apply one block's per-cell update to the (R, K) bank in place.
 
-    ``ids, counts, errors, delta``: (R, K) int32; ``h_uids, h_net``:
-    (R, B) int32 grouped residual layout per row; ``i0, mu, nnu,
-    w_del``: (R,) int32 per-row scalars (``bank.phase1_dense_prep``).
-    Returns ``(ids, counts, errors)``, the same tensors, updated.
+    ``ids, counts, errors, delta``: (R, K) int32; ``i0, mu, nnu, w_del``:
+    (R,) int32 per-row scalars. The grouped residual layout ``h_uids,
+    h_net``: (R, B) int32, row r's run at ``r * B``
+    (``bank.phase1_dense_prep``; ``uoff`` None), or flat (G,) int32 with
+    ``uoff`` (R,) int32 the start of each row's run
+    (``bank.phase1_partition_prep``). Returns ``(ids, counts, errors)``,
+    the same tensors, updated.
     """
     R, K = ids.shape
-    B = h_uids.shape[1]
+    flat = uoff is not None
+    B = h_uids.shape[-1]
+    G = B if flat else R * B
     named = dict(ids=ids, counts=counts, errors=errors, delta=delta,
                  h_uids=h_uids, h_net=h_net, i0=i0, mu=mu, nnu=nnu,
                  w_del=w_del)
+    if flat:
+        named["uoff"] = uoff
+    run = (B,) if flat else (R, B)
     shapes = dict(ids=(R, K), counts=(R, K), errors=(R, K), delta=(R, K),
-                  h_uids=(R, B), h_net=(R, B), i0=(R,), mu=(R,), nnu=(R,),
-                  w_del=(R,))
+                  h_uids=run, h_net=run, i0=(R,), mu=(R,), nnu=(R,),
+                  w_del=(R,), uoff=(R,))
     _check("sketch_update_kernel_fused", named, shapes, ids.device)
     _check_variant(variant)
-    _check_sizes("sketch_update_kernel_fused", R, K, B, R * B, R * K)
+    _check_sizes("sketch_update_kernel_fused", R, K, B, G, R * K)
     layout = fused_layout(K)
     # the unstaged rows' chunk minima
     scratch, n = _scratch(R * -(-K // 32) if layout == "unstaged" else 0,
                           ids.device)
-    _launch(entry_point("fused_update.cu", "sketch_fused_update", 11, 6),
-            [*named.values(), scratch],
-            (R, K, B, variant, FUSED_LAYOUTS.index(layout), n), ids.device,
+    _launch(entry_point("fused_update.cu", "sketch_fused_update", 12, 6),
+            # NULL uoff: the (R, B) rows back to back, row r's run at r * B
+            [ids, counts, errors, delta, h_uids, h_net, i0, mu, nnu, w_del,
+             uoff if flat else 0, scratch],
+            (R, K, G, variant, FUSED_LAYOUTS.index(layout), n), ids.device,
             "fused_update")
     sketch_update_kernel_fused.launches[layout] += 1
     return ids, counts, errors
@@ -227,12 +238,14 @@ def sketch_residual_kernel(ids2, cnt2, err2, r_uids, r_net, start, n_ins,
 
 
 def sketch_update_kernel_serial(ids2, cnt2, err2, items, weights, *,
-                                variant: int = 2):
+                                variant: int = 2, saturate: bool = False):
     """One update per raw item, in order, on one sketch in place.
 
     ``ids2, cnt2, err2``: (R, 128) int32 row view (``phases.pad_rows``);
     ``items, weights``: (B,) int32, weights signed (0 = padding).
-    Returns ``(ids2, cnt2, err2)``, updated.
+    ``saturate``: the insert adds saturate, as ``blocks.apply_update``'s
+    (the serial backend), instead of wrapping as the reference's serial
+    Pallas kernel's. Returns ``(ids2, cnt2, err2)``, updated.
     """
     R, lanes = ids2.shape
     B = items.shape[0]
@@ -250,9 +263,9 @@ def sketch_update_kernel_serial(ids2, cnt2, err2, items, weights, *,
         n_scratch = _serial_scratch_ints()(n)
     scratch = torch.empty(max(n_scratch, 1), dtype=torch.int32,
                           device=ids2.device)
-    _launch(entry_point("serial_update.cu", "sketch_serial_update", 6, 3),
-            [*named.values(), scratch], (n, B, variant), ids2.device,
-            "serial_update")
+    _launch(entry_point("serial_update.cu", "sketch_serial_update", 6, 4),
+            [*named.values(), scratch], (n, B, variant, int(saturate)),
+            ids2.device, "serial_update")
     sketch_update_kernel_serial.launches += 1
     return ids2, cnt2, err2
 

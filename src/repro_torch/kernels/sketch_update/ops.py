@@ -11,9 +11,15 @@ never modified: the kernels update fresh padded copies in place.
   bank, and at the INT_MAX rail the water-fill counts BLOCKED slots
   among its candidates, so the port pads the same way), the prep
   ``bank.phase1_dense_prep``, then the fused per-cell update;
+- ``sketch_block_update_partition``: the partition core's update of
+  one raw block (the reference's ``bank._fused_partition``, the
+  ``"bank"`` backend of the frequency kind): pad, the partition prep
+  ``bank.phase1_partition_prep``, then the fused per-cell update reading
+  each row's run of the one grouped layout at its offset;
 - ``sketch_block_update_stream`` (:196): an (NB, B) stream of raw
-  blocks, routed, prepped and updated block after block on a bank
-  padded once, with no host round trip between blocks;
+  blocks, prepped (a dense router's routed first) and updated block
+  after block on a bank padded once, with no host round trip between
+  blocks;
 - ``sketch_block_update_banked`` (:107): ``bank.phase1_dense`` in torch,
   then one banked phase-2 launch over the padded bank (the split path);
 - ``sketch_block_update_batched`` (:247) and ``sketch_block_update``
@@ -30,7 +36,8 @@ from __future__ import annotations
 
 import torch
 
-from ...sketch.bank import phase1_dense, phase1_dense_prep
+from ...sketch.bank import (phase1_dense, phase1_dense_prep,
+                           phase1_partition_prep)
 from ...sketch.blocks import _phase1
 from ...sketch.phases import pad_rows
 from ...sketch.state import BLOCKED, I32, INT_MAX, LANES, SketchState
@@ -88,19 +95,56 @@ def sketch_block_update_fused(bank: SketchState, row_items: torch.Tensor,
     return block_update_with(update, bank, row_items, row_weights, variant)
 
 
+def prep_partition(bank: SketchState, items: torch.Tensor,
+                   weights: torch.Tensor, router, variant: int):
+    """The per-cell update's inputs for one raw block under a partition
+    router: the padded copy of the bank and ``phase1_partition_prep``'s
+    ``(delta, h_uids, h_net, i0, mu, nnu, w_del, uoff)``."""
+    padded = _pad_bank(bank)
+    return padded, phase1_partition_prep(padded, items, weights, router,
+                                         variant)
+
+
+def partition_update_with(update, bank: SketchState, items: torch.Tensor,
+                          weights: torch.Tensor, router,
+                          variant: int) -> SketchState:
+    """Pad, the partition prep, ``update`` (the fused kernel or
+    ``fused_update_ref``, each reading row r's run from ``uoff[r]``), then
+    slice the padding off."""
+    k = bank.ids.shape[1]
+    padded, prep = prep_partition(bank, items, weights, router, variant)
+    ids, counts, errors = update(*padded, *prep, variant=variant)
+    return SketchState(ids[:, :k], counts[:, :k], errors[:, :k])
+
+
+def sketch_block_update_partition(bank: SketchState, items: torch.Tensor,
+                                  weights: torch.Tensor, router,
+                                  variant: int = 2) -> SketchState:
+    """Whole-bank update of one raw (B,) block under a partition router
+    (the reference's ``bank._fused_partition``): the partition prep, then
+    kernel 1 (one launch per block) for CUDA banks, its plain version for
+    CPU banks. Bit-identical to the reference's partition core."""
+    update = (sketch_update_kernel_fused if bank.ids.is_cuda
+              else fused_update_ref)
+    return partition_update_with(update, bank, items, weights, router,
+                                 variant)
+
+
 def sketch_block_update_stream(bank: SketchState, blocks_items: torch.Tensor,
                                blocks_weights: torch.Tensor, router,
                                variant: int = 2) -> SketchState:
     """Multi-block ingest of an (NB, B) stream of raw blocks (reference
-    :196): per block, route -> prep -> the fused update, the bank padded
-    once and carried padded from block to block.
+    :196): per block, the prep -> the fused update, the bank padded once
+    and carried padded from block to block. A partition router's blocks
+    go through the partition prep as they are; a dense router's are
+    routed to their (R, B) views first.
 
     On the card the blocks move to the device in one copy (none if they
     are there already) and each block is one launch sequence on the
     caller's stream, with no host synchronisation between blocks: the
     prep of block i+1 queues behind block i's kernel. On the CPU it is
-    the plain fold. Bit-identical to folding ``sketch_block_update_fused``
-    over the routed blocks (prep reads only the ids, and the kernel never
+    the plain fold. Bit-identical to folding ``bank.update_block_fused``
+    over the blocks (prep reads only the ids, and the kernel never
     touches the BLOCKED padding, so padding once is padding per block).
     """
     R, k = bank.ids.shape
@@ -112,8 +156,13 @@ def sketch_block_update_stream(bank: SketchState, blocks_items: torch.Tensor,
                                        non_blocking=True)
     carry = _pad_bank(bank)
     for items, weights in zip(blocks_items, blocks_weights):
-        prep = phase1_dense_prep(carry, *router.route_dense(items, weights),
-                                 variant)
+        if router.kind == "partition":
+            prep = phase1_partition_prep(carry, items, weights, router,
+                                         variant)
+        else:
+            prep = phase1_dense_prep(carry, *router.route_dense(items,
+                                                                weights),
+                                     variant)
         carry = SketchState(*update(*carry, *prep, variant=variant))
     return SketchState(*(t[:, :k] for t in carry))
 
@@ -179,13 +228,18 @@ def sketch_block_update(state: SketchState, items: torch.Tensor,
 
 
 def serial_update_with(update, state: SketchState, items: torch.Tensor,
-                       weights: torch.Tensor, variant: int) -> SketchState:
+                       weights: torch.Tensor, variant: int,
+                       saturate: bool = False) -> SketchState:
     """The (R, LANES) row view of one (k,) sketch, ``update`` (the serial
-    kernel or ``serial_update_ref``) over the raw block, then (k,) back."""
+    kernel or ``serial_update_ref``) over the (B,) items in order, then
+    (k,) back. ``saturate``: the insert adds saturate, as
+    ``blocks.apply_update``'s (``blocks.process_stream`` and
+    ``block_update_serial``), not wrap as the reference's serial Pallas
+    kernel's (``sketch_block_update_serial``)."""
     k = state.ids.shape[0]
     ids2, cnt2, err2 = update(
         *pad_rows(*state), items.to(I32).contiguous(),
-        weights.to(I32).contiguous(), variant=variant)
+        weights.to(I32).contiguous(), variant=variant, saturate=saturate)
     return SketchState(*(t.reshape(-1)[:k] for t in (ids2, cnt2, err2)))
 
 
@@ -200,7 +254,8 @@ def sketch_block_update_serial(state: SketchState, items: torch.Tensor,
 
 
 __all__ = ["prep_block", "block_update_with", "sketch_block_update_fused",
-           "sketch_block_update_stream",
+           "prep_partition", "partition_update_with",
+           "sketch_block_update_partition", "sketch_block_update_stream",
            "banked_update_with", "sketch_block_update_banked",
            "split_update_with", "sketch_block_update_batched",
            "sketch_block_update", "serial_update_with",

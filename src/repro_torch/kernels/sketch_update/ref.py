@@ -6,7 +6,9 @@ CPU tensors; ``chip_smoke.py`` holds each kernel against its plain
 version on the card.
 
 - ``fused_update_ref``: the fused bank update (``csrc/fused_update.cu``,
-  reference ``_fused_kernel_tile``, ``kernel.py:75``);
+  reference ``_fused_kernel_tile``, ``kernel.py:75``), on the dense
+  prep's (R, B) layout or the partition prep's flat one with per-row
+  offsets;
 - ``residual_phase_banked`` (``sketch/bank.py``): the banked phase 2
   (kernel 2 of ``fused_update.cu``, reference ``_residual_kernel_banked``);
 - ``residual_phase`` (``sketch/phases.py``): phase 2 of stacked single
@@ -21,24 +23,29 @@ import torch
 
 from ...sketch.bank import phase1_apply, residual_phase_banked
 from ...sketch.phases import residual_phase
-from ...sketch.state import I32, VARIANT_LAZY, SketchState
+from ...sketch.state import I32, INT_MAX, VARIANT_LAZY, SketchState
 
 
 def fused_update_ref(ids, counts, errors, delta, h_uids, h_net, i0, mu, nnu,
-                     w_del, variant: int = 2):
+                     w_del, uoff=None, variant: int = 2):
     """One block's per-cell update of the (R, K) bank.
 
-    ``h_uids``/``h_net``: (R, B) grouped residual layout per row; ``i0,
-    mu, nnu, w_del``: (R,) per-row scalars from ``bank.phase1_dense_prep``.
-    Returns new ``(ids, counts, errors)``; the inputs are not modified.
+    ``h_uids``/``h_net``: the grouped residual layout, (R, B) with row r's
+    run at ``r * B`` (the dense prep, ``bank.phase1_dense_prep``), or flat
+    (G,) with row r's run at ``uoff[r]`` (the partition prep,
+    ``bank.phase1_partition_prep``); ``i0, mu, nnu, w_del``: (R,) per-row
+    scalars. Returns new ``(ids, counts, errors)``; the inputs are not
+    modified.
     """
-    R, B = h_uids.shape
+    if uoff is None:
+        R, B = h_uids.shape
+        uoff = torch.arange(R, dtype=I32, device=ids.device) * B
+        h_uids, h_net = h_uids.reshape(-1), h_net.reshape(-1)
     ids, counts, errors = phase1_apply(SketchState(ids, counts, errors),
-                                       delta, h_uids, h_net, i0, mu, nnu)
-    uoff = torch.arange(R, dtype=I32, device=ids.device) * B
-    return residual_phase_banked(ids, counts, errors, h_uids.reshape(-1),
-                                 h_net.reshape(-1), uoff, mu, mu + nnu, w_del,
-                                 variant)
+                                       delta, h_uids, h_net, i0, mu, nnu,
+                                       uoff)
+    return residual_phase_banked(ids, counts, errors, h_uids, h_net, uoff,
+                                 mu, mu + nnu, w_del, variant)
 
 
 def _wrap32(x: int) -> int:
@@ -46,11 +53,19 @@ def _wrap32(x: int) -> int:
     return (x + 2**31) % 2**32 - 2**31
 
 
-def serial_update_ref(ids2, cnt2, err2, items, weights, variant: int = 2):
+def _sat32(x: int) -> int:
+    """Python int clamped to +-(2**31 - 1), as ``state.sat_add`` clamps."""
+    return max(-INT_MAX, min(INT_MAX, x))
+
+
+def serial_update_ref(ids2, cnt2, err2, items, weights, variant: int = 2,
+                      saturate: bool = False):
     """The raw items applied one at a time, in order, to one (R, 128)
     sketch: the reference's ``_apply_one`` per item, its ``jnp.where``
-    selects written as branches. Its int32 adds wrap. Returns new
-    tensors; the inputs are not modified."""
+    selects written as branches. Its int32 adds wrap; with ``saturate``
+    the two insert adds saturate, as ``blocks.apply_update``'s. Returns
+    new tensors; the inputs are not modified."""
+    add = _sat32 if saturate else _wrap32
     shape = ids2.shape
     ids, counts, errors = (t.reshape(-1).clone() for t in (ids2, cnt2, err2))
     for item, w in zip(items.tolist(), weights.tolist()):
@@ -61,7 +76,8 @@ def serial_update_ref(ids2, cnt2, err2, items, weights, variant: int = 2):
         eq = (ids == item) & (ids >= 0)
         if bool(eq.any()):                       # monitored: add w
             j = int(torch.argmax(eq.to(I32)))
-            counts[j] = _wrap32(int(counts[j]) + (w if w > 0 else -wd))
+            counts[j] = (add(int(counts[j]) + w) if w > 0
+                         else _wrap32(int(counts[j]) - wd))
         elif w > 0:
             empty = ids == -1
             if bool(empty.any()):                # the first EMPTY slot
@@ -70,7 +86,7 @@ def serial_update_ref(ids2, cnt2, err2, items, weights, variant: int = 2):
             else:                                # evict the minimum count
                 j = int(torch.argmin(counts))
                 mc = int(counts[j])
-                ids[j], counts[j], errors[j] = item, _wrap32(mc + w), mc
+                ids[j], counts[j], errors[j] = item, add(mc + w), mc
         elif variant != VARIANT_LAZY:            # SS±: spread the deletion
             rem = wd
             while rem > 0:

@@ -1,20 +1,26 @@
 """One spec-driven front-end over the port's SpaceSaving± layouts.
 
-Counterpart of ``repro/sketch/api.py`` for the layouts this port has,
-each with ``variant`` "sspm" or "lazy":
+Counterpart of ``repro/sketch/api.py`` for the base layouts, each with
+``variant`` "sspm" or "lazy", on every backend the reference runs them:
 
 - ``kind="frequency"``, plain (``shards=None``) or hash-sharded
-  (``shards=S``), on the fused-kernel backend (``"kernel"``) or the
-  two-phase block backend (``"block"``);
+  (``shards=S``), on ``"bank"`` (the default: the partition core,
+  kernel 1 on the card), ``"block"`` (the two-phase block update),
+  ``"kernel"`` (the fused kernel on the routed views) or ``"serial"``
+  (the scan over each block's uniques; sharded, the per-shard oracle);
 - ``kind="quantile"`` (Dyadic SpaceSaving±, ``sketch/dyadic.py``) on
-  ``"kernel"``, ``"bank"`` (the dense core) or ``"block"``, and its
-  shard × level bank (``shards=S``, ``sketch/dyadic_sharded.py``) on
-  ``"bank"``, with the rank and quantile queries.
+  ``"bank"`` (the dense core), ``"block"``, ``"kernel"`` or
+  ``"serial"``, and its shard × level bank (``shards=S``,
+  ``sketch/dyadic_sharded.py``) on ``"bank"``, with the rank and
+  quantile queries.
 
-``SketchSpec`` keeps the reference's field names; a value the reference
-has and the port lacks raises ``NotImplementedError`` naming the
-ROADMAP.md item that ports it. Checkpoints are the reference's tagged
-numpy dicts, so a state saved by either package restores in the other.
+``SketchSpec`` keeps the reference's fields and defaults; a value the
+reference has and the port lacks (the family variants and CR-precis,
+ROADMAP.md Queue 1 item 11; ``tenants``, item 12) raises
+``NotImplementedError`` naming its item. Adapters are looked up in a
+registry keyed as the reference's (``register_adapter``,
+``adapter_for``). Checkpoints are the reference's tagged numpy dicts, so
+a state saved by either package restores in the other.
 """
 from __future__ import annotations
 
@@ -39,8 +45,8 @@ from .state import VARIANT_LAZY, VARIANT_SSPM, SketchState
 
 KINDS = ("frequency", "quantile")
 VARIANTS = {"sspm": VARIANT_SSPM, "lazy": VARIANT_LAZY}
-# the reference's backend values (api.py:73); backends_for says which a
-# layout runs in the port
+# the reference's family variants (api.py:72): their specs raise
+FAMILY_VARIANTS = ("double", "unbiased")
 BACKENDS = ("bank", "block", "kernel", "serial")
 
 # the reference's integer layout tags (api.py:79-82)
@@ -55,10 +61,6 @@ _NOT_PORTED = {
     "unbiased": _FAMILY,
     "crprecis": _FAMILY,
     "tenants": "ROADMAP.md Queue 1 item 12 (sketch/tenant.py)",
-    "bank": "ROADMAP.md Queue 1 item 5 (bank._fused_partition, the "
-            "partition core)",
-    "serial": "ROADMAP.md Queue 1 item 4 (blocks.block_update_serial, the "
-              "serial backend)",
 }
 
 
@@ -76,9 +78,13 @@ class SketchSpec:
     Thm 2/4 and §4.2 prescriptions). ``bits`` bounds the item universe to
     [0, 2^bits): required for quantile kinds (it fixes the layer count),
     optional for frequency kinds (it enables the packed single-sort
-    router). ``backend`` picks the execution path, not the result: every
-    backend of a spec gives the same state, bit for bit, the CUDA kernels
-    on the card and their plain PyTorch versions on the CPU.
+    router). ``backend`` picks the execution path: ``"bank"`` (the
+    default, the reference's production path), ``"block"`` and
+    ``"kernel"`` give the same state, bit for bit, the CUDA kernels on
+    the card and their plain PyTorch versions on the CPU; ``"serial"``,
+    the reference's A/B baseline, scans each block's uniques in id order
+    and so differs from them where a block evicts (as the reference's
+    does).
     ``backends_for(kind, shards)`` lists what a layout runs.
     """
 
@@ -89,7 +95,7 @@ class SketchSpec:
     variant: str = "sspm"
     shards: Optional[int] = None
     bits: Optional[int] = None
-    backend: str = "kernel"
+    backend: str = "bank"
     tenants: Optional[int] = None
     tenant_caps: Optional[Tuple[int, ...]] = None
 
@@ -97,7 +103,7 @@ class SketchSpec:
         if self.kind not in KINDS:
             raise ValueError(
                 f"SketchSpec.kind must be one of {KINDS}, got {self.kind!r}")
-        if self.variant in ("double", "unbiased"):
+        if self.variant in FAMILY_VARIANTS:
             if self.kind != "frequency":
                 raise ValueError(
                     f"variant={self.variant!r} (the Double/unbiased "
@@ -126,11 +132,9 @@ class SketchSpec:
                 "[0, 2^bits) fixes the layer count)")
         if self.shards is not None and self.shards < 1:
             raise ValueError(f"shards must be >= 1 or None, got {self.shards}")
-        supported = backends_for(self.kind, self.shards)
+        supported = backends_for(self.kind, self.shards, self.variant,
+                                 self.tenants)
         if self.backend not in supported:
-            if self.backend in _reference_backends(self.kind, self.shards):
-                _not_ported(f"backend={self.backend!r} for "
-                            f"kind={self.kind!r}", self.backend)
             raise ValueError(
                 f"backend {self.backend!r} is not supported for "
                 f"kind={self.kind!r}, shards={self.shards}, "
@@ -162,20 +166,30 @@ class SketchSpec:
             self.bits, total_counters=self.k, eps=self.eps, alpha=self.alpha)
 
 
-def _reference_backends(kind: str, shards: Optional[int]) -> Tuple[str, ...]:
-    """The backends the reference runs a base layout on (api.py:243)."""
-    return ("bank",) if kind == "quantile" and shards else BACKENDS
+def backends_for(kind: str, shards: Optional[int], variant: str = "sspm",
+                 tenants: Optional[int] = None) -> Tuple[str, ...]:
+    """The execution paths a (kind, sharded?, variant, tenants?) layout
+    supports, as the reference's (``api.py:243``): every backend for the
+    base layouts but the sharded quantile bank (``"bank"`` only), CR-
+    precis beside them for plain sspm frequency specs, ``"bank"`` for the
+    family and tenant layouts. The port runs all of them but CR-precis,
+    the family and the tenants (ROADMAP.md Queue 1 items 11 and 12),
+    whose specs raise."""
+    if tenants or variant in FAMILY_VARIANTS:
+        return ("bank",) if kind == "frequency" else ()
+    if kind == "quantile" and shards:
+        return ("bank",)
+    if kind == "frequency" and not shards:
+        return BACKENDS + (("crprecis",) if variant == "sspm" else ())
+    return BACKENDS
 
 
-def backends_for(kind: str, shards: Optional[int]) -> Tuple[str, ...]:
-    """The execution paths the port runs a (kind, sharded?) layout on:
-    quantile banks on the dense core (``"bank"``), and unsharded also on
-    the fused kernel and the block backend; frequency layouts on the
-    fused kernel and the block backend (their ``"bank"`` is the partition
-    core, ROADMAP.md Queue 1 item 5; ``"serial"`` is item 4)."""
-    if kind == "quantile":
-        return ("bank",) if shards else ("bank", "block", "kernel")
-    return ("block", "kernel")
+def variants_for(kind: str) -> Tuple[str, ...]:
+    """Variant names a kind supports, as the reference's (``api.py:273``):
+    the family variants are frequency-only (and raise in the port, item
+    11)."""
+    return (tuple(VARIANTS) + FAMILY_VARIANTS if kind == "frequency"
+            else tuple(VARIANTS))
 
 
 # ---------------------------------------------------------------------------
@@ -314,15 +328,19 @@ class _FrequencyAdapter:
         return state.ids.device
 
     def update(self, spec, state, items, weights):
+        v = spec.variant_id
+        if spec.backend == "bank":
+            return bk.update_single(state, items, weights, v, spec.bits)
         if spec.backend == "block":
-            return blocks.block_update(state, items, weights, spec.variant_id)
-        # the flat sketch as a one-row bank, routed like the reference
-        # (api.py:419-431)
+            return blocks.block_update(state, items, weights, v)
+        if spec.backend == "serial":
+            return blocks.block_update_serial(state, items, weights, v)
+        # "kernel": the flat sketch as a one-row bank, routed like the
+        # reference (api.py:419-431)
         row_items, row_weights = HashShardRouter(1, spec.bits).route_dense(
             items, weights)
         bank1 = SketchState(*(t[None] for t in state))
-        out = sketch_block_update_fused(bank1, row_items, row_weights,
-                                        spec.variant_id)
+        out = sketch_block_update_fused(bank1, row_items, row_weights, v)
         return SketchState(*(t[0] for t in out))
 
     def query_many(self, spec, state, items):
@@ -353,7 +371,7 @@ class _ShardedFrequencyAdapter:
     """shards=S: the hash-partitioned ShardedSketch bank."""
 
     # spec backend -> sharded.update_block path name (api.py:466)
-    _PATHS = {"block": "vmap", "kernel": "kernel"}
+    _PATHS = {"bank": "auto", "block": "vmap", "kernel": "kernel"}
 
     def make(self, spec, device) -> shd.ShardedSketch:
         return shd.init(spec.capacity, spec.shards, device=device)
@@ -362,6 +380,10 @@ class _ShardedFrequencyAdapter:
         return state.bank.ids.device
 
     def update(self, spec, state, items, weights):
+        if spec.backend == "serial":
+            return shd.update_block_serial_reference(
+                state, items, weights, spec.variant_id,
+                universe_bits=spec.bits)
         return shd.update_block(state, items, weights, spec.variant_id,
                                 universe_bits=spec.bits,
                                 path=self._PATHS[spec.backend])
@@ -479,15 +501,42 @@ class _DyadicShardedAdapter:
                                        mass=_mass(d, device))
 
 
-# (kind, sharded?) -> adapter
-_ADAPTERS = {("frequency", False): _FrequencyAdapter(),
-             ("frequency", True): _ShardedFrequencyAdapter(),
-             ("quantile", False): _DyadicAdapter(),
-             ("quantile", True): _DyadicShardedAdapter()}
+# registry key (reference api.py:627): (kind, sharded?, axis, tenants?);
+# the axis tells same-kind layout families apart: "base" (the plain
+# store), "double"/"unbiased" (the family), "crprecis"
+_REGISTRY: Dict[Tuple[str, bool, str, bool], Any] = {}
+
+
+def spec_axis(spec: SketchSpec) -> str:
+    """The registry's layout-family axis of a spec."""
+    if spec.backend == "crprecis":
+        return "crprecis"
+    if spec.variant in FAMILY_VARIANTS:
+        return spec.variant
+    return "base"
+
+
+def register_adapter(kind: str, sharded: bool, adapter,
+                     axis: str = "base", tenants: bool = False) -> None:
+    """Plug a layout's adapter into the spec-driven surface."""
+    _REGISTRY[(kind, sharded, axis, tenants)] = adapter
 
 
 def adapter_for(spec: SketchSpec):
-    return _ADAPTERS[(spec.kind, spec.shards is not None)]
+    try:
+        return _REGISTRY[(spec.kind, spec.shards is not None,
+                          spec_axis(spec), spec.tenants is not None)]
+    except KeyError:
+        raise ValueError(
+            f"no adapter registered for kind={spec.kind!r}, "
+            f"sharded={spec.shards is not None}, axis={spec_axis(spec)!r}, "
+            f"tenants={spec.tenants is not None}") from None
+
+
+register_adapter("frequency", False, _FrequencyAdapter())
+register_adapter("frequency", True, _ShardedFrequencyAdapter())
+register_adapter("quantile", False, _DyadicAdapter())
+register_adapter("quantile", True, _DyadicShardedAdapter())
 
 
 # ---------------------------------------------------------------------------
@@ -603,8 +652,8 @@ def infer_spec(spec: SketchSpec, d: Dict[str, Any]) -> SketchSpec:
     (reference ``api.py:812``). An untagged dict is a quantile one where
     it holds ``mass``; a quantile spec without ``bits`` takes them from
     the dict's layer count. Where the stored layout does not run the
-    spec's backend, the backend becomes one it does. Layouts this port
-    lacks raise NotImplementedError."""
+    spec's backend, the backend becomes ``"bank"``, as the reference's
+    does. Layouts this port lacks raise NotImplementedError."""
     tag = int(np.asarray(d["layout"])) if "layout" in d else None
     if tag in (LAYOUT_DOUBLE, LAYOUT_CRPRECIS):
         _not_ported(f"a checkpoint with layout tag {tag}", "double")
@@ -627,9 +676,8 @@ def infer_spec(spec: SketchSpec, d: Dict[str, Any]) -> SketchSpec:
         changes["shards"] = shards
     if not changes:
         return spec
-    supported = backends_for(kind, shards)
-    if spec.backend not in supported:
-        changes["backend"] = "kernel" if "kernel" in supported else "bank"
+    if spec.backend not in backends_for(kind, shards, spec.variant):
+        changes["backend"] = "bank"
     return dataclasses.replace(spec, **changes)
 
 
@@ -676,9 +724,10 @@ def restore(spec: SketchSpec, d: Dict[str, Any], device=DEFAULT_DEVICE):
     return adapter_for(spec).restore(spec, d, resolve_device(device))
 
 
-__all__ = ["KINDS", "VARIANTS", "BACKENDS", "LAYOUT_FREQUENCY",
-           "LAYOUT_QUANTILE", "LAYOUT_DOUBLE", "LAYOUT_CRPRECIS",
-           "SketchSpec", "backends_for", "validate_block", "host_array",
+__all__ = ["KINDS", "VARIANTS", "FAMILY_VARIANTS", "BACKENDS",
+           "LAYOUT_FREQUENCY", "LAYOUT_QUANTILE", "LAYOUT_DOUBLE",
+           "LAYOUT_CRPRECIS", "SketchSpec", "backends_for", "variants_for",
+           "validate_block", "host_array", "spec_axis", "register_adapter",
            "adapter_for", "make", "update", "query_many", "query", "topk",
            "rank_many", "rank", "quantile_many", "quantile", "merge",
            "consolidate", "save", "infer_spec", "restore"]

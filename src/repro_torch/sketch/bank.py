@@ -1,16 +1,18 @@
 """Bank engine: the stacked (R, k) SketchState and its per-row phases.
 
-Counterpart of ``repro/sketch/bank.py`` for what the kernel and dense
-paths need: ``init`` (per-row capacities) and ``row_capacities``,
-``shard_of``, ``sort_block``, the routers (``HashShardRouter``,
-``DyadicLevelRouter``, ``ShardLevelRouter``), the framework-side prep
-``phase1_dense_prep`` (sorts, ``searchsorted``, grouping: plain torch
-ops here, as they stayed XLA outside the Pallas kernel), the banked
-residual loop ``residual_phase_banked``, the dense fused core
-(``update_rows``, ``update_block_fused`` for dense routers), the
-bank-wide reads ``query_rows``/``topk_bank`` and the reductions
-``merge_banks``/``consolidate``. The partition core
-(``_fused_partition``) is not ported yet (ROADMAP.md Queue 1 item 5).
+Counterpart of ``repro/sketch/bank.py``: ``init`` (per-row capacities)
+and ``row_capacities``, ``shard_of``, ``sort_block``, the routers
+(``HashShardRouter``, ``TenantRouter``, ``DyadicLevelRouter``,
+``ShardLevelRouter``), the framework-side preps ``phase1_dense_prep``
+and ``phase1_partition_prep`` (sorts, ``searchsorted``, grouping: plain
+torch ops here, as they stayed XLA outside the Pallas kernel), the
+banked residual loop ``residual_phase_banked``, the two fused cores
+under ``update_block_fused``: the partition core (``_fused_partition``,
+``update_single``; kernel 1 on the card) and the dense core
+(``update_rows``; kernel 2 on the card), the bank-wide reads
+``query_rows``/``topk_bank``/``topk_rows``, the reductions
+``merge_banks``/``consolidate`` and the Double SpaceSaving± hooks
+``split_signed``/``update_pair``.
 
 Row layout contract (as in the reference): BLOCKED slots (a row's tail
 past its capacity, and the column padding ``ops.py`` adds) hold INT_MAX
@@ -101,6 +103,24 @@ def sort_block(items: torch.Tensor, universe_bits: Optional[int]) -> torch.Tenso
     return torch.sort(items, stable=True).indices
 
 
+def _partition_route_dense(router, items: torch.Tensor,
+                           weights: torch.Tensor
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Shared partition routing (reference ``bank.py:143``): (B,) block ->
+    (R, B) row views. ONE shared sort, the sorted block broadcast to every
+    row with foreign weights masked to 0, so every row stays ascending and
+    aggregates to exactly its own (uid, net) multiset."""
+    items = items.to(I32)
+    weights = weights.to(I32)
+    order = sort_block(items, router.universe_bits)
+    s_items = items[order]
+    rows = torch.arange(router.num_rows, dtype=I32,
+                        device=items.device)[:, None]
+    w_routed = torch.where(router.owner_of(s_items)[None, :] == rows,
+                           weights[order][None, :], 0)
+    return s_items[None, :].expand(router.num_rows, -1), w_routed
+
+
 @dataclasses.dataclass(frozen=True)
 class HashShardRouter:
     """Partition router: row = lowbias32 hash shard; one owner row per id."""
@@ -118,18 +138,60 @@ class HashShardRouter:
 
     def route_dense(self, items: torch.Tensor, weights: torch.Tensor
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(B,) block -> (S, B) row views: ONE shared sort, the sorted block
-        broadcast to every row with foreign weights masked to 0."""
-        items = items.to(I32)
-        weights = weights.to(I32)
-        order = sort_block(items, self.universe_bits)
-        s_items = items[order]
-        s_w = weights[order]
-        rows = torch.arange(self.num_rows, dtype=I32,
-                            device=items.device)[:, None]
-        w_routed = torch.where(self.owner_of(s_items)[None, :] == rows,
-                               s_w[None, :], 0)
-        return s_items[None, :].expand(self.num_rows, -1), w_routed
+        """(B,) block -> (S, B): sorted block broadcast, foreign weights 0."""
+        return _partition_route_dense(self, items, weights)
+
+
+@dataclasses.dataclass(frozen=True)
+class TenantRouter:
+    """Partition router for multi-tenant banks (reference ``bank.py:193``):
+    row = tenant (× per-tenant hash shard), tenant-major.
+
+    Items are composite keys ``(tenant << item_bits) | item``; the owner
+    row is the tenant, or with ``num_shards > 1`` the tenant's rows
+    ``[t*S, (t+1)*S)`` picked by ``shard_of`` of the item part, so each
+    tenant's rows partition its stream as a per-tenant
+    ``HashShardRouter(num_shards)`` would.
+    """
+
+    num_tenants: int
+    item_bits: int
+    num_shards: int = 1
+    kind = "partition"
+
+    @property
+    def tenant_bits(self) -> int:
+        return (self.num_tenants - 1).bit_length()
+
+    @property
+    def universe_bits(self) -> int:
+        # the composite-key bound: packed single-sort eligibility
+        return self.item_bits + self.tenant_bits
+
+    @property
+    def num_rows(self) -> int:
+        return self.num_tenants * self.num_shards
+
+    @property
+    def monotone_owner(self) -> bool:
+        """The owner row is non-decreasing in composite-key order (one row
+        per tenant), so every row's entries form one contiguous run of the
+        sorted block: the partition core then ranks by prefix-sum
+        differences instead of (R, B) masks."""
+        return self.num_shards == 1
+
+    def owner_of(self, keys: torch.Tensor) -> torch.Tensor:
+        keys = keys.to(I32)
+        tenant = keys >> self.item_bits
+        if self.num_shards == 1:
+            return tenant
+        item = keys & ((1 << self.item_bits) - 1)
+        return tenant * self.num_shards + shard_of(item, self.num_shards)
+
+    def route_dense(self, items: torch.Tensor, weights: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(B,) block -> (T*S, B): sorted block broadcast, foreign 0."""
+        return _partition_route_dense(self, items, weights)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -288,18 +350,16 @@ def phase1_dense_prep(bank: SketchState, row_items: torch.Tensor,
     return delta, h_uids, h_net, i0, mu, nnu, w_del
 
 
-def phase1_apply(bank: SketchState, delta, h_uids, h_net, i0, mu, nnu):
-    """The per-cell half of phase 1 (reference ``bank.py:520-529``): the
-    saturating add of ``delta``, the bulk empty fill and the unit-weight
-    water-fill, every row reading the flat grouped layout at ``r * B``."""
-    R, B = h_uids.shape
-    flat_u = h_uids.reshape(-1)
-    flat_n = h_net.reshape(-1)
-    uoff = torch.arange(R, dtype=I32, device=bank.ids.device) * B
+def phase1_apply(bank: SketchState, delta, h_uids, h_net, i0, mu, nnu, uoff):
+    """The per-cell half of phase 1 (reference ``bank.py:520-529``,
+    ``:706-711``): the saturating add of ``delta``, the bulk empty fill
+    and the unit-weight water-fill, every row reading the flat (G,)
+    grouped layout from ``uoff[r]``, its [units | non-units | consumed]
+    run."""
     counts = sat_add(bank.counts, delta)
     ids, counts, errors, _ = fill_empty_slots(
-        bank.ids, counts, bank.errors, flat_u, flat_n, i0, uoff + mu + nnu)
-    return waterfill_unit_inserts(ids, counts, errors, flat_u, mu, uoff)
+        bank.ids, counts, bank.errors, h_uids, h_net, i0, uoff + mu + nnu)
+    return waterfill_unit_inserts(ids, counts, errors, h_uids, mu, uoff)
 
 
 def phase1_dense(bank: SketchState, row_items: torch.Tensor,
@@ -311,10 +371,11 @@ def phase1_dense(bank: SketchState, row_items: torch.Tensor,
     R, B = row_items.shape
     delta, h_uids, h_net, i0, mu, nnu, w_del = phase1_dense_prep(
         bank, row_items, row_weights, variant)
-    ids1, cnt1, err1 = phase1_apply(bank, delta, h_uids, h_net, i0, mu, nnu)
     uoff = torch.arange(R, dtype=I32, device=bank.ids.device) * B
-    return (ids1, cnt1, err1, h_uids.reshape(-1), h_net.reshape(-1), uoff,
-            mu, nnu, w_del)
+    h_uids, h_net = h_uids.reshape(-1), h_net.reshape(-1)
+    ids1, cnt1, err1 = phase1_apply(bank, delta, h_uids, h_net, i0, mu, nnu,
+                                    uoff)
+    return ids1, cnt1, err1, h_uids, h_net, uoff, mu, nnu, w_del
 
 
 # ---------------------------------------------------------------------------
@@ -335,16 +396,157 @@ def update_rows(bank: SketchState, row_items: torch.Tensor,
                                           variant)
 
 
+# ---------------------------------------------------------------------------
+# The partition core: global phase 1, one grouping sort for all rows
+# ---------------------------------------------------------------------------
+
+def _seg_sum(vals: torch.Tensor, start: torch.Tensor,
+             end: torch.Tensor) -> torch.Tensor:
+    """Per-run sums of ``vals`` over ``[start[r], end[r])``: differences of
+    its int32 prefix sums, which wrap as the reference's."""
+    p = torch.cumsum(vals.to(I32), dim=0, dtype=I32)
+    p = torch.cat([p.new_zeros(1), p])
+    return p[end.long()] - p[start.long()]
+
+
+def phase1_partition_prep(bank: SketchState, items: torch.Tensor,
+                          weights: torch.Tensor, router, variant: int):
+    """Steps 1-3 of the partition core (reference ``_fused_partition``,
+    ``bank.py:560-700``) for a raw (B,) block and a partition router.
+
+    1. one shared sort of the block and one segment pass to per-unique
+       nets, read at each segment's head;
+    2. the monitored match of the stacked (R*k) ids, one ``searchsorted``
+       into the sorted block (an id matches only in its owner row);
+    3. the residual inserts ranked within their owner row (prefix-sum
+       differences at run boundaries for a router whose owner is monotone
+       in key order, else (R, B) one-hot ranks), then ONE packed-key sort
+       that lays every row's [units | non-units | consumed-by-fill] run
+       back to back in one (B,) array.
+
+    Reads only ``bank.ids``. Returns ``(delta, h_uids, h_net, i0, mu,
+    nnu, w_del, uoff)``: the (R, k) monitored addend, the flat (B,)
+    grouped layout, and per row the inserts the bulk fill consumes, the
+    unit and non-unit insert counts, the summed unmonitored deletion
+    weight and the start of its run. No value is read back to the host.
+    """
+    S, k = bank.ids.shape
+    items = items.to(I32)
+    weights = weights.to(I32)
+    B = items.shape[0]
+    if (3 * S + 1) * B >= 2**31:
+        # the grouping key is klass * B + idx with 3S + 1 classes
+        raise ValueError(
+            f"fused partition update needs (3*rows+1)*block < 2^31 for the "
+            f"packed grouping sort; got rows={S}, block={B}. Use "
+            f"path='vmap' (or fewer rows per launch).")
+    dev = items.device
+
+    # 1. shared sort + in-place segment aggregation (nets at the heads)
+    order = sort_block(items, router.universe_bits)
+    uids = items[order].contiguous()
+    head, net = segment_nets(uids[None, :], weights[order][None, :])
+    head, net = head[0], net[0]
+    valid = head & (uids >= 0) & (net != 0)
+    owner = router.owner_of(uids)
+
+    # 2. monitored matching of all rows: the first occurrence is the head
+    flat_ids = bank.ids.reshape(-1).contiguous()
+    pos = torch.clamp(torch.searchsorted(uids, flat_ids, out_int32=True),
+                      0, B - 1).long()
+    match = (uids[pos] == flat_ids) & (flat_ids >= 0)
+    delta = torch.where(match, net[pos], 0).reshape(S, k)
+    monitored = torch.zeros(B + 1, dtype=torch.bool, device=dev)
+    monitored.scatter_(0, torch.where(match, pos, B), True)
+    monitored = monitored[:B]
+
+    # 3. in-row ranks and per-row tallies, then one grouping sort
+    owner_c = torch.clamp(owner, 0, S - 1).long()
+    res_ins = valid & ~monitored & (net > 0)
+    res_del = valid & ~monitored & (net < 0)
+    empties = (bank.ids == EMPTY).sum(dim=1, dtype=I32)
+    if getattr(router, "monotone_owner", False):
+        rows = torch.arange(S, dtype=I32, device=dev)
+        start = torch.searchsorted(owner, rows)
+        end = torch.searchsorted(owner, rows, right=True)
+        ex_ins = torch.cumsum(res_ins, dim=0, dtype=I32) - res_ins.to(I32)
+        n_ins = _seg_sum(res_ins, start, end)
+        # a gather clamps its index, as the reference's does: an entry
+        # before every row's run (a negative key) reads the last entry
+        rank = ex_ins - ex_ins[torch.clamp(start[owner_c], max=B - 1)]
+        i0 = torch.minimum(n_ins, empties)
+        consumed = res_ins & (rank < i0[owner_c])
+        unit = res_ins & ~consumed & (net == 1)
+        nonunit = res_ins & ~consumed & (net != 1)
+        w_del = (torch.zeros(S, dtype=I32, device=dev)
+                 if variant == VARIANT_LAZY
+                 else _seg_sum(torch.where(res_del, -net, 0), start, end))
+        mu = _seg_sum(unit, start, end)
+        nnu = _seg_sum(nonunit, start, end)
+    else:
+        owner_mat = owner[None, :] == torch.arange(S, dtype=I32,
+                                                   device=dev)[:, None]
+        rank_mat = torch.cumsum(owner_mat & res_ins[None, :], dim=1,
+                                dtype=I32)
+        n_ins = rank_mat[:, -1]
+        rank = rank_mat.gather(0, owner_c[None, :])[0] - 1
+        i0 = torch.minimum(n_ins, empties)
+        consumed = res_ins & (rank < i0[owner_c])
+        unit = res_ins & ~consumed & (net == 1)
+        nonunit = res_ins & ~consumed & (net != 1)
+        w_del = (torch.zeros(S, dtype=I32, device=dev)
+                 if variant == VARIANT_LAZY
+                 else torch.where(owner_mat & res_del[None, :], -net[None, :],
+                                  0).sum(dim=1, dtype=I32))
+        mu = (owner_mat & unit[None, :]).sum(dim=1, dtype=I32)
+        nnu = (owner_mat & nonunit[None, :]).sum(dim=1, dtype=I32)
+    klass = torch.where(
+        res_ins, owner_c.to(I32) * 3 + torch.where(
+            unit, 0, torch.where(nonunit, 1, 2)), 3 * S)
+    perm = stable_partition_perm(klass)
+    cc = torch.stack([mu, nnu, i0], dim=1).reshape(-1)
+    uoff = (torch.cumsum(cc, dim=0, dtype=I32) - cc)[0::3].contiguous()
+    return delta, uids[perm], net[perm], i0, mu, nnu, w_del, uoff
+
+
+def _fused_partition(bank: SketchState, items: torch.Tensor,
+                     weights: torch.Tensor, router, variant: int
+                     ) -> SketchState:
+    """The partition core (reference ``bank.py:560``): the prep
+    (``phase1_partition_prep``), then every row's per-cell update read
+    from the one grouped layout at its offset: kernel 1 for CUDA banks,
+    ``fused_update_ref`` (the reference's batched phases and banked
+    residual loop) for CPU banks (``ops.sketch_block_update_partition``,
+    the one dispatch). Bit-identical to ``blocks.block_update`` on each
+    row's own substream."""
+    # ops imports this module, so it is imported here
+    from ..kernels.sketch_update import ops
+
+    return ops.sketch_block_update_partition(bank, items, weights, router,
+                                             variant)
+
+
 def update_block_fused(bank: SketchState, items: torch.Tensor,
                        weights: torch.Tensor, router,
                        variant: int = 2) -> SketchState:
-    """Ingest one (B,) block into the whole bank (reference ``bank.py:719``)
-    through a dense router's views and ``update_rows``."""
+    """Ingest one (B,) block into the whole bank (reference ``bank.py:719``):
+    partition routers through the partition core, dense routers through
+    their views and ``update_rows``."""
     if router.kind == "partition":
-        raise NotImplementedError(
-            "the partition core (bank._fused_partition) is not ported to "
-            "repro_torch yet; ROADMAP.md Queue 1 item 5 ports it")
+        return _fused_partition(bank, items, weights, router, variant)
     return update_rows(bank, *router.route_dense(items, weights), variant)
+
+
+def update_single(state: SketchState, items: torch.Tensor,
+                  weights: torch.Tensor, variant: int = 2,
+                  universe_bits: Optional[int] = None) -> SketchState:
+    """Fused ingest of a flat (k,) sketch as a one-row bank (reference
+    ``bank.py:737``): the partition core with one shard, whose run is the
+    whole block. Equal to ``blocks.block_update``, bit for bit."""
+    bank = SketchState(*(t[None] for t in state))
+    out = _fused_partition(bank, items, weights,
+                           HashShardRouter(1, universe_bits), variant)
+    return SketchState(*(t[0] for t in out))
 
 
 # ---------------------------------------------------------------------------
@@ -365,6 +567,18 @@ def topk_bank(bank: SketchState, m: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Global top-m (ids, counts) over all R·k slots; sentinels never show."""
     ids = bank.ids.reshape(-1)
     counts = torch.where(ids < 0, -2**31, bank.counts.reshape(-1))
+    idx = top_m(counts, m)
+    return ids[idx], counts[idx]
+
+
+def topk_rows(bank: SketchState, rows: torch.Tensor,
+              m: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-m (ids, counts) over a row subset, ``m <= len(rows) * k``
+    (reference ``bank.py:790``): exact for an ownership-closed subset (a
+    tenant's rows) and blind to every other row."""
+    rows = rows.long()
+    ids = bank.ids[rows].reshape(-1)
+    counts = torch.where(ids < 0, -2**31, bank.counts[rows].reshape(-1))
     idx = top_m(counts, m)
     return ids[idx], counts[idx]
 
@@ -402,8 +616,33 @@ def consolidate(bank: SketchState, merge_fn=merge) -> SketchState:
     return SketchState(*(t[0] for t in rows))
 
 
+# ---------------------------------------------------------------------------
+# Second-bank coupling: the Double SpaceSaving± hooks
+# ---------------------------------------------------------------------------
+
+def split_signed(weights: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One signed block as the family's two insert-only weight streams
+    (reference ``bank.py:845``): insertions, and deletions as insertions;
+    padding stays 0 on both sides."""
+    w = weights.to(I32)
+    return torch.clamp(w, min=0), torch.clamp(-w, min=0)
+
+
+def update_pair(ins_bank: SketchState, del_bank: SketchState,
+                items: torch.Tensor, weights: torch.Tensor, router,
+                variant: int = 2) -> Tuple[SketchState, SketchState]:
+    """Coupled two-bank ingest (reference ``bank.py:858``): both banks
+    share the router, each takes its insert-only stream; they may differ
+    in per-row capacities."""
+    w_ins, w_del = split_signed(weights)
+    return (update_block_fused(ins_bank, items, w_ins, router, variant),
+            update_block_fused(del_bank, items, w_del, router, variant))
+
+
 __all__ = ["init", "row_capacities", "shard_of", "sort_block",
-           "HashShardRouter", "DyadicLevelRouter", "ShardLevelRouter",
-           "residual_phase_banked", "phase1_dense_prep", "phase1_apply",
-           "phase1_dense", "update_rows", "update_block_fused", "query_rows",
-           "topk_bank", "merge_banks", "consolidate"]
+           "HashShardRouter", "TenantRouter", "DyadicLevelRouter",
+           "ShardLevelRouter", "residual_phase_banked", "phase1_dense_prep",
+           "phase1_apply", "phase1_dense", "phase1_partition_prep",
+           "update_rows", "update_block_fused", "update_single",
+           "query_rows", "topk_bank", "topk_rows", "merge_banks",
+           "consolidate", "split_signed", "update_pair"]

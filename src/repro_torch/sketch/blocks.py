@@ -15,8 +15,14 @@ evictions and the SS± deletion spread run as a sequential loop
 (phase 2, ``phases.residual_phase``), which the CUDA kernel
 ``sketch_residual_kernel`` runs on the card.
 
-Not ported yet (ROADMAP.md Queue 1 item 4): ``apply_update``,
-``process_stream`` and ``block_update_serial``.
+The serial side (reference ``blocks.py:73-200,370,411``):
+``apply_update`` (one signed weighted update, its ``_insert`` and
+``_delete``), ``process_stream`` (the raw items scanned in order, the
+oracle), ``block_update_serial`` (the scan over the block's aggregated
+uniques, the ``"serial"`` backend) and ``block_partition_stats``. On
+CUDA states the two scans are kernel 4 (``csrc/serial_update.cu``, its
+insert adds saturating as ``apply_update``'s), one launch per call; on
+CPU states, ``apply_update`` item by item.
 """
 from __future__ import annotations
 
@@ -27,12 +33,136 @@ import torch
 from .phases import (fill_empty_slots, segment_nets, stable_partition_perm,
                      waterfill_unit_inserts)
 from .state import EMPTY, I32, INT_MAX, VARIANT_LAZY, VARIANT_SSPM, \
-    SketchState, sat_add
+    SketchState, sat_add, wrap_add
 
 
 def _sum(x: torch.Tensor) -> torch.Tensor:
     return x.sum(dim=-1, dtype=I32)
 
+
+# ---------------------------------------------------------------------------
+# Single weighted update, and the scans over a block
+# ---------------------------------------------------------------------------
+
+def _neg(x: torch.Tensor) -> torch.Tensor:
+    """int32 negation that wraps, as JAX's (-INT_MIN is INT_MIN)."""
+    return wrap_add(torch.zeros_like(x), -x.to(torch.int64))
+
+
+def _first(mask: torch.Tensor) -> torch.Tensor:
+    """Index of the first True (0 where none), as ``jnp.argmax`` of a
+    boolean array."""
+    return torch.argmax(mask.to(I32))
+
+
+def _insert(state: SketchState, item: torch.Tensor,
+            w: torch.Tensor) -> SketchState:
+    """Insert ``w >= 0`` of ``item`` (reference ``blocks.py:73``): add to
+    its monitored slot, else take the first EMPTY slot, else evict the
+    first minimum count (EMPTY slots count as INT_MAX), saturating."""
+    ids, counts, errors = state
+    # sentinel slots (negative ids) never count as monitored
+    eq = (ids == item) & (ids >= 0)
+    monitored = eq.any()
+    slot_mon = _first(eq)
+    empty = ids == EMPTY
+    has_empty = empty.any()
+    jmin = torch.argmin(torch.where(empty, INT_MAX, counts))
+    min_count = counts[jmin]
+    sel = torch.where(monitored, slot_mon,
+                      torch.where(has_empty, _first(empty), jmin))
+    new_count = torch.where(monitored, sat_add(counts[slot_mon], w),
+                            torch.where(has_empty, w, sat_add(min_count, w)))
+    new_error = torch.where(monitored, errors[slot_mon],
+                            torch.where(has_empty, 0, min_count))
+    ids, counts, errors = ids.clone(), counts.clone(), errors.clone()
+    ids[sel] = item
+    counts[sel] = new_count
+    errors[sel] = new_error
+    return SketchState(ids, counts, errors)
+
+
+def _delete(state: SketchState, item: torch.Tensor, w: torch.Tensor,
+            variant: int) -> SketchState:
+    """Delete ``w >= 0`` of ``item`` (reference ``blocks.py:105``): from
+    its monitored slot (wrapping), else Lazy drops it and SS± spreads it
+    over the maximum-error slots, each absorbing up to its error."""
+    ids, counts, errors = state
+    eq = (ids == item) & (ids >= 0)
+    monitored = eq.any()
+    slot_mon = _first(eq)
+    counts = counts.clone()
+    counts[slot_mon] = wrap_add(counts[slot_mon],
+                                torch.where(monitored, _neg(w), 0))
+    if variant == VARIANT_LAZY:
+        return SketchState(ids, counts, errors)
+    rem = torch.where(monitored, 0, w)
+    errors = errors.clone()
+    while bool(rem > 0) and bool(errors.max() > 0):
+        jerr = torch.argmax(errors)
+        d = torch.minimum(rem, errors[jerr])
+        rem = wrap_add(rem, _neg(d))
+        counts[jerr] = wrap_add(counts[jerr], _neg(d))
+        errors[jerr] = wrap_add(errors[jerr], _neg(d))
+    return SketchState(ids, counts, errors)
+
+
+def apply_update(state: SketchState, item, weight,
+                 variant: int = VARIANT_SSPM) -> SketchState:
+    """One signed, weighted update of a (k,) sketch (reference
+    ``blocks.py:145``): weight > 0 inserts, < 0 deletes, 0 is a no-op."""
+    dev = state.ids.device
+    item = torch.as_tensor(item, dtype=I32, device=dev)
+    weight = torch.as_tensor(weight, dtype=I32, device=dev)
+    if bool(weight > 0):
+        return _insert(state, item, weight)
+    return _delete(state, item, torch.clamp(_neg(weight), min=0), variant)
+
+
+def _apply_update_scan(state: SketchState, items: torch.Tensor,
+                       weights: torch.Tensor, variant: int,
+                       skip_sentinels: bool) -> SketchState:
+    """``apply_update`` over the (B,) items in order (reference
+    ``blocks.py:160``), on the CPU's plain path. ``skip_sentinels``: the
+    aggregated uniques' EMPTY or zero-net entries leave the state as it
+    is; the raw stream applies every entry."""
+    for item, w in zip(items.to(I32), weights.to(I32)):
+        if skip_sentinels and (int(item) == EMPTY or int(w) == 0):
+            continue
+        state = apply_update(state, item, w, variant)
+    return state
+
+
+def _scan(state: SketchState, items: torch.Tensor, weights: torch.Tensor,
+          variant: int, skip_sentinels: bool) -> SketchState:
+    """The scan of ``apply_update`` on one (k,) sketch: kernel 4 with its
+    adds saturating for a CUDA state (a sentinel entry's weight set to 0,
+    which it skips), ``_apply_update_scan`` for a CPU state."""
+    if not state.ids.is_cuda:
+        return _apply_update_scan(state, items, weights, variant,
+                                  skip_sentinels)
+    # ops imports this module, so it is imported here
+    from ..kernels.sketch_update import kernel, ops
+
+    items = items.to(I32)
+    weights = weights.to(I32)
+    if skip_sentinels:
+        weights = torch.where(items == EMPTY, 0, weights)
+    return ops.serial_update_with(kernel.sketch_update_kernel_serial, state,
+                                  items, weights, variant, saturate=True)
+
+
+def process_stream(state: SketchState, items: torch.Tensor,
+                   weights: torch.Tensor,
+                   variant: int = VARIANT_SSPM) -> SketchState:
+    """Exact sequential semantics (reference ``blocks.py:186``, the
+    oracle): every raw update of the (B,) block applied in order."""
+    return _scan(state, items, weights, variant, skip_sentinels=False)
+
+
+# ---------------------------------------------------------------------------
+# Block aggregation and the phase-1 partition against the monitored set
+# ---------------------------------------------------------------------------
 
 def _aggregate_block(items: torch.Tensor, weights: torch.Tensor,
                      assume_sorted: bool = False):
@@ -167,5 +297,30 @@ def block_update(state: SketchState, items: torch.Tensor,
                                    assume_sorted)
 
 
-__all__ = ["BlockPartition", "partition_block", "block_update",
-           "block_update_batched"]
+def block_update_serial(state: SketchState, items: torch.Tensor,
+                        weights: torch.Tensor,
+                        variant: int = VARIANT_SSPM) -> SketchState:
+    """The pre-two-phase baseline (reference ``blocks.py:370``, the
+    ``"serial"`` backend): the block aggregated to its uniques, then
+    ``apply_update`` over them in ascending id order. Kernel 4 for a CUDA
+    state, the plain scan for a CPU state."""
+    uids, net = _aggregate_block(items[None], weights[None])
+    return _scan(state, uids[0], net[0], variant, skip_sentinels=True)
+
+
+def block_partition_stats(state: SketchState, items: torch.Tensor,
+                          weights: torch.Tensor,
+                          variant: int = VARIANT_SSPM):
+    """Diagnostics (reference ``blocks.py:411``): (n_unique, n_monitored,
+    n_residual) of one (B,) block against a (k,) sketch; n_residual /
+    n_unique is the two-phase update's serial fraction, an upper bound."""
+    uids, net = _aggregate_block(items[None], weights[None])
+    part = partition_block(SketchState(*(t[None] for t in state)), uids, net,
+                           variant)
+    return (int(_valid_mask(uids, net).sum()), int(part.n_mon[0]),
+            int(part.n_res[0]))
+
+
+__all__ = ["apply_update", "process_stream", "BlockPartition",
+           "partition_block", "block_update", "block_update_serial",
+           "block_update_batched", "block_partition_stats"]

@@ -7,13 +7,15 @@ have the per-layer capacities of ``core.quantiles.dyadic_layer_capacities``
 (a layer with fewer than k counters fills its tail with BLOCKED slots).
 A block is routed with one shared sort (``bank.DyadicLevelRouter``: the
 sorted block right-shifted per layer, a (1, B) weight row) and ingested
-by one of three paths, each giving the same bank, bit for bit:
+by one of four paths, each giving the same bank, bit for bit:
 
 - ``"kernel"``: ``ops.sketch_block_update_fused`` (kernel 1 on the card);
 - ``"bank"``: ``bank.update_rows``, the dense core, whose residual loop
   is kernel 2 on the card;
 - ``"block"``: ``blocks.block_update_batched`` over the layers as E
-  stacked sketches, whose phase 2 is kernel 3 on the card.
+  stacked sketches, whose phase 2 is kernel 3 on the card;
+- ``"serial"``: ``blocks.block_update_serial`` layer by layer, the A/B
+  baseline (kernel 4 on the card, one launch per layer).
 
 |F|₁ is tracked exactly as an int32 scalar that wraps as the
 reference's int32 sum does.
@@ -38,7 +40,7 @@ from ..core.quantiles import dyadic_layer_capacities
 from ..kernels.sketch_update.ops import sketch_block_update_fused
 from ..platform import DEFAULT_DEVICE, resolve_device
 from . import bank as bk
-from .blocks import block_update_batched
+from .blocks import block_update_batched, block_update_serial
 from .state import I32, VARIANT_SSPM, SketchState, merge as state_merge, \
     wrap_add
 
@@ -101,13 +103,11 @@ def update_block(state: DyadicState, items: torch.Tensor,
     """Apply a block of signed weighted updates to every layer at once.
 
     ``path``: ``"kernel"`` (the fused bank update), ``"bank"`` (the dense
-    core) or ``"block"`` (the layers as stacked sketches); the same bank
-    from each, bit for bit.
+    core), ``"block"`` (the layers as stacked sketches) or ``"serial"``
+    (``blocks.block_update_serial`` layer by layer: on the card one
+    kernel-4 launch per layer, the A/B baseline); the same bank from
+    each, bit for bit.
     """
-    if path == "serial":
-        raise NotImplementedError(
-            "path='serial' is not ported to repro_torch yet; ROADMAP.md "
-            "Queue 1 item 4 (blocks.block_update_serial) ports it")
     items = items.to(I32)
     weights = weights.to(I32)
     items_l, weights_l = bk.DyadicLevelRouter(state.bits).route_dense(
@@ -122,6 +122,11 @@ def update_block(state: DyadicState, items: torch.Tensor,
         bank = block_update_batched(state.bank, items_l,
                                     weights_l.expand(items_l.shape), variant,
                                     assume_sorted=True)
+    elif path == "serial":
+        layers = [block_update_serial(SketchState(*(t[l] for t in state.bank)),
+                                      items_l[l], weights_l[0], variant)
+                  for l in range(state.bits)]
+        bank = SketchState(*(torch.stack(f) for f in zip(*layers)))
     else:
         raise ValueError(f"unknown path {path!r}")
     return DyadicState(bank=bank, mass=_add_mass(state.mass, weights))

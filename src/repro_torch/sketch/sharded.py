@@ -2,11 +2,14 @@
 
 Counterpart of ``repro/sketch/sharded.py`` on one device: shard s of
 the stacked (S, k) bank monitors the ids with ``shard_of(id, S) == s``.
-A block is routed with one shared sort (the sorted block broadcast to
-every row, foreign weights masked to 0) and ingested by one launch;
-queries read the owner shard, so there is no merge error. ``merge``
-pairs two banks shard by shard; ``consolidate`` folds the shards into
-one summary for checkpoints.
+A block is ingested by one launch: by default (``path="auto"`` =
+``"block"``) through the bank's partition core, one shared sort and one
+grouping of the raw block for every shard; ``"kernel"`` and ``"vmap"``
+route it first (the sorted block broadcast to every row, foreign weights
+masked to 0). ``update_block_serial_reference`` updates the routed
+shards one after another, the oracle. Queries read the owner shard, so
+there is no merge error. ``merge`` pairs two banks shard by shard;
+``consolidate`` folds the shards into one summary for checkpoints.
 """
 from __future__ import annotations
 
@@ -19,7 +22,7 @@ from ..platform import DEFAULT_DEVICE
 from . import bank as bk
 from . import state as st
 from .bank import HashShardRouter, shard_of
-from .blocks import block_update_batched
+from .blocks import block_update, block_update_batched
 from .state import VARIANT_SSPM, SketchState
 
 
@@ -49,32 +52,31 @@ def route_block(items: torch.Tensor, weights: torch.Tensor, num_shards: int,
     return HashShardRouter(num_shards, universe_bits).route_dense(items, weights)
 
 
-# the reference's other paths (sharded.py:235): the fused partition core
-# and the mesh
-_PATHS_NOT_PORTED = {
-    "auto": "ROADMAP.md Queue 1 item 5 (bank.update_block_fused)",
-    "block": "ROADMAP.md Queue 1 item 5 (bank.update_block_fused)",
-    "shard_map": "ROADMAP.md Queue 1 item 19 (parallel/sharding.py)",
-}
-
-
 def update_block(state: ShardedSketch, items: torch.Tensor,
                  weights: torch.Tensor, variant: int = VARIANT_SSPM, *,
                  universe_bits: Optional[int] = None,
-                 path: str = "kernel") -> ShardedSketch:
+                 path: str = "auto") -> ShardedSketch:
     """Route one block shard-by-hash and ingest it with one launch.
 
     ``path`` as in the reference (``sharded.py:235``), on one device:
-    ``"kernel"``, the fused bank update; ``"vmap"``, the masked-row
-    ``blocks.block_update_batched`` over the S shard sketches (one
-    batched phase-2 launch). Both give the same bank, bit for bit.
+    ``"auto"`` (with no mesh, ``"block"``) and ``"block"``, the bank's
+    partition core; ``"kernel"``, the fused bank update on the routed
+    views; ``"vmap"``, the masked-row ``blocks.block_update_batched`` over
+    the S shard sketches (one batched phase-2 launch). All give the same
+    bank, bit for bit. ``"shard_map"`` needs the mesh of ROADMAP.md
+    Queue 1 item 19 and raises.
     """
-    if path in _PATHS_NOT_PORTED:
+    if path == "shard_map":
         raise NotImplementedError(
-            f"path={path!r} is not ported to repro_torch yet; "
-            f"{_PATHS_NOT_PORTED[path]} ports it")
+            "path='shard_map' is not ported to repro_torch yet; ROADMAP.md "
+            "Queue 1 item 19 (parallel/sharding.py) ports it")
+    if path in ("auto", "block"):
+        router = HashShardRouter(state.num_shards, universe_bits)
+        return ShardedSketch(bank=bk.update_block_fused(
+            state.bank, items, weights, router, variant))
     if path not in ("kernel", "vmap"):
-        raise ValueError(f"unknown path {path!r}; use 'kernel' or 'vmap'")
+        raise ValueError(f"unknown path {path!r}; use 'auto', 'block', "
+                         f"'kernel' or 'vmap'")
     items_b, w_routed = route_block(items, weights, state.num_shards,
                                     universe_bits)
     if path == "kernel":
@@ -84,6 +86,23 @@ def update_block(state: ShardedSketch, items: torch.Tensor,
         bank = block_update_batched(state.bank, items_b, w_routed, variant,
                                     assume_sorted=True)
     return ShardedSketch(bank=bank)
+
+
+def update_block_serial_reference(state: ShardedSketch, items: torch.Tensor,
+                                  weights: torch.Tensor,
+                                  variant: int = VARIANT_SSPM,
+                                  universe_bits: Optional[int] = None
+                                  ) -> ShardedSketch:
+    """The oracle (reference ``sharded.py:295``): route, then update each
+    shard with ``blocks.block_update`` on its own view, one shard after
+    another (S launches of kernel 3 on the card)."""
+    items_b, w_routed = route_block(items, weights, state.num_shards,
+                                    universe_bits)
+    outs = [block_update(SketchState(*(t[s] for t in state.bank)),
+                         items_b[s], w_routed[s], variant, assume_sorted=True)
+            for s in range(state.num_shards)]
+    return ShardedSketch(bank=SketchState(*(torch.stack(f)
+                                            for f in zip(*outs))))
 
 
 def query_many(state: ShardedSketch, items: torch.Tensor) -> torch.Tensor:
@@ -130,5 +149,5 @@ def to_dict(state: ShardedSketch) -> dict:
 
 
 __all__ = ["ShardedSketch", "init", "shard_of", "route_block",
-           "update_block", "query_many", "query", "topk", "merge",
+           "update_block", "update_block_serial_reference", "query_many", "query", "topk", "merge",
            "consolidate", "to_dict"]

@@ -27,6 +27,7 @@ from repro.sketch import api as japi
 from repro.sketch import bank as jbk
 from repro.sketch import blocks as jbl
 from repro.sketch import phases as jph
+from repro.sketch import sharded as jshd
 from repro.sketch import state as jst
 from repro.sketch.session import StreamSession as JSession
 from repro_torch.kernels import _build
@@ -333,7 +334,8 @@ def test_block_backend_session_matches_reference(shards, variant):
     np.testing.assert_array_equal(np.asarray(js.query_many(probe)),
                                   ts.query_many(probe).numpy())
     # a state saved under one backend restores and runs under the other
-    kspec = tapi.SketchSpec(k=96, variant=variant, shards=shards, bits=12)
+    kspec = tapi.SketchSpec(k=96, variant=variant, shards=shards, bits=12,
+                            backend="kernel")
     other = TSession(kspec, block=256, device="cpu",
                      state=tapi.restore(kspec, td, device="cpu"))
     other.ingest(items[:512], signs[:512])
@@ -360,12 +362,31 @@ def test_block_and_kernel_backends_agree(shards, variant):
 def test_sharded_paths_not_ported_name_their_roadmap_item():
     st = tshd.init(64, 4, device="cpu")
     it = torch.zeros(8, dtype=torch.int32)
-    for path, item in (("auto", "item 5"), ("block", "item 5"),
-                       ("shard_map", "item 19")):
-        with pytest.raises(NotImplementedError, match=item):
-            tshd.update_block(st, it, it, path=path)
+    with pytest.raises(NotImplementedError, match="item 19"):
+        tshd.update_block(st, it, it, path="shard_map")
     with pytest.raises(ValueError, match="unknown path"):
         tshd.update_block(st, it, it, path="fast")
+
+
+@pytest.mark.parametrize("path", ["auto", "block"])
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_sharded_auto_and_block_paths_match_reference(path, variant):
+    """The paths that raised until the partition core was ported: the
+    reference's ``update_block`` on the same path (its ``"auto"`` is
+    ``"block"`` without a mesh), two blocks, and the port's own
+    ``"kernel"`` path."""
+    rng = np.random.default_rng(40 + variant)
+    js, ts = jshd.init(96, 4), tshd.init(96, 4, device="cpu")
+    for _ in range(2):
+        items, w = _block(rng, n=300)
+        js = jshd.update_block(js, jnp.asarray(items), jnp.asarray(w),
+                               variant, universe_bits=12, path=path)
+        want = tshd.update_block(ts, _t(items), _t(w), variant,
+                                 universe_bits=12, path="kernel")
+        ts = tshd.update_block(ts, _t(items), _t(w), variant,
+                               universe_bits=12, path=path)
+        _eq(js.bank, ts.bank, path)
+        _eq(want.bank, ts.bank, "kernel path")
 
 
 # ---------------------------------------------------------------------------

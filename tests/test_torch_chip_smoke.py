@@ -34,12 +34,14 @@ def _chip_smoke():
 def _written_back(plain, wrapper):
     """``plain`` written back into its state operands, as the kernel
     ``wrapper`` updates them in place, with a counter like the wrapper's."""
-    def run(ids, counts, errors, *args, variant):
+    def run(ids, counts, errors, *args, variant, **kw):
         for t, out in zip((ids, counts, errors),
-                          plain(ids, counts, errors, *args, variant=variant)):
+                          plain(ids, counts, errors, *args, variant=variant,
+                                **kw)):
             t.copy_(out)
         return ids, counts, errors
-    run.launches = dict(wrapper.launches)
+    run.launches = (dict(wrapper.launches)
+                    if isinstance(wrapper.launches, dict) else 0)
     return run
 
 
@@ -329,3 +331,66 @@ def test_quantile_phase_rehearsal(monkeypatch):
     assert extra["queries sspm"]["points"] == cs.RANK_POINTS
     for name, (bank, (items, weights)) in finals.items():
         assert items.shape == (1, BLOCK), name
+
+
+def test_bank_phase_rehearsal(monkeypatch):
+    """The bank phase at a small size: the three bank runs (each equal to
+    its twin's bank and held to the plain version, lazy and path A's
+    over their first blocks), the serial api run, the sharded serial
+    oracle against the bank path and the quantile serial path against
+    the quantile bank path, each launch check recorded on its kernel,
+    count and layout; a bank that differs from its twin is fatal."""
+    import dataclasses
+
+    from repro_torch.kernels.sketch_update import kernel, ref
+    from repro_torch.sketch.session import StreamSession
+
+    cs = _chip_smoke()
+    checked = _on_the_cpu(monkeypatch, cs)
+    for name, plain in (("sketch_update_kernel_fused", ref.fused_update_ref),
+                        ("sketch_update_kernel_serial",
+                         ref.serial_update_ref)):
+        monkeypatch.setattr(kernel, name,
+                            _written_back(plain, getattr(kernel, name)))
+    monkeypatch.setattr(cs, "BANK_LAZY_PLAIN_BLOCKS", 2)
+    monkeypatch.setattr(cs, "BANK_A_PLAIN_BLOCKS", 2)
+    monkeypatch.setattr(cs, "SERIAL_API_PLAIN_BLOCKS", 1)
+    cpu = torch.device("cpu")
+    main = _small_main()
+    specs = dict(main=main,
+                 lazy=SketchSpec(eps=0.05, alpha=2.0, variant="lazy",
+                                 bits=12, backend="kernel"),
+                 a=dataclasses.replace(main, shards=None, backend="block"),
+                 serial=dataclasses.replace(main, shards=None,
+                                            backend="serial"))
+    streams = {name: bounded_stream(700, 0.5, universe=1 << 12, seed=seed)
+               for seed, name in enumerate(("main", "lazy", "a", "serial"))}
+    twins = {}
+    for name in ("main", "lazy", "a"):
+        sess = StreamSession(specs[name], block=BLOCK, device=cpu)
+        sess.ingest(streams[name][:, 0], streams[name][:, 1])
+        twins[name] = cs._bank_of(sess.state)
+    runs, last = cs.bank_phase(specs, streams, twins, BLOCK, cpu)
+    n = len(cs.padded_blocks(streams["main"], BLOCK)[0])
+    q = SketchSpec(kind="quantile", bits=12, eps=1e-3, alpha=2.0)
+    nq = len(cs.padded_blocks(bounded_stream(
+        cs.SERIAL_QUANTILE_BLOCKS * BLOCK * 2 // 3, 0.5, universe=1 << 12,
+        skew=1.0, seed=9), BLOCK)[0])
+    assert [c[1:] for c in checked] == [
+        ("sketch_update_kernel_fused", n, "staged"),
+        ("sketch_update_kernel_fused", n, "staged"),
+        ("sketch_update_kernel_fused", n, "staged"),
+        ("sketch_update_kernel_serial", n, None),
+        ("sketch_residual_kernel", 8 * cs.SERIAL_SHARDED_BLOCKS, "staged"),
+        ("sketch_update_kernel_fused", cs.SERIAL_SHARDED_BLOCKS, "staged"),
+        ("sketch_update_kernel_serial", 12 * nq, None),
+        ("sketch_residual_kernel_banked", nq, "staged")]
+    assert [runs[k]["plain_blocks"] for k in ("bank main", "bank lazy",
+                                               "bank a", "serial api")] \
+        == [n, 2, 2, 1]
+    assert set(last) == {"bank main", "bank lazy", "bank a"}
+    assert len(last["bank main"][1]) == 8       # the partition prep
+    assert max(q.layer_capacities()) == 4096
+    twins["lazy"] = twins["lazy"]._replace(counts=twins["lazy"].counts + 1)
+    with pytest.raises(SystemExit, match="twin"):
+        cs.bank_phase(specs, streams, twins, BLOCK, cpu)

@@ -192,7 +192,7 @@ def test_fused_kernel_on_the_drain_edge_cases(cuda, variant, R, K, kind):
     """As above for kernel 1 (a delta, evictions, its sat_add drain)."""
     rows, args = _chip_smoke().drain_fused(R, K, variant, kind, cuda,
                                            seed=K + R)
-    want = fused_update_ref(*rows, *args, variant)
+    want = fused_update_ref(*rows, *args, variant=variant)
     got, ran = _run(sketch_update_kernel_fused,
                     *(t.clone() for t in rows), *args, variant=variant)
     _assert_same(want, got)
@@ -205,7 +205,7 @@ def test_fused_kernel_where_the_water_level_sums_wrap(cuda, variant, K):
     """Kernel 1's water level where the reference's int32 probe sums wrap
     past 2^31 (``chip_smoke.wrap_fused``), bit for bit."""
     rows, args = _chip_smoke().wrap_fused(1, K, cuda)
-    want = fused_update_ref(*rows, *args, variant)
+    want = fused_update_ref(*rows, *args, variant=variant)
     got, ran = _run(sketch_update_kernel_fused,
                     *(t.clone() for t in rows), *args, variant=variant)
     _assert_same(want, got)
@@ -249,8 +249,107 @@ def test_serial_kernel_on_the_structures_edge_cases(cuda, variant, k, state,
     _assert_same(want, got)
 
 
+@pytest.mark.parametrize("variant", [1, 2])
+@pytest.mark.parametrize("S,K", [(1, 77), (1, 2000), (7, 200), (128, 3125),
+                                 # past the staged layout: the row in
+                                 # device memory
+                                 (1, 24577)])
+@pytest.mark.parametrize("state", ["cold", "warm", "rail"])
+def test_kernel_on_the_partition_layout_equals_plain_version(cuda, variant,
+                                                             S, K, state):
+    """Kernel 1 reading each row's run of the partition prep's flat layout
+    from ``uoff[r]`` (the ``"bank"`` backend), bit for bit against
+    ``fused_update_ref`` on the same operands. At S = 128 rows get no
+    work; a cold bank's fill consumes every insert of its rows."""
+    from repro_torch.kernels.sketch_update.ops import prep_partition
+
+    bank, _, (it, w) = _case(S, K, variant, state, cuda)
+    padded, prep = prep_partition(bank, it, w, bk.HashShardRouter(S, 16),
+                                  variant)
+    assert prep[1].shape == (len(it),) and prep[-1].shape == (S,)
+    want = fused_update_ref(*padded, *prep, variant=variant)
+    got, ran = _run(sketch_update_kernel_fused,
+                    *(t.clone() for t in padded), *prep, variant=variant)
+    _assert_same(want, got)
+    assert ran == [fused_layout(padded[0].shape[1])]
+
+
+@pytest.mark.parametrize("variant", [1, 2])
+@pytest.mark.parametrize("k", [77, 200, 4000])
+def test_serial_scans_on_the_card_equal_the_cpu(cuda, variant, k):
+    """``block_update_serial`` and ``process_stream`` on the card (kernel 4,
+    its insert adds saturating) equal their CPU results (the plain scan),
+    block after block, the last at the INT_MAX rail."""
+    from repro_torch.sketch import blocks
+
+    s = bounded_stream(1500, 0.5, universe=1 << 12, seed=k + variant)
+    for scan in (blocks.block_update_serial, blocks.process_stream):
+        cpu = SketchState(*(t[0] for t in bk.init(k, 1, device="cpu")))
+        gpu = SketchState(*(t.to(cuda) for t in cpu))
+        for i, part in enumerate(np.array_split(s, 3)):
+            if i == 2:
+                live = cpu.ids >= 0
+                cpu = cpu._replace(counts=torch.where(
+                    live, sat_add(cpu.counts, 2**31 - 3), cpu.counts))
+                gpu = SketchState(*(t.to(cuda) for t in cpu))
+            it = torch.as_tensor(part[:, 0], dtype=torch.int32)
+            w = torch.as_tensor(part[:, 1] * 3, dtype=torch.int32)
+            cpu = scan(cpu, it, w, variant)
+            gpu = scan(gpu, it.to(cuda), w.to(cuda), variant)
+            for a, b in zip(gpu, cpu):
+                assert torch.equal(a.cpu(), b), (scan.__name__, i)
+
+
 def test_session_on_the_card_equals_the_cpu_session(cuda):
     _sharded_session_on_the_card_equals_the_cpu(cuda, "kernel")
+
+
+def test_serial_backend_through_the_captured_ingest(cuda):
+    """``backend="serial"`` in a captured session: kernel 4 once a block,
+    replayed, equal to the CPU session's plain scan."""
+    from repro_torch.kernels.sketch_update import kernel
+
+    spec = SketchSpec(k=1000, bits=16, backend="serial")
+    s = bounded_stream(8000, 0.5, universe=1 << 16, seed=18)
+    gpu = StreamSession(spec, block=2048, device=cuda)
+    cpu = StreamSession(spec, block=2048, device="cpu")
+    c0 = kernel.launch_counts()
+    gpu.ingest(s[:, 0], s[:, 1])
+    assert kernel.launch_delta(c0, kernel.launch_counts()) == {
+        "sketch_update_kernel_serial": gpu.blocks_ingested}
+    assert gpu._compiled.graph is not None
+    cpu.ingest(s[:, 0], s[:, 1])
+    for a, b in zip(gpu.state, cpu.state):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("shards", [8, None])
+@pytest.mark.parametrize("variant", ["sspm", "lazy"])
+def test_bank_session_equals_the_kernel_session(cuda, shards, variant):
+    """``backend="bank"`` (the partition core, kernel 1 on the flat
+    layout) through captured sessions equals ``backend="kernel"``'s
+    state and the CPU's, one kernel-1 launch a block."""
+    from repro_torch.kernels.sketch_update import kernel
+
+    s = bounded_stream(30000, 0.5, universe=1 << 16, seed=17)
+    states = {}
+    for backend, device in (("bank", cuda), ("kernel", cuda),
+                            ("bank", "cpu")):
+        spec = SketchSpec(k=3000, shards=shards, bits=16, variant=variant,
+                          backend=backend)
+        sess = StreamSession(spec, block=4096, device=device)
+        c0 = kernel.launch_counts()
+        sess.ingest(s[:, 0], s[:, 1])
+        if device != "cpu":
+            assert kernel.launch_delta(c0, kernel.launch_counts()) == {
+                "sketch_update_kernel_fused": {"staged":
+                                               sess.blocks_ingested}}
+        state = sess.state.bank if shards else sess.state
+        states[backend, str(device)] = [t.cpu() for t in state]
+    want = states["kernel", str(cuda)]
+    for got in states.values():
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
 
 
 def test_block_session_on_the_card_equals_the_cpu_session(cuda):
@@ -325,7 +424,8 @@ def test_pad_bank_keeps_the_callers_bank(cuda):
 # --- the captured ingest, the feeder and the stream --------------------------
 
 @pytest.mark.parametrize("shards,backend", [(8, "kernel"), (None, "kernel"),
-                                            (8, "block"), (None, "block")])
+                                            (8, "block"), (None, "block"),
+                                            (8, "bank"), (None, "bank")])
 def test_graph_replay_equals_the_eager_update(cuda, shards, backend):
     """Each block through the session's CUDA graph equals the adapter's
     eager update of the same state, and each block, the first (run
@@ -338,8 +438,8 @@ def test_graph_replay_equals_the_eager_update(cuda, shards, backend):
     s = bounded_stream(20000, 0.5, universe=1 << 16, seed=12)
     sess = StreamSession(spec, block=2048, device=cuda)
     eager = api.make(spec, cuda)
-    name = ("sketch_update_kernel_fused" if backend == "kernel"
-            else "sketch_residual_kernel")
+    name = ("sketch_residual_kernel" if backend == "block"
+            else "sketch_update_kernel_fused")
     for lo in range(0, len(s) - 2048, 2048):
         it, w = s[lo:lo + 2048, 0], s[lo:lo + 2048, 1]
         c0 = kernel.launch_counts()

@@ -12,6 +12,8 @@ port's sorted rank lookup against the reference's direct comparison.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -186,10 +188,28 @@ def test_process_stream_matches_reference(variant):
 def test_paths_that_wait_raise():
     ts = tdy.init(BITS, eps=EPS, device="cpu")
     one = torch.ones(4, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tdy.update_block(ts, one, one, path="serial")
     with pytest.raises(ValueError, match="unknown path"):
         tdy.update_block(ts, one, one, path="vmap")
+
+
+@pytest.mark.parametrize("variant", [2, 1])
+def test_serial_path_matches_reference(variant):
+    """``path="serial"`` (it raised until the serial backend was ported):
+    ``block_update_serial`` layer by layer, against the reference's
+    vmapped serial scan and the port's ``"bank"`` path, with the mass."""
+    items, weights = _stream(5, n_insert=300)
+    js = jdy.init(BITS, eps=EPS)
+    ts = tdy.init(BITS, eps=EPS, device="cpu")
+    bank = ts
+    for it, w in _blocks(items, weights, 128):
+        js = jdy.update_block(js, jnp.asarray(it), jnp.asarray(w), variant,
+                              path="serial")
+        ts = tdy.update_block(ts, torch.from_numpy(it), torch.from_numpy(w),
+                              variant, path="serial")
+        bank = tdy.update_block(bank, torch.from_numpy(it),
+                                torch.from_numpy(w), variant, path="bank")
+        _assert_state(js, ts, "serial")
+    _assert_state(js, bank, "bank")
 
 
 def test_mass_wraps_as_int32():
@@ -371,5 +391,7 @@ def test_checkpoints_cross_load_both_ways(backend):
     untagged = {k: v for k, v in jd.items() if k != "layout"}
     freq = tapi.SketchSpec(k=64)
     assert tapi.infer_spec(freq, untagged) == \
-        tapi.SketchSpec(kind="quantile", k=64, bits=BITS, backend="kernel")
+        tapi.SketchSpec(kind="quantile", k=64, bits=BITS)
+    assert dataclasses.asdict(tapi.infer_spec(freq, untagged)) == \
+        dataclasses.asdict(japi.infer_spec(japi.SketchSpec(k=64), untagged))
     _assert_state(js, tapi.restore(tspec, untagged, "cpu"), "untagged")

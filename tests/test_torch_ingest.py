@@ -130,7 +130,7 @@ def test_sketch_roofline_columns():
 def test_donation_flag_does_not_change_results():
     """``test_platform.py:47``; the donate flag is part of the cache key."""
     jspec = japi.SketchSpec(k=64, backend="kernel")
-    tspec = tapi.SketchSpec(k=64)
+    tspec = tapi.SketchSpec(k=64, backend="kernel")
     rng = np.random.default_rng(0)
     items = rng.integers(0, 1000, 256).astype(np.int32)
     got = []
@@ -172,7 +172,7 @@ def test_tenant_specs_raise_until_the_tenant_layout_is_ported():
 
 
 @pytest.mark.parametrize("shards", [None, 4])
-@pytest.mark.parametrize("backend", ["kernel", "block"])
+@pytest.mark.parametrize("backend", ["kernel", "block", "bank"])
 def test_compiled_ingest_on_the_cpu_is_the_eager_update(shards, backend):
     _compiled_ingest_is_the_eager_update(
         tapi.SketchSpec(k=96, shards=shards, bits=BITS, backend=backend))
@@ -233,14 +233,16 @@ def _kernel_stand_in(*args, variant):
 
 
 @pytest.mark.parametrize("shards", [None, 4])
-@pytest.mark.parametrize("backend", ["kernel", "block"])
+@pytest.mark.parametrize("backend", ["kernel", "block", "bank"])
 @pytest.mark.parametrize("variant", ["sspm", "lazy"])
 def test_captured_update_holds_no_host_synchronisation(monkeypatch, shards,
                                                        backend, variant):
     """Every aten op of ``adapter.update`` outside the kernels: none reads
     a value back to the host or copies host data to the device, so the
     CUDA graph capture of the update can succeed. (``sat_add`` with a
-    Python number once made a tensor of it: a host-to-device copy.)"""
+    Python number once made a tensor of it: a host-to-device copy.) On
+    ``"bank"``: the partition core's prep with the hash router's one-hot
+    ranks (its monotone branch: the test below)."""
     monkeypatch.setattr(tops, "fused_update_ref", _kernel_stand_in)
     monkeypatch.setattr(tops, "residual_phase", _kernel_stand_in)
     spec = tapi.SketchSpec(k=96, shards=shards, bits=BITS, variant=variant,
@@ -260,6 +262,23 @@ def test_captured_quantile_update_holds_no_host_synchronisation(
     _audit_update(tapi.SketchSpec(
         kind="quantile", k=96, shards=shards, bits=BITS, variant=variant,
         backend=backend))
+
+
+@pytest.mark.parametrize("router", [tbk.TenantRouter(4, BITS - 2),
+                                    tbk.TenantRouter(2, BITS - 1, 3)])
+def test_partition_core_holds_no_host_synchronisation(monkeypatch, router):
+    """The partition core under a ``TenantRouter``: one row per tenant
+    (the monotone branch, ranks by prefix-sum differences) and per-tenant
+    shards (the one-hot branch)."""
+    monkeypatch.setattr(tops, "fused_update_ref", _kernel_stand_in)
+    rng = np.random.default_rng(4)
+    items = torch.from_numpy(rng.integers(0, 1 << BITS, 256).astype(np.int32))
+    weights = torch.from_numpy(rng.choice([-1, 1, 2], 256).astype(np.int32))
+    bank = tbk.init(24, router.num_rows, device="cpu")
+    with _Ops() as ops:
+        tbk.update_block_fused(bank, items, weights, router, 2)
+    assert ops.names and not set(ops.names) & _SYNCING, \
+        sorted(set(ops.names) & _SYNCING)
 
 
 def _audit_update(spec):
@@ -317,7 +336,7 @@ def _blocks(n_blocks, block, seed=5):
 def test_block_feeder_bit_identical(depth, shards):
     """Feeding is sequential ``ingest_block``, in the port and against the
     reference's feeder."""
-    tspec = tapi.SketchSpec(k=128, shards=shards)
+    tspec = tapi.SketchSpec(k=128, shards=shards, backend="kernel")
     jspec = japi.SketchSpec(k=128, shards=shards, backend="kernel")
     items, weights = _blocks(5, 256)
     seq = TSession(tspec, block=256, device="cpu")
@@ -419,11 +438,30 @@ def test_stream_entry_dyadic_matches_sequential(variant, bits, per_layer):
     assert tbk.row_capacities(got) == caps
 
 
-def test_update_block_fused_refuses_a_partition_router():
-    bank = tbk.init(8, 2, device="cpu")
-    one = torch.ones(4, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tbk.update_block_fused(bank, one, one, tbk.HashShardRouter(2))
+@pytest.mark.parametrize("router", ["hash", "tenant"])
+def test_update_block_fused_takes_a_partition_router(router):
+    """The partition core (it raised until it was ported): a
+    ``HashShardRouter`` and a monotone ``TenantRouter``, bit for bit
+    against the reference's ``update_block_fused``, and the stream entry
+    of the same blocks equal to the fold."""
+    rng = np.random.default_rng(3)
+    routers = ((tbk.HashShardRouter(3, 10), jbk.HashShardRouter(3, 10))
+               if router == "hash" else
+               (tbk.TenantRouter(3, 8), jbk.TenantRouter(3, 8)))
+    items = rng.integers(0, 3 << 8, (3, 200)).astype(np.int32)
+    weights = rng.choice([-1, 1, 1, 2], (3, 200)).astype(np.int32)
+    bank, jb = tbk.init(40, 3, device="cpu"), jbk.init(40, 3)
+    seq = bank
+    for it, w in zip(items, weights):
+        seq = tbk.update_block_fused(seq, torch.from_numpy(it),
+                                     torch.from_numpy(w), routers[0], 2)
+        jb = jbk.update_block_fused(jb, jnp.asarray(it), jnp.asarray(w),
+                                    routers[1], 2)
+        _assert_same(jb, seq, "reference")
+    got = tops.sketch_block_update_stream(bank, torch.from_numpy(items),
+                                          torch.from_numpy(weights),
+                                          routers[0], 2)
+    _assert_same(seq, got, "stream")
 
 
 def test_stream_entry_of_no_blocks_is_the_bank():

@@ -43,7 +43,8 @@ def _specs(shards, variant, **size):
     size = size or {"k": 96}
     return (japi.SketchSpec(variant=variant, shards=shards, bits=BITS,
                             backend="kernel", **size),
-            tapi.SketchSpec(variant=variant, shards=shards, bits=BITS, **size))
+            tapi.SketchSpec(variant=variant, shards=shards, bits=BITS,
+                            backend="kernel", **size))
 
 
 def _assert_same(jd, td, msg=""):
@@ -165,19 +166,47 @@ def test_eps_sizing_matches_reference(eps, alpha, variant):
 
 
 @pytest.mark.parametrize("fields,item", [
-    (dict(kind="quantile", k=64, bits=8, backend="serial"), "item 4"),
-    (dict(kind="frequency", k=64, bits=8, backend="bank"), "item 5"),
     (dict(k=64, variant="double"), "item 11"),
     (dict(k=64, variant="unbiased"), "item 11"),
     (dict(k=64, backend="crprecis"), "item 11"),
     (dict(k=64, bits=8, tenants=2), "item 12"),
-    (dict(k=64, backend="bank"), "item 5"),
-    (dict(k=64, shards=4, backend="serial"), "item 4"),
-    (dict(k=64, backend="serial"), "item 4"),
 ])
 def test_unported_spec_values_name_their_roadmap_item(fields, item):
     with pytest.raises(NotImplementedError, match=item):
         tapi.SketchSpec(**fields)
+
+
+@pytest.mark.parametrize("fields", [
+    dict(kind="quantile", k=64, bits=8, backend="serial"),
+    dict(kind="frequency", k=64, bits=8, backend="bank"),
+    dict(k=64, backend="bank"),
+    dict(k=64, shards=4, backend="serial"),
+    dict(k=64, backend="serial"),
+])
+def test_bank_and_serial_specs_run_as_the_reference(fields):
+    """The spec values that raised until the partition core and the
+    serial backend were ported: a session on each equals the reference's,
+    bit for bit (the quantile one with its mass)."""
+    bits = fields.get("bits", BITS)
+    jspec, tspec = japi.SketchSpec(**fields), tapi.SketchSpec(**fields)
+    js, ts = JSession(jspec, block=128), TSession(tspec, block=128,
+                                                  device="cpu")
+    s = tstreams.bounded_stream(400, 0.5, universe=1 << bits, skew=1.1,
+                                seed=len(fields))
+    js.extend(s[:, 0], s[:, 1])
+    ts.extend(s[:, 0], s[:, 1])
+    _assert_same(*_state_dicts(js, ts), str(fields))
+    if tspec.kind == "quantile":
+        assert int(js.state.mass) == int(ts.state.mass)
+
+
+def test_spec_defaults_are_the_reference_defaults():
+    """Every field's default, ``backend="bank"`` among them."""
+    import dataclasses
+
+    want = {f.name: f.default for f in dataclasses.fields(japi.SketchSpec)}
+    got = {f.name: f.default for f in dataclasses.fields(tapi.SketchSpec)}
+    assert got == want and got["backend"] == "bank"
 
 
 @pytest.mark.parametrize("fields", [
@@ -350,14 +379,28 @@ def test_quantile_sizing_matches_the_reference(shards, size):
 
 
 def test_backends_the_port_runs():
-    assert tapi.backends_for("quantile", None) == ("bank", "block", "kernel")
-    assert tapi.backends_for("quantile", 4) == ("bank",)
-    assert tapi.backends_for("frequency", None) == ("block", "kernel")
-    assert tapi.backends_for("frequency", 4) == ("block", "kernel")
+    """``backends_for`` and ``variants_for`` answer as the reference's, and
+    every base backend they list builds a spec (CR-precis, the family and
+    the tenants raise NotImplementedError, items 11 and 12)."""
     for kind in ("frequency", "quantile"):
+        assert tapi.variants_for(kind) == japi.variants_for(kind)
         for shards in (None, 4):
-            assert set(tapi.backends_for(kind, shards)) <= set(
-                japi.backends_for(kind, shards))
+            for variant in japi.variants_for(kind):
+                for tenants in (None, 2):
+                    assert tapi.backends_for(kind, shards, variant, tenants) \
+                        == japi.backends_for(kind, shards, variant, tenants)
+            for variant in ("sspm", "lazy"):
+                for backend in tapi.backends_for(kind, shards, variant):
+                    if backend == "crprecis":
+                        continue
+                    spec = tapi.SketchSpec(kind=kind, k=64, bits=8,
+                                           shards=shards, variant=variant,
+                                           backend=backend)
+                    assert tapi.spec_axis(spec) == "base"
+                    assert tapi.adapter_for(spec) is tapi.adapter_for(
+                        tapi.SketchSpec(kind=kind, k=64, bits=8,
+                                        shards=shards))
+    assert tapi.backends_for("quantile", 4) == ("bank",)
 
 
 @pytest.mark.parametrize("items,weights", [

@@ -86,7 +86,7 @@ def build(source: pathlib.Path) -> ctypes.CDLL:
     if done.returncode:
         raise SystemExit(f"fused_phases: nvcc failed\n{done.stdout}{done.stderr}")
     dll = ctypes.CDLL(str(lib))
-    dll.sketch_fused_update.argtypes = ([ctypes.c_void_p] * 11
+    dll.sketch_fused_update.argtypes = ([ctypes.c_void_p] * 12
                                         + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     dll.sketch_fused_update.restype = ctypes.c_int
     dll.read_phase_stamps.argtypes = [ctypes.c_void_p, ctypes.c_int]
@@ -131,9 +131,11 @@ def main() -> int:
         scratch = torch.empty(max(n, 1), dtype=torch.int32, device=device)
         for _ in range(3):   # the last launch's stamps are read
             out = [t.clone() for t in st]
+            # uoff NULL: the dense prep's (R, B) rows, G = R * B
             err = dll.sketch_fused_update(
-                *(t.data_ptr() for t in (*out, *args)), scratch.data_ptr(), R,
-                K, args[1].shape[1], v, kernel.FUSED_LAYOUTS.index(layout), n,
+                *(t.data_ptr() for t in (*out, *args)), None,
+                scratch.data_ptr(), R, K, args[1].numel(), v,
+                kernel.FUSED_LAYOUTS.index(layout), n,
                 torch.cuda.current_stream().cuda_stream)
             if err:
                 raise SystemExit(f"fused_phases: launch refused ({err})")
