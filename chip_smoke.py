@@ -115,6 +115,41 @@ result):
      with a state of the lazy stream on the sspm spec equals the CPU's
      merge and holds the summed bound; ``consolidated()`` of the sharded
      state equals the CPU's;
+   - the multi-tenant serving path (``tenant_phase``), on the traffic of
+     ``repro_torch.core.streams.mixed_traffic`` (Zipf(1.2) tenant sizes,
+     each tenant a Zipf(1.0) bounded-deletion stream, bursts of 64, a
+     query of 8 ids after 10 % of the bursts), replayed through
+     ``SketchService`` as the reference's service bench replays it (a
+     tick per block of pending updates), each service's kernel-1
+     launches one a block: the bench shape (the reference's own,
+     ``SketchSpec(k=1024*8, bits=16, tenants=1024)``, blocks of 8,192,
+     200,000 updates at delete ratio 0.0 and 0.5), its bank equal to
+     the plain version over every block, 32 sampled rows to the per-row
+     oracle (``tenant.reference_row_update``), 64 sampled tenants to
+     independent ``SketchSpec(k=8, bits=16)`` sketches fed the same
+     fragments (``query_many``, ``tenant_topk``), every row within its
+     Thm 4 bound; the fleet (32,768 tenants x 128 counters, a 50 MB
+     bank, blocks of 16,384, 4,194,304 updates at delete ratio 0.5,
+     ``window=8``) through a service that spills idle tenants
+     (``spill_after=16``), refreshes 1,024 top-k subscriptions (m = 16)
+     a tick and is saved and loaded into a new service halfway, and
+     through a twin that does none of these: kernel 1 against its plain
+     version over the first 4 blocks and, outside the service, against
+     the twin over all; 64 sampled rows to the per-row oracle; the rows
+     the window keeps strict turnstile within their Thm 4 bound; every
+     subscription equal to a direct top-k; tenants never spilled bit for
+     bit the twin's, tenants spilled and untouched since content-exact
+     once re-admitted; 4,096-key batched point queries; quantile mode
+     (``SketchSpec(kind="quantile", bits=24, eps=1e-3)`` with
+     ``tenant_bits=8``, kernel 2 unstaged), 16 tenants subscribed to 9
+     quantiles every 4 ticks, each within 2 eps·|F|₁ + 1 in rank of the
+     exact per-tenant quantile; tenant specs of 1,024 and 2,048 tenants
+     and of per-tenant caps sharing one compiled-ingest cell, one graph
+     per state shape, each session equal to the plain version; and
+     ``TokenStats`` (Gemma3-27B's 262,144-token vocabulary, 128 steps of
+     8 x 4,096 Zipf(1.0) tokens, window 64) and ``ExpertLoadStats``
+     (OLMoE-1B-7B's 64 experts, top-8 routing) within their Thm 4
+     bounds of the exact windowed counts;
 5. times: per-block ms and updates/s of each run; each kernel's device
    ms at its run's shapes (the kernels the profiler sees, per call; and
    the time per call from the host, which holds the wrapper's host time,
@@ -125,7 +160,11 @@ result):
    block-lazy run's block 1, kernels 1-3 on each quantile run's next
    block from its final bank, and for kernels 1-3 each timed block's
    evictions and SS± drain steps (in all and the most in one sketch or
-   row) and the us per eviction; ``rank_many`` and ``quantile_many`` ms;
+   row) and the us per eviction; kernel 1 on the tenant layouts (the
+   bench shape's last block, R = 1,024, and the fleet's, R = 32,768),
+   with ``_pad_bank``'s ms against the device-busy ms per block of a
+   profiled captured tenant ingest of each; ``rank_many`` and
+   ``quantile_many`` ms;
    ``torch.profiler`` windows over blocks of the main, lazy, path A,
    path B, quantile sspm and bank main specs, each twice in one call:
    eager (``api.adapter_for(spec).update`` per block on a pageable copy)
@@ -2047,7 +2086,7 @@ def host_cuda_ms(events, n_blocks) -> dict:
                            if "Launch" in key), calls=calls)
 
 
-def profile_blocks(spec, block, n_blocks, seed, device):
+def profile_blocks(spec, block, n_blocks, seed, device, stream=None):
     """Profile ``n_blocks`` blocks (after one warm-up block) two ways, in
     one call: ``captured``, ``StreamSession.ingest_block`` (the cached CUDA
     graph, the pinned slot); ``eager``, ``api.adapter_for(spec).update``
@@ -2055,13 +2094,16 @@ def profile_blocks(spec, block, n_blocks, seed, device):
     the graph. Each: wall and device-busy ms per block, the idle share,
     the kernels and copies per block, the host's ms per block in the CUDA
     runtime's calls and the ops by device and host time; then the wall
-    ms per block of the next ``n_blocks`` blocks with the profiler off."""
+    ms per block of the next ``n_blocks`` blocks with the profiler off.
+    The blocks are ``make_stream``'s, or ``stream``'s (at least
+    ``2 * n_blocks + 1`` blocks of it) where given."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.sketch import api
     from repro_torch.sketch.session import StreamSession
 
-    stream = make_stream(2 * n_blocks + 1, block, seed)
+    if stream is None:
+        stream = make_stream(2 * n_blocks + 1, block, seed)
     items, weights = padded_blocks(stream, block)
     sess = StreamSession(spec, block=block, device=device)
     state = [api.make(spec, device)]
@@ -2614,6 +2656,1064 @@ def attention_phase(device, seed=6) -> tuple:
                          runs=runs)
 
 
+# ---------------------------------------------------------------------------
+# The multi-tenant serving path: SketchService on kernel 1's partition layout
+# ---------------------------------------------------------------------------
+
+# the reference's service-bench parameters (benchmarks/bench_service.py:
+# 289-305): 1,024 tenants of 8 counters, 16-bit items, blocks of 8,192,
+# 200,000 updates at each delete ratio
+TENANT_BENCH = dict(tenants=1024, k=8, bits=16, block=8192,
+                    updates=200_000, ratios=(0.0, 0.5), oracle_rows=32,
+                    twins=64, profile=dict(warm=4, ticks=8))
+# a fleet: 32,768 tenants of 128 counters (4,194,304 counters, a 50 MB
+# bank); tenant bits 15 + item bits 16 = 31, the composite-key limit, and
+# (3 * 32,768 + 1) * 16,384 < 2^31, the partition prep's limit
+TENANT_FLEET = dict(tenants=32768, k=128, bits=16, block=16384,
+                    updates=4_194_304, ratio=0.5, window=8, spill_after=16,
+                    subscribers=1024, m=16, point_queries=4096,
+                    plain_blocks=4, oracle_rows=64, not_strict_rows=16,
+                    profile=dict(warm=24, ticks=8))
+# the quantile phase's sspm sizing (bits 24, eps 1e-3, alpha 2) over 256
+# tenants x 2^16 items, on the default "bank" backend
+TENANT_QUANTILE = dict(bits=24, tenant_bits=8, eps=1e-3, block=8192,
+                       updates=1_000_000, subscribers=16, every=4,
+                       qs=(0.01, 0.1, 0.25, 0.4, 0.5, 0.6, 0.75, 0.9, 0.99))
+# Gemma3-27B's vocabulary (src/repro/configs/gemma3_27b.py:10) and
+# OLMoE-1B-7B's 64 experts, top-8 routing (src/repro/configs/
+# olmoe_1b_7b.py:9): 128 steps of 8 x 4,096 tokens
+TENANT_STATS = dict(vocab=262_144, capacity=4096, window=64, steps=128,
+                    tokens=8 * 4096, experts=64, top=8, phi=0.125)
+# the shared traffic generator's shape: Zipf(1.2) tenant sizes, Zipf(1.0)
+# items, bursts of 64, a query after 10 % of the bursts, 8 ids a query
+TRAFFIC = dict(skew=1.2, item_skew=1.0, burst=64, query_frac=0.1,
+               query_size=8)
+
+
+def tenant_spec(tenants, k, bits):
+    from repro_torch.sketch.api import SketchSpec
+
+    return SketchSpec(kind="frequency", k=tenants * k, bits=bits,
+                      tenants=tenants)
+
+
+def traffic(tenants, updates, ratio, bits, seed):
+    from repro_torch.core.streams import mixed_traffic
+
+    return mixed_traffic(tenants, updates, delete_ratio=ratio,
+                         universe=1 << bits, seed=seed, **TRAFFIC)
+
+
+def traffic_stream(ops, item_bits):
+    """The update ops as one (N, 2) stream of composite keys, in order."""
+    import numpy as np
+
+    ups = [op for op in ops if op[0] == "update"]
+    keys = np.concatenate([(np.int64(op[1]) << item_bits) | op[2]
+                           for op in ups])
+    return np.stack([keys, np.concatenate([op[3] for op in ups])], axis=1)
+
+
+def replay(svc, ops, block):
+    """The reference bench's ``_replay`` (bench_service.py:63): submit each
+    update, open a ticket for each query, tick whenever a block's worth of
+    updates is pending, and tick once at the end. Returns (seconds,
+    tickets, the service's block count when each ticket was answered)."""
+    tickets, at, pending = [], [], 0
+    t0 = time.perf_counter()
+    for op in ops:
+        if op[0] == "update":
+            svc.submit(op[1], op[2], op[3])
+            pending += len(op[2])
+            if pending >= block:
+                svc.tick()
+                pending = 0
+                at += [svc.stats["blocks"]] * (len(tickets) - len(at))
+        else:
+            tickets.append(svc.query(op[1], op[2]))
+    svc.tick()
+    secs = time.perf_counter() - t0
+    at += [svc.stats["blocks"]] * (len(tickets) - len(at))
+    return secs, tickets, at
+
+
+def profile_service(svc, ops, block, warm, ticks) -> dict:
+    """``replay`` of ``ops`` through ``svc`` profiled from tick ``warm`` to
+    tick ``warm + ticks`` (every submit, query and tick in between), then
+    ``ticks`` more ticks with the profiler off, and no further. Wall and
+    device-busy ms per block (the kernels' and copies' own device time,
+    as ``profile_blocks`` sums it) and the idle share 1 - busy / wall
+    against the profiled and the unprofiled wall."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    ops, pending = iter(ops), 0
+
+    def run(n):
+        """Replay until ``n`` more ticks ran: (time, blocks) after them."""
+        nonlocal pending
+        while n:
+            op = next(ops, None)
+            if op is None:
+                raise SystemExit(f"profile_service: {svc.stats['ticks']} "
+                                 f"ticks, fewer than {warm + 2 * ticks}")
+            if op[0] == "query":
+                svc.query(op[1], op[2])
+                continue
+            svc.submit(op[1], op[2], op[3])
+            pending += len(op[2])
+            if pending >= block:
+                pending = 0
+                svc.tick()
+                n -= 1
+        torch.cuda.synchronize()
+        return time.perf_counter(), svc.stats["blocks"]
+
+    run(warm)
+    cuda = svc.device.type == "cuda"
+    with profile(activities=[ProfilerActivity.CUDA if cuda
+                             else ProfilerActivity.CPU]) as prof:
+        t0, b0 = time.perf_counter(), svc.stats["blocks"]
+        t1, b1 = run(ticks)
+    t1_off = time.perf_counter()
+    t2, b2 = run(ticks)
+    busy_us = sum(_dev_us(e) for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy = busy_us / 1e3 / (b1 - b0) if busy_us else None
+    wall = (t1 - t0) * 1e3 / (b1 - b0)
+    unprofiled = (t2 - t1_off) * 1e3 / (b2 - b1)
+    return dict(ticks=ticks, blocks=b1 - b0, wall_ms_per_block=wall,
+                unprofiled_wall_ms_per_block=unprofiled,
+                device_busy_ms_per_block=busy,
+                device_idle_share=1.0 - busy / wall if busy else None,
+                device_idle_share_unprofiled=(1.0 - busy / unprofiled
+                                              if busy else None))
+
+
+def _tenant_router(spec, bank):
+    from repro_torch.sketch.bank import TenantRouter
+
+    shards = spec.shards or 1
+    return TenantRouter(bank.ids.shape[0] // shards, spec.bits, shards)
+
+
+def replay_blocks(spec, blocks, device, update, at=None):
+    """The traced blocks, from the spec's empty bank, through the partition
+    prep and ``update`` (kernel 1, or its plain version): the service's
+    ingest outside the service. Returns the bank, and block ``at``'s kernel
+    operands as they were before its update."""
+    import torch
+    from repro_torch.kernels.sketch_update import ops
+    from repro_torch.sketch import api
+    from repro_torch.sketch.state import SketchState
+
+    bank = api.make(spec, device).bank
+    router = _tenant_router(spec, bank)
+    last = None
+    for b, (ci, cw) in enumerate(blocks):
+        it = torch.as_tensor(ci, device=device)
+        w = torch.as_tensor(cw, device=device)
+        if b == at:
+            padded, prep = ops.prep_partition(bank, it, w, router,
+                                              spec.variant_id)
+            last = ([t.clone() for t in padded], list(prep))
+        bank = ops.partition_update_with(update, bank, it, w, router,
+                                         spec.variant_id)
+    torch.cuda.synchronize()
+    return SketchState(*bank), last
+
+
+def touched_rows(spec, blocks, bank, device) -> list:
+    """Per block: the rows its real (nonzero-weight) entries route to."""
+    import torch
+
+    router = _tenant_router(spec, bank)
+    out = []
+    for ci, cw in blocks:
+        it = torch.as_tensor(ci[cw != 0], device=device)
+        out.append(set(torch.unique(router.owner_of(it)).tolist()))
+    return out
+
+
+def check_oracle_rows(label, spec, blocks, bank, rows, device) -> int:
+    """Each sampled row of the final bank equals the per-row oracle
+    (``tenant.reference_row_update``: ``blocks.block_update`` on the row's
+    routed view) run over the blocks that touch it: a block with no
+    weight for the row leaves the row as it is. Returns the oracle's
+    block updates."""
+    from repro_torch.sketch import api
+    from repro_torch.sketch import tenant as tn
+    from repro_torch.sketch.state import SketchState
+
+    router = _tenant_router(spec, bank)
+    fresh = api.make(spec, device).bank
+    hits = touched_rows(spec, blocks, bank, device)
+    n = 0
+    for r in rows:
+        row = SketchState(*(t[r] for t in fresh))
+        for (ci, cw), hit in zip(blocks, hits):
+            if r in hit:
+                row = tn.reference_row_update(row, ci, cw, router, r,
+                                              spec.variant_id)
+                n += 1
+        if not _same(row, SketchState(*(t[r] for t in bank))):
+            raise SystemExit(f"{label}: row {r} differs from the per-row "
+                             f"oracle")
+    return n
+
+
+def check_twins(label, spec, blocks, state, tenants, device) -> dict:
+    """Sampled tenants against independent ``SketchSpec(k=k_t, bits)``
+    sketches fed each block's fragment of the tenant: ``query_many`` on
+    every item the tenant saw and ``tenant_topk`` against ``topk`` at
+    m = k_t, bit for bit (the reference bench's ``_fused_vs_sessions``)."""
+    import numpy as np
+    import torch
+    from repro_torch.sketch import api
+    from repro_torch.sketch import tenant as tn
+    from repro_torch.sketch.api import SketchSpec
+
+    k_t = -(-spec.capacity // spec.tenants)
+    solo = SketchSpec(kind="frequency", k=k_t, bits=spec.bits,
+                      variant=spec.variant)
+    twins = {int(t): api.make(solo, device) for t in tenants}
+    seen = {t: [] for t in twins}
+    for ci, cw in blocks:
+        tt, items = tn.unpack_keys(ci, spec.bits)
+        for t in twins:
+            sel = (tt == t) & (cw != 0)
+            if sel.any():
+                twins[t] = api.update(solo, twins[t], items[sel], cw[sel])
+                seen[t].append(items[sel])
+    checked = 0
+    for t, twin in twins.items():
+        probe = (np.unique(np.concatenate(seen[t])) if seen[t]
+                 else np.zeros(1, np.int32)).astype(np.int32)
+        keys = tn.pack_keys(np.full(len(probe), t), probe,
+                            spec.bits).astype(np.int32)
+        got = api.query_many(spec, state, keys)
+        if not torch.equal(got, api.query_many(solo, twin, probe)):
+            raise SystemExit(f"{label}: tenant {t}'s queries differ from its "
+                             f"independent sketch's")
+        if not _same(api.tenant_topk(spec, state, t, k_t),
+                     api.topk(solo, twin, k_t)):
+            raise SystemExit(f"{label}: tenant {t}'s top-k differs from its "
+                             f"independent sketch's")
+        checked += len(probe)
+    return dict(tenants=len(twins), keys=checked)
+
+
+def strict_keys(blocks):
+    """The keys carried by the blocks (ascending), their exact net counts,
+    their positive weight, and whether each key's running count, block
+    by block (a block's entries are aggregated before they act), never
+    went below 0: the strict turnstile the bounded-deletion theorems
+    assume. A window's expiry of a batch that inserted a key, while a
+    later batch that deleted it is still live, breaks it."""
+    import numpy as np
+
+    nz = [cw != 0 for _, cw in blocks]
+    keys = np.concatenate([ci[m] for (ci, _), m in zip(blocks, nz)])
+    w = np.concatenate([cw[m] for (_, cw), m in zip(blocks, nz)]
+                       ).astype(np.int64)
+    bidx = np.repeat(np.arange(len(blocks)), [int(m.sum()) for m in nz])
+    order = np.lexsort((bidx, keys))
+    k_s, b_s, w_s = keys[order], bidx[order], w[order]
+    new = np.ones(len(k_s), bool)
+    new[1:] = (k_s[1:] != k_s[:-1]) | (b_s[1:] != b_s[:-1])
+    starts = np.flatnonzero(new)
+    kb_net = np.add.reduceat(w_s, starts)
+    kb_key = k_s[starts]
+    head = np.flatnonzero(np.r_[True, kb_key[1:] != kb_key[:-1]])
+    run = np.cumsum(kb_net)
+    before = np.r_[0, run][head]
+    prefix = run - np.repeat(before, np.diff(np.r_[head, len(run)]))
+    uniq = kb_key[head]
+    net = np.add.reduceat(kb_net, head)
+    pos = np.add.reduceat(np.maximum(w_s, 0), np.flatnonzero(
+        np.r_[True, k_s[1:] != k_s[:-1]]))
+    return uniq, net, pos, np.minimum.reduceat(prefix, head) >= 0
+
+
+def check_tenant_truth(label, spec, blocks, bank, device, factor=2.0):
+    """Every tenant row within its Thm 4 bound ``2 * I_row / k_row``
+    (I_row: the positive weight its keys took, expiries of deletions
+    included; k_row: its live counters) against the exact net count of
+    every key the blocks carried, and every key above its row's bound
+    monitored; rows holding a key whose running count went below 0 (not
+    strict turnstile, outside the theorem's hypothesis) are left out.
+    Returns (worst error over bound, keys above their bound, rows left
+    out), which rows are held, and the left-out rows with a key over its
+    bound (for the per-row oracle)."""
+    import numpy as np
+    import torch
+    from repro_torch.sketch import api
+    from repro_torch.sketch import tenant as tn
+
+    uniq, net, pos, strict = strict_keys(blocks)
+    router = _tenant_router(spec, bank)
+    owner = router.owner_of(torch.as_tensor(uniq, device=device)).cpu().numpy()
+    R = bank.ids.shape[0]
+    ins = np.bincount(owner, weights=pos, minlength=R)
+    bound = factor * ins / live_counters(bank)
+    held = np.ones(R, bool)
+    held[owner[~strict]] = False
+    state = tn.TenantBank(bank=bank)
+    est = np.concatenate([
+        api.query_many(spec, state, torch.as_tensor(
+            uniq[s:s + (1 << 20)], device=device)).cpu().numpy()
+        for s in range(0, len(uniq), 1 << 20)]).astype(np.int64)
+    err = np.abs(est - net)
+    over = (err > bound[owner]) & held[owner]
+    if over.any():
+        i = int(np.argmax(np.where(held[owner], err - bound[owner], -np.inf)))
+        raise SystemExit(f"{label}: key {uniq[i]}: error {err[i]} > bound "
+                         f"{bound[owner][i]}")
+    hot = (net > bound[owner]) & held[owner]
+    if (hot & (est <= 0)).any():
+        raise SystemExit(f"{label}: a key above its row's bound is not "
+                         f"monitored")
+    live = (bound[owner] > 0) & held[owner]
+    broken = np.unique(owner[(err > bound[owner]) & ~held[owner]])
+    return ((float((err[live] / bound[owner][live]).max()) if live.any()
+             else 0.0), int(hot.sum()), int((~held).sum())), held, broken
+
+
+def live_counters(bank):
+    """Each row's live (not BLOCKED) counters, on the host."""
+    from repro_torch.sketch.state import BLOCKED
+
+    return (bank.ids != BLOCKED).sum(dim=1).cpu().numpy()
+
+
+def _before(groups, bidx, vals, n_blocks, q_groups, q_at):
+    """Each query's group total of ``vals`` over the blocks before
+    ``q_at`` (entries of block ``bidx``)."""
+    import numpy as np
+
+    code = groups * (n_blocks + 1) + bidx
+    order = np.argsort(code, kind="stable")
+    code, v = code[order], vals[order]
+    g = code // (n_blocks + 1)
+    cum = np.cumsum(v)
+    first = np.maximum.accumulate(np.where(
+        np.r_[True, g[1:] != g[:-1]], np.arange(len(g)), 0))
+    total = cum - (cum[first] - v[first])
+    i = np.searchsorted(code, q_groups * (n_blocks + 1) + q_at) - 1
+    j = np.maximum(i, 0)
+    return np.where((i >= 0) & (g[j] == q_groups), total[j], 0)
+
+
+def check_ticket_bounds(label, spec, blocks, bank, tickets, at, held,
+                        device, factor=2.0) -> dict:
+    """Every ticket's answers within the Thm 4 bound of its row at the
+    moment it was answered, after ``at`` of the blocks: exact net counts
+    and the row's positive weight over those blocks; ``bank`` gives the
+    rows' live counters, ``held`` the rows held (strict turnstile over
+    all blocks, so over every prefix)."""
+    import numpy as np
+    import torch
+    from repro_torch.sketch import tenant as tn
+
+    if not tickets:
+        return dict(ticket_ids_held=0, ticket_ids_left_out=0)
+    nz = [cw != 0 for _, cw in blocks]
+    keys = np.concatenate([ci[m] for (ci, _), m in zip(blocks, nz)]
+                          ).astype(np.int64)
+    w = np.concatenate([cw[m] for (_, cw), m in zip(blocks, nz)]
+                       ).astype(np.int64)
+    bidx = np.repeat(np.arange(len(blocks)), [int(m.sum()) for m in nz])
+    router = _tenant_router(spec, bank)
+
+    def row_of(k):
+        return router.owner_of(torch.as_tensor(
+            k.astype(np.int32), device=device)).cpu().numpy().astype(np.int64)
+
+    sizes = [len(t.items) for t in tickets]
+    q_keys = tn.pack_keys(np.repeat([t.tenant for t in tickets], sizes),
+                          np.concatenate([t.items for t in tickets]),
+                          spec.bits).astype(np.int64)
+    q_at = np.repeat(np.asarray(at, np.int64), sizes)
+    q_row = row_of(q_keys)
+    est = np.concatenate([t.result() for t in tickets]).astype(np.int64)
+    exact = _before(keys, bidx, w, len(blocks), q_keys, q_at)
+    ins = _before(row_of(keys), bidx, np.maximum(w, 0), len(blocks), q_row,
+                  q_at)
+    bound = factor * ins / live_counters(bank)[q_row]
+    err = np.abs(est - exact)
+    keep = held[q_row]
+    over = keep & (err > bound)
+    if over.any():
+        i = int(np.flatnonzero(over)[0])
+        raise SystemExit(f"{label}: a ticket's key {q_keys[i]} after block "
+                         f"{q_at[i]}: error {err[i]} > bound {bound[i]}")
+    live = keep & (bound > 0)
+    return dict(ticket_ids_held=int(keep.sum()),
+                ticket_ids_left_out=int((~keep).sum()),
+                worst_ticket_err_over_bound=(
+                    float((err[live] / bound[live]).max()) if live.any()
+                    else 0.0))
+
+
+def batched_query_ms(spec, state, keys, reps=20) -> float:
+    """ms of one ``api.query_many`` on ``keys`` (a device tensor), CUDA
+    events over ``reps`` calls after a warm-up."""
+    import torch
+    from repro_torch.sketch import api
+
+    api.query_many(spec, state, keys)
+    start, end = torch.cuda.Event(True), torch.cuda.Event(True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        api.query_many(spec, state, keys)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _fused_layout_of(k) -> str:
+    from repro_torch.kernels.sketch_update import kernel
+    from repro_torch.sketch.state import LANES
+
+    return kernel.fused_layout(-(-k // LANES) * LANES)
+
+
+def service_record(label, svc, secs, tickets, launches) -> dict:
+    import numpy as np
+
+    lat = [t.latency_s for t in tickets]
+    return dict(label=label, kernel="sketch_update_kernel_fused",
+                layout=_fused_layout_of(svc.session.state.bank.ids.shape[1]),
+                blocks=svc.stats["blocks"], launches=launches,
+                rows=svc.session.state.bank.ids.shape[0],
+                k_per_row=svc.session.state.bank.ids.shape[1],
+                updates=svc.stats["updates"], ticks=svc.stats["ticks"],
+                ms_per_block=secs * 1e3 / svc.stats["blocks"],
+                updates_per_s=svc.stats["updates"] / secs,
+                tickets=len(tickets), query_ids=svc.stats["queries"],
+                p99_ticket_ms=(float(np.percentile(lat, 99)) * 1e3
+                               if lat else None))
+
+
+def service_bench(device) -> tuple:
+    """The reference's service bench shape at delete ratios 0.0 and 0.5:
+    the replay through ``SketchService`` (one kernel-1 launch a block), its
+    bank held to the plain version over every traced block, sampled rows
+    to the per-row oracle and sampled tenants to independent sketches.
+    Returns (records, block operands for the kernel's times, the service
+    profiles to run later as (label, thunk))."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.sketch_update import ref
+    from repro_torch.serve import SketchService
+    from repro_torch.sketch import session as ses
+
+    c = TENANT_BENCH
+    spec = tenant_spec(c["tenants"], c["k"], c["bits"])
+    rng = np.random.default_rng(31)
+    entries0 = ses.ingest_cache_stats()["entries"]
+    out, last, later = {}, None, []
+    for ratio in c["ratios"]:
+        label = f"service bench delete={ratio}"
+        ops = traffic(c["tenants"], c["updates"], ratio, c["bits"],
+                      seed=int(ratio * 10) + 1)
+        svc = SketchService(spec, block=c["block"], device=device)
+        svc.trace_blocks = []
+        reset_counts()
+        secs, tickets, at = replay(svc, ops, c["block"])
+        torch.cuda.synchronize()
+        rec = service_record(label, svc, secs, tickets, check_launches(
+            label, read_counts(), "sketch_update_kernel_fused",
+            svc.stats["blocks"], _fused_layout_of(c["k"])))
+        blocks, bank = svc.trace_blocks, svc.session.state.bank
+        t0 = time.perf_counter()
+        plain, last = replay_blocks(spec, blocks, device, ref.fused_update_ref,
+                                    at=len(blocks) - 1)
+        if not _same(plain, bank):
+            raise SystemExit(f"{label}: the bank differs from the plain "
+                             f"version's over the traced blocks")
+        rec["plain_ms_per_block"] = (time.perf_counter() - t0) * 1e3 \
+            / len(blocks)
+        rows = rng.choice(bank.ids.shape[0], c["oracle_rows"], replace=False)
+        rec["oracle_rows"] = len(rows)
+        rec["oracle_updates"] = check_oracle_rows(label, spec, blocks, bank,
+                                                  rows, device)
+        rec["twins"] = check_twins(label, spec, blocks, svc.session.state,
+                                   rng.choice(c["tenants"], c["twins"],
+                                              replace=False), device)
+        (rec["worst_err_over_bound"], rec["keys_above_bound"],
+         left_out), held, _ = check_tenant_truth(label, spec, blocks, bank,
+                                                 device)
+        if left_out:
+            raise SystemExit(f"{label}: {left_out} rows of a stream with no "
+                             f"window are not strict turnstile")
+        rec.update(check_ticket_bounds(label, spec, blocks, bank, tickets,
+                                       at, held, device))
+        keys = torch.as_tensor(traffic_stream(ops, c["bits"])[:4096, 0]
+                               .astype(np.int32), device=device)
+        rec["batched_4096_query_ms"] = batched_query_ms(spec,
+                                                        svc.session.state,
+                                                        keys)
+        rec["batched_queries_per_s"] = 4096 / rec["batched_4096_query_ms"] \
+            * 1e3
+        later.append((label, lambda spec=spec, ops=ops: profile_service(
+            SketchService(spec, block=c["block"], device=device), ops,
+            c["block"], **c["profile"])))
+        out[label] = rec
+        log(f"{label}: {json.dumps(rec)}")
+    added = ses.ingest_cache_stats()["entries"] - entries0
+    if added > 1:
+        raise SystemExit(f"the service bench added {added} compiled-ingest "
+                         f"cells; one layout takes one")
+    return out, last, later
+
+
+def _timed(fn, times):
+    """``fn`` wrapped to append its synchronised ms to ``times``."""
+    import torch
+
+    def run(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        return out
+    return run
+
+
+def service_fleet(device) -> tuple:
+    """The fleet through two services on the same traffic: ``main`` spills
+    idle tenants (``spill_after``), refreshes 1,024 top-k subscriptions a
+    tick and is saved and loaded into a new service halfway; ``twin`` does
+    none of these. Held: both feed the same blocks, kernel 1 once a block
+    in each; kernel and plain version equal over the first blocks; sampled
+    rows, and the rows not strict turnstile that break the bound with a
+    sample of the others, equal the per-row oracle; every strict row of
+    both within its Thm 4 bound at the end, and every ticket of ``main``
+    within its row's bound when it was answered; every subscription equal
+    to a direct ``tenant_topk``; every tenant never spilled bit for bit
+    equal to the twin's rows (the save and load included); every tenant
+    spilled and not touched since re-admitted content-exact (queries and
+    top-k counts equal the twin's), and every ticket of a tenant never
+    re-admitted equal to the twin's. Tenants re-admitted and then updated
+    again keep their content but not their slot order, so a later
+    eviction among equal counts may differ from the twin's: they are
+    counted, and held to the bound (their tickets and their rows)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.sketch_update import kernel, ref
+    from repro_torch.serve import SketchService
+    from repro_torch.sketch import api
+    from repro_torch.sketch import tenant as tn
+
+    c = TENANT_FLEET
+    spec = tenant_spec(c["tenants"], c["k"], c["bits"])
+    ops = traffic(c["tenants"], c["updates"], c["ratio"], c["bits"], seed=5)
+    half = len(ops) // 2
+    kw = dict(block=c["block"], window=c["window"], device=device)
+    rng = np.random.default_rng(32)
+    subs = rng.choice(c["tenants"], c["subscribers"], replace=False)
+    spills, admits, spilled, admitted = [], [], set(), set()
+
+    def subscribed(svc):
+        for t in subs:
+            svc.subscribe_topk(int(t), c["m"])
+        return svc
+
+    def service():
+        svc = subscribed(SketchService(spec, spill_after=c["spill_after"],
+                                       **kw))
+        svc.trace_blocks = []
+        spill, admit = _timed(svc._spill, spills), _timed(svc._admit, admits)
+        svc._spill = lambda t: (spilled.add(t), spill(t))
+        svc._admit = lambda t: (admitted.add(t), admit(t))
+        return svc
+
+    layout = _fused_layout_of(c["k"])
+    main = service()
+    reset_counts()
+    secs, tickets, at = replay(main, ops[:half], c["block"])
+    t0 = time.perf_counter()
+    saved = main.save()
+    main2 = service()
+    main2.load(saved)
+    save_load_s = time.perf_counter() - t0
+    secs2, tickets2, at2 = replay(main2, ops[half:], c["block"])
+    torch.cuda.synchronize()
+    blocks_main = main.stats["blocks"] + main2.stats["blocks"]
+    launches = check_launches("service fleet", read_counts(),
+                              "sketch_update_kernel_fused", blocks_main,
+                              layout)
+    rec_main = service_record("service fleet", main2, secs + secs2,
+                              tickets + tickets2, launches)
+    rec_main.update(blocks=blocks_main, save_load_s=save_load_s,
+                    updates=main.stats["updates"] + main2.stats["updates"],
+                    ticks=main.stats["ticks"] + main2.stats["ticks"],
+                    query_ids=main.stats["queries"] + main2.stats["queries"],
+                    spills=len(spills), admits=len(admits),
+                    spill_ms_mean=float(np.mean(spills)) if spills else None,
+                    admit_ms_mean=float(np.mean(admits)) if admits else None,
+                    ms_per_block=(secs + secs2) * 1e3 / blocks_main,
+                    updates_per_s=(main.stats["updates"]
+                                   + main2.stats["updates"]) / (secs + secs2))
+    tickets += tickets2
+    at += [a + main.stats["blocks"] for a in at2]
+    main_blocks = main.trace_blocks + main2.trace_blocks
+    twin = SketchService(spec, **kw)
+    twin.trace_blocks = []
+    reset_counts()
+    t_secs, t_tickets, _ = replay(twin, ops[:half], c["block"])
+    t_secs2, t_tickets2, _ = replay(twin, ops[half:], c["block"])
+    torch.cuda.synchronize()
+    rec_twin = service_record(
+        "service fleet twin", twin, t_secs + t_secs2, t_tickets + t_tickets2,
+        check_launches("service fleet twin", read_counts(),
+                       "sketch_update_kernel_fused", twin.stats["blocks"],
+                       layout))
+    blocks, bank = twin.trace_blocks, twin.session.state.bank
+    if len(main_blocks) != len(blocks) or not all(
+            np.array_equal(x, y) for a, b in zip(main_blocks, blocks)
+            for x, y in zip(a, b)):
+        raise SystemExit("service fleet: the spilled and reloaded service "
+                         "fed other blocks than the twin")
+    del main_blocks
+    for a, b in zip(tickets, t_tickets + t_tickets2):
+        if a.tenant not in admitted and not np.array_equal(a.result(),
+                                                           b.result()):
+            raise SystemExit(f"service fleet: a ticket of tenant "
+                             f"{a.tenant} differs from the twin's")
+    # the kernel against its plain version over the first blocks, and
+    # over all blocks outside the service against the twin's bank (the
+    # last block's operands are kept for the kernel's times)
+    n = min(c["plain_blocks"], len(blocks))
+    got, _ = replay_blocks(spec, blocks[:n], device,
+                           kernel.sketch_update_kernel_fused)
+    want, _ = replay_blocks(spec, blocks[:n], device, ref.fused_update_ref)
+    if not _same(got, want):
+        raise SystemExit(f"service fleet: kernel 1 differs from its plain "
+                         f"version over the first {n} blocks")
+    got, last = replay_blocks(spec, blocks, device,
+                              kernel.sketch_update_kernel_fused,
+                              at=len(blocks) - 1)
+    if not _same(got, bank):
+        raise SystemExit("service fleet: kernel 1 outside the service "
+                         "differs from the twin's bank")
+    (rec_twin["worst_err_over_bound"], rec_twin["keys_above_bound"],
+     rec_twin["rows_not_strict"]), held, broken = check_tenant_truth(
+        "service fleet twin", spec, blocks, bank, device)
+    # the per-row oracle: sampled rows, then every row not strict
+    # turnstile with a key over its bound and a sample of the other rows
+    # not strict (the bound does not hold there; the oracle does)
+    rows = np.concatenate([np.arange(4), rng.choice(
+        np.arange(4, bank.ids.shape[0]), c["oracle_rows"] - 4,
+        replace=False)])
+    rec_twin["oracle_rows"] = len(rows)
+    rec_twin["oracle_updates"] = check_oracle_rows(
+        "service fleet twin", spec, blocks, bank, rows, device)
+    others = np.setdiff1d(np.flatnonzero(~held), broken)
+    extra = np.concatenate([broken, rng.choice(
+        others, min(c["not_strict_rows"], len(others)), replace=False)])
+    t0 = time.perf_counter()
+    rec_twin.update(
+        rows_not_strict_over_bound=len(broken),
+        oracle_rows_not_strict=len(extra),
+        oracle_updates_not_strict=check_oracle_rows(
+            "service fleet twin (rows not strict)", spec, blocks, bank,
+            extra, device),
+        oracle_not_strict_s=time.perf_counter() - t0)
+    rec_twin["plain_blocks"] = n
+    # subscriptions: refreshed at the last tick, as a direct tenant_topk
+    items, vals = tn.topk_tenants(
+        main2.session.state, torch.as_tensor(subs, dtype=torch.int32,
+                                             device=device),
+        c["m"], num_shards=1, item_bits=c["bits"])
+    for i, t in enumerate(subs.tolist()):
+        got_i, got_v = main2.topk_result(t)
+        if not (np.array_equal(got_i, items[i].cpu().numpy())
+                and np.array_equal(got_v, vals[i].cpu().numpy())):
+            raise SystemExit(f"service fleet: tenant {t}'s subscription "
+                             f"differs from a direct top-k")
+    # main against the twin: never spilled rows bit for bit; spilled and
+    # untouched since, content-exact once re-admitted
+    never = torch.as_tensor(
+        np.setdiff1d(np.arange(c["tenants"]), list(spilled)), device=device)
+    if not _same(rows_of(main2.session.state.bank, never),
+                 rows_of(bank, never)):
+        raise SystemExit("service fleet: a tenant that never spilled differs "
+                         "from the twin")
+    again = sorted(admitted)
+    cold = sorted(set(main2._spilled) - admitted)
+    for t in list(main2._spilled):
+        main2._admit(t)
+    state = main2.session.state
+    probe_keys = np.unique(traffic_stream(ops, c["bits"])[:, 0])
+    owner = probe_keys >> c["bits"]
+    cold_keys = probe_keys[np.isin(owner, cold)].astype(np.int32)
+    if len(cold_keys):
+        kt = torch.as_tensor(cold_keys, device=device)
+        if not torch.equal(api.query_many(spec, state, kt),
+                           api.query_many(spec, twin.session.state, kt)):
+            raise SystemExit("service fleet: a re-admitted tenant's queries "
+                             "differ from the twin's")
+        tk = torch.as_tensor(cold, dtype=torch.int32, device=device)
+        v_m = tn.topk_tenants(state, tk, c["m"], num_shards=1,
+                              item_bits=c["bits"])[1]
+        v_t = tn.topk_tenants(twin.session.state, tk, c["m"], num_shards=1,
+                              item_bits=c["bits"])[1]
+        if not torch.equal(v_m, v_t):
+            raise SystemExit("service fleet: a re-admitted tenant's top-k "
+                             "counts differ from the twin's")
+    # re-admitted earlier, then updated again: content kept, slot order
+    # not; held to the bound with every other row, and every ticket
+    same_again = 0
+    if again:
+        keys = probe_keys[np.isin(owner, again)].astype(np.int32)
+        kt = torch.as_tensor(keys, device=device)
+        eq = (api.query_many(spec, state, kt)
+              == api.query_many(spec, twin.session.state, kt)).cpu().numpy()
+        same_again = len(again) - len(np.unique(keys[~eq] >> c["bits"]))
+    (rec_main["worst_err_over_bound"], rec_main["keys_above_bound"],
+     rec_main["rows_not_strict"]), held_main, _ = check_tenant_truth(
+        "service fleet", spec, blocks, state.bank, device)
+    rec_main.update(check_ticket_bounds("service fleet", spec, blocks,
+                                        state.bank, tickets, at, held_main,
+                                        device))
+    rec_main.update(never_spilled=len(never), spilled_untouched=len(cold),
+                    readmitted=len(again),
+                    readmitted_equal_to_twin=same_again)
+    keys = torch.as_tensor(probe_keys[rng.choice(len(probe_keys),
+                                                 c["point_queries"])]
+                           .astype(np.int32), device=device)
+    rec_twin["batched_query_ms"] = batched_query_ms(spec, twin.session.state,
+                                                    keys)
+    rec_twin["batched_queries_per_s"] = (c["point_queries"]
+                                         / rec_twin["batched_query_ms"] * 1e3)
+    for rec in (rec_main, rec_twin):
+        log(f"{rec['label']}: {json.dumps(rec)}")
+    # the service's device busy and idle share over a window of ticks:
+    # the twin's configuration and main's (spill and subscriptions)
+    later = [("service fleet twin", lambda: profile_service(
+                 SketchService(spec, **kw), ops, c["block"], **c["profile"])),
+             ("service fleet", lambda: profile_service(
+                 subscribed(SketchService(
+                     spec, spill_after=c["spill_after"], **kw)),
+                 ops, c["block"], **c["profile"]))]
+    return ({"service fleet": rec_main, "service fleet twin": rec_twin},
+            last, later)
+
+
+def rows_of(bank, rows):
+    from repro_torch.sketch.state import SketchState
+
+    return SketchState(*(t[rows] for t in bank))
+
+
+def quantile_service(device) -> dict:
+    """Quantile mode: ``SketchService`` over the dyadic sspm spec with
+    tenant_bits = 8 (the dense core, kernel 2, once a block), 16 tenants
+    subscribed to 9 quantiles every 4 ticks; every answer within twice the
+    single-rank bound (2 eps |F|_1 + 1 in rank) of numpy's exact
+    per-tenant quantile, as ``tests/test_tenant.py:343`` holds it, and
+    equal to a direct ``quantile`` call."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.sketch_update import kernel
+    from repro_torch.serve import SketchService
+    from repro_torch.sketch.api import SketchSpec
+
+    c = TENANT_QUANTILE
+    label = "service quantile"
+    spec = SketchSpec(kind="quantile", bits=c["bits"], eps=c["eps"],
+                      alpha=2.0)
+    item_bits = c["bits"] - c["tenant_bits"]
+    T = 1 << c["tenant_bits"]
+    ops = traffic(T, c["updates"], 0.5, item_bits, seed=6)
+    svc = SketchService(spec, block=c["block"], tenant_bits=c["tenant_bits"],
+                        device=device)
+    svc.trace_blocks = []
+    subs = list(range(c["subscribers"]))
+    for t in subs:
+        svc.subscribe_quantile(t, c["qs"], every=c["every"])
+    layout = kernel.banked_layout(max(spec.layer_capacities()))
+    reset_counts()
+    secs, tickets, _ = replay(svc, ops, c["block"])
+    torch.cuda.synchronize()
+    rec = service_record(label, svc, secs, tickets, check_launches(
+        label, read_counts(), "sketch_residual_kernel_banked",
+        svc.stats["blocks"], layout))
+    rec.update(kernel="sketch_residual_kernel_banked", layout=layout)
+    # empty ticks until the subscriptions' last refresh is the last tick
+    while svc.tick_count % c["every"] != 1:
+        svc.tick()
+    keys = np.concatenate([ci[cw != 0] for ci, cw in svc.trace_blocks])
+    w = np.concatenate([cw[cw != 0] for ci, cw in svc.trace_blocks])
+    freq = np.bincount(keys, weights=w, minlength=1 << c["bits"])
+    mass = int(freq.sum())
+    if int(svc.session.state.mass) != mass:
+        raise SystemExit(f"{label}: the bank's mass is not the stream's")
+    slack = 2 * c["eps"] * mass + 1
+    for t in subs:
+        cum = np.cumsum(freq[t << item_bits:(t + 1) << item_bits]
+                        .astype(np.int64))
+        got = svc.quantile_result(t)
+        check_quantiles(f"{label} tenant {t}", got, c["qs"], cum,
+                        slack / max(int(cum[-1]), 1))
+        if not np.array_equal(got, svc.quantile(t, c["qs"])):
+            raise SystemExit(f"{label}: tenant {t}'s subscription differs "
+                             f"from a direct quantile call")
+    rec.update(subscribers=len(subs), mass=mass, rank_slack=slack)
+    log(f"{label}: {json.dumps(rec)}")
+    return {label: rec}
+
+
+def shared_cell(device) -> dict:
+    """Tenant specs that differ only in the tenant count or the caps share
+    one compiled-ingest cell on the card, with one CUDA graph per state
+    shape ((1,024, 8) and (2,048, 4)); sessions of the three take blocks
+    in turns, and each bank equals the plain version on its own blocks and
+    answers its own queries."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.sketch_update import ref
+    from repro_torch.sketch import api
+    from repro_torch.sketch import session as ses
+    from repro_torch.sketch.api import SketchSpec
+    from repro_torch.sketch.session import StreamSession
+
+    c = TENANT_BENCH
+    T, bits, B = c["tenants"], c["bits"], c["block"]
+    specs = [tenant_spec(T, c["k"], bits),
+             SketchSpec(kind="frequency", k=T * c["k"], bits=bits,
+                        tenants=2 * T),
+             SketchSpec(kind="frequency", bits=bits, tenants=T,
+                        tenant_caps=(c["k"],) * T)]
+    entries0 = ses.ingest_cache_stats()["entries"]
+    sessions = [StreamSession(sp, block=B, device=device) for sp in specs]
+    added = ses.ingest_cache_stats()["entries"] - entries0
+    cell = sessions[0]._compiled
+    if added > 1 or any(s._compiled is not cell for s in sessions):
+        raise SystemExit(f"shared cell: the tenant specs took {added} cells")
+    streams = [padded_blocks(traffic_stream(traffic(
+        sp.tenants, 3 * B, 0.5, bits, seed=40 + i), bits), B)
+        for i, sp in enumerate(specs)]
+    n = min(len(it) for it, _ in streams)
+    reset_counts()
+    for b in range(n):
+        for sess, (it, w) in zip(sessions, streams):
+            sess.ingest_block(it[b], w[b])
+    launches = check_launches("shared cell", read_counts(),
+                              "sketch_update_kernel_fused", n * len(specs),
+                              _fused_layout_of(c["k"]))
+    shapes = sorted(tuple(k[0]) for k in cell.graphs)
+    # the card's cell holds a graph per shape (the CPU's ingest is eager)
+    if device.type == "cuda" and not {(T, c["k"]),
+                                      (2 * T, c["k"] // 2)} <= set(shapes):
+        raise SystemExit(f"shared cell: graphs of shapes {shapes}")
+    for sp, sess, (it, w) in zip(specs, sessions, streams):
+        want, _ = replay_blocks(sp, list(zip(it[:n], w[:n])), device,
+                                ref.fused_update_ref)
+        if not _same(sess.state.bank, want):
+            raise SystemExit(f"shared cell: the session of {sp.tenants} "
+                             f"tenants differs from the plain version")
+        keys = np.unique(it[:n][w[:n] != 0]).astype(np.int32)
+        if not torch.equal(sess.query_many(keys), api.query_many(
+                sp, type(sess.state)(bank=want), keys)):
+            raise SystemExit("shared cell: a session's queries differ")
+    rec = dict(label="shared cell", kernel="sketch_update_kernel_fused",
+               layout=_fused_layout_of(c["k"]), blocks=n * len(specs),
+               launches=launches, cells_added=added, graph_shapes=shapes)
+    log(f"shared cell: {json.dumps(rec)}")
+    return {"shared cell": rec}
+
+
+def stats_phase(device) -> dict:
+    """``TokenStats`` over Gemma3-27B's vocabulary and ``ExpertLoadStats``
+    over OLMoE-1B-7B's experts on the same steps: Zipf(1.0) tokens, each
+    routed to its 8 experts by a fixed table (a skewed router: Gumbel
+    noise over a preference falling as 1/rank). Each tracker's kernel-1
+    launches are its session's blocks. Held against the exact windowed
+    counts: ``topk(16)`` within the Thm 4 bound 2 I / k, with every token
+    whose count clears the 17th largest by twice the bound reported; the
+    expert tracker within the same bound on every expert it reports, and
+    ``hot_experts(0.125)`` holding every expert at or above an eighth of
+    the windowed load (with top-8 routing no expert holds more than an
+    eighth, so that set is small or empty, and the check can show
+    nothing). At phi = half the top expert's share, which the traffic
+    crosses, the default tracker (32 counters for 64 experts) is only
+    measured against the exact set: its bound, 2 I / k, is above every
+    expert's load. A tracker with a counter per expert
+    (``capacity=64``) on the same steps holds every expert exactly, so
+    its ``hot_experts`` there must be the exact set."""
+    import numpy as np
+    import torch
+    from repro_torch.core.streams import zipf_insertions
+    from repro_torch.sketch.stats import ExpertLoadStats, TokenStats
+
+    c = TENANT_STATS
+    V, E = c["vocab"], c["experts"]
+    rng = np.random.default_rng(33)
+    pref = -np.log(np.arange(1, E + 1, dtype=np.float32))
+    route = np.argpartition(-(pref + rng.gumbel(size=(V, E))
+                              .astype(np.float32)), c["top"], axis=1)[:, :c["top"]]
+    ts = TokenStats(capacity=c["capacity"], window=c["window"], device=device)
+    es = ExpertLoadStats(num_experts=E, window=c["window"], device=device)
+    every_expert = ExpertLoadStats(num_experts=E, capacity=E,
+                                   window=c["window"], device=device)
+    steps = [zipf_insertions(c["tokens"], V, 1.0, seed=100 + s)
+             for s in range(c["steps"])]
+    loads = [np.bincount(route[tok].ravel(), minlength=E) for tok in steps]
+    out = {}
+    for label, tracker, feed in (("stats tokens", ts, steps),
+                                 ("stats experts", es, loads),
+                                 ("stats experts capacity=64", every_expert,
+                                  loads)):
+        reset_counts()
+        t0 = time.perf_counter()
+        for x in feed:
+            tracker.update(x)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        out[label] = dict(
+            label=label, kernel="sketch_update_kernel_fused",
+            layout=_fused_layout_of(tracker.capacity),
+            blocks=tracker.bank.blocks_ingested,
+            launches=check_launches(label, read_counts(),
+                                    "sketch_update_kernel_fused",
+                                    tracker.bank.blocks_ingested,
+                                    _fused_layout_of(tracker.capacity)),
+            steps=len(feed), ms_per_step=secs * 1e3 / len(feed),
+            insertions=tracker.insertions, deletions=tracker.deletions)
+    window = steps[-c["window"]:]
+    exact = np.bincount(np.concatenate(window), minlength=V)
+    bound = 2 * ts.insertions / c["capacity"]
+    rep = ts.topk(16)
+    err = np.abs(rep.counts.astype(np.int64) - exact[rep.items])
+    if (err > bound).any() or len(rep.items) != 16:
+        raise SystemExit(f"stats tokens: top-16 counts off by {err.max()} > "
+                         f"the Thm 4 bound {bound}")
+    top = np.sort(exact)[::-1]
+    must = np.flatnonzero(exact > top[16] + 2 * bound)
+    if not set(must.tolist()) <= set(rep.items.tolist()):
+        raise SystemExit("stats tokens: a token clear of the 17th count by "
+                         "twice the bound is missing from the top-16")
+    out["stats tokens"].update(bound=bound, worst_err=int(err.max()),
+                               clear_tokens=len(must))
+    load = np.sum(loads[-c["window"]:], axis=0)
+    live = es.insertions - es.deletions
+    if live != int(load.sum()):
+        raise SystemExit("stats experts: the live mass is not the window's")
+    ebound = 2 * es.insertions / es.capacity
+    every = es.hot_experts(0.0)
+    err = np.abs(every.counts.astype(np.int64) - load[every.items])
+    if (err > ebound).any():
+        raise SystemExit(f"stats experts: an expert's load is off by "
+                         f"{err.max()} > the Thm 4 bound {ebound}")
+    hot = es.hot_experts(c["phi"])
+    want = np.flatnonzero(load >= c["phi"] * live)
+    if not set(want.tolist()) <= set(hot.items.tolist()):
+        raise SystemExit("stats experts: an expert above phi of the windowed "
+                         "load is not reported hot")
+    top_share = float(load.max() / live)
+    phi = top_share / 2
+    want_half = set(np.flatnonzero(load >= phi * live).tolist())
+    got_half = set(es.hot_experts(phi).items.tolist())
+    out["stats experts"].update(
+        bound=ebound, worst_err=int(err.max()), hot=len(hot.items),
+        hot_exact=len(want), top_share=top_share, half_phi=phi,
+        half_hot=len(got_half), half_hot_exact=len(want_half),
+        half_hot_found=len(got_half & want_half))
+    exact = every_expert.hot_experts(phi)
+    if (not want_half or set(exact.items.tolist()) != want_half
+            or not np.array_equal(exact.counts, load[exact.items])):
+        raise SystemExit(f"stats experts capacity=64: hot_experts({phi}) is "
+                         f"not the exact set of {len(want_half)} experts")
+    out["stats experts capacity=64"].update(half_phi=phi,
+                                            hot_exact=len(want_half))
+    for rec in out.values():
+        log(f"{rec['label']}: {json.dumps(rec)}")
+    return out
+
+
+def tenant_phase(device) -> tuple:
+    """The multi-tenant serving path: the service bench shape, the fleet,
+    quantile mode, tenant layouts sharing a cell, and the windowed
+    trackers. Returns (records by label, kernel-1 operands of the bench
+    shape's last block and of the fleet's, for the times, and the service
+    profiles as (label, thunk): ``main`` runs them after every other
+    timing, so no profiler session of theirs precedes another)."""
+    out, last_bench, later = service_bench(device)
+    fleet, last_fleet, later_fleet = service_fleet(device)
+    out.update(fleet)
+    out.update(quantile_service(device))
+    out.update(shared_cell(device))
+    out.update(stats_phase(device))
+    return out, {"bench": last_bench, "fleet": last_fleet}, \
+        later + later_fleet
+
+
+def service_profiles(later, runs) -> None:
+    """Run the tenant phase's service profiles into their records."""
+    for label, profiled in later:
+        runs[label]["profile"] = profiled()
+        log(f"profile {label} (service ticks): "
+            f"{json.dumps(runs[label]['profile'])}")
+
+
+def tenant_times(operands, device) -> dict:
+    """Kernel 1 on the tenant layouts (R = 1,024 and 32,768 rows) with its
+    bound and plain version's ms (``time_kernel``); ``_pad_bank``'s ms on
+    each bank against the device-busy ms per block of a profiled captured
+    tenant ingest (``profile_blocks`` on the layout's own traffic)."""
+    import torch
+    from repro_torch.kernels.sketch_update import kernel, ref
+    from repro_torch.kernels.sketch_update.ops import _pad_bank
+    from repro_torch.sketch.state import SketchState
+
+    out = {}
+    for name, c, seed in (("bench", TENANT_BENCH, 1), ("fleet", TENANT_FLEET,
+                                                       5)):
+        st, args = operands[name]
+        t = time_kernel(kernel.sketch_update_kernel_fused,
+                        ref.fused_update_ref, (st, args), 2, fused_bound,
+                        10, 1)
+        t["rows"] = st[0].shape[0]
+        spec = tenant_spec(c["tenants"], c["k"], c["bits"])
+        bank = SketchState(*(x[:, :c["k"]].contiguous() for x in st))
+        _pad_bank(bank)
+        start, end = torch.cuda.Event(True), torch.cuda.Event(True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(20):
+            _pad_bank(bank)
+        end.record()
+        torch.cuda.synchronize()
+        t["pad_bank_ms"] = start.elapsed_time(end) / 20
+        ratio = c["ratios"][-1] if "ratios" in c else c["ratio"]
+        n = 4
+        stream = traffic_stream(traffic(
+            c["tenants"], (2 * n + 2) * c["block"], ratio, c["bits"],
+            seed=seed), c["bits"])
+        prof = profile_blocks(spec, c["block"], n, seed, device,
+                              stream=stream)
+        busy = prof["captured"]["device_busy_ms_per_block"]
+        t["pad_bank_share_of_busy"] = (t["pad_bank_ms"] / busy if busy
+                                       else None)
+        t["profile"] = prof
+        out[name] = t
+        log(f"sketch_update_kernel_fused on the tenant layout ({name}, R = "
+            f"{t['rows']}): {json.dumps({k: v for k, v in t.items() if k != 'profile'})}")
+        for way in ("eager", "captured"):
+            p = prof[way]
+            log(f"profile tenant {name} {way}: wall "
+                f"{p['wall_ms_per_block']:.3f} ms/block "
+                f"({p['unprofiled_wall_ms_per_block']:.3f} unprofiled), busy "
+                f"{p['device_busy_ms_per_block']} ms/block, idle share "
+                f"{p['device_idle_share']}")
+    return out
+
+
 def gpu_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2747,6 +3847,9 @@ def main() -> int:
     q_runs, q_extra, q_finals = quantile_phase(q_specs, q_streams, B, device)
     phase_done("quantile runs")
     runs.update({f"quantile {name}": r for name, r in q_runs.items()})
+    tenant_runs, tenant_operands, tenant_later = tenant_phase(device)
+    runs.update({f"tenant {name}": r for name, r in tenant_runs.items()})
+    phase_done("tenant runs")
 
     times = {
         fused: time_kernel(kernel.sketch_update_kernel_fused,
@@ -2794,6 +3897,7 @@ def main() -> int:
                                                ("bank a", 2, 10, 1))}
     for label, t in bank_times.items():
         log(f"{label} on the partition layout: {json.dumps(t)}")
+    tenant_kernel_times = tenant_times(tenant_operands, device)
     phase_done("kernel times")
     prof = {label: profile_blocks(spec, B, 8, seed=3, device=device)
             for label, spec in (("main", main_spec), ("lazy", lazy_spec),
@@ -2813,6 +3917,8 @@ def main() -> int:
     phase_done("profiles")
     attention_entries, attention = attention_phase(device)
     phase_done("attention")
+    service_profiles(tenant_later, tenant_runs)
+    phase_done("service profiles")
 
     replaces = {fused: 144, "sketch_residual_kernel_banked": 278,
                 split: 220, "sketch_update_kernel_serial": 396}
@@ -2837,6 +3943,11 @@ def main() -> int:
     } for name in KERNELS] + attention_entries
     # kernels 1-3 by layout: calls in the counted runs (a call on kernel
     # 3's unstaged layouts is two device launches)
+    # kernel 1 on the tenant layouts (R = 1,024 and 32,768 rows)
+    kernels[0]["tenant_layouts"] = {
+        name: {key: t[key] for key in ("rows", "ms", "bound_ms", "bound_by",
+                                       "plain_ms", "pad_bank_ms")}
+        for name, t in tenant_kernel_times.items()}
     for entry in kernels[:3]:
         entry["launches_by_path"] = {
             r["layout"]: sum(q["launches"] for q in runs.values()
@@ -2853,6 +3964,7 @@ def main() -> int:
         fused_times_partition=bank_times,
         serial_paths=serial_by_path, quantile=q_extra, elapsed_s=elapsed,
         quantile_kernel_times=q_times,
+        tenant=tenant_runs, tenant_kernel_times=tenant_kernel_times,
         profile=prof, attention=attention,
         kernels=kernels), indent=1))
     print(json.dumps({"kernels": kernels}))

@@ -2,9 +2,12 @@
 
 The interchange is the reference's ``api.save`` dict: numpy arrays
 with the integer ``layout`` tag (``repro/sketch/api.py:450, :497``),
-for the frequency and the quantile kinds (the latter with its ``mass``).
-Both packages save and restore that layout, so a checkpoint written by
-either loads in the other and both compute the same thing from it.
+for the frequency kind (plain, sharded, and the multi-tenant bank with
+its ``tenants``/``shards``/``item_bits``), the quantile kind (with its
+``mass``), and a tenant's spill dict (``tenant.spill_rows``: its (S, k)
+rows of composite keys, read as an S-shard bank). Both packages save and restore those
+layouts, so a checkpoint written by either loads in the other and both
+compute the same thing from it.
 """
 from __future__ import annotations
 
@@ -26,11 +29,20 @@ def spec_for(d: Dict[str, Any], variant: str = "sspm",
     same for both variants), so the caller names the variant. A
     quantile dict (tagged so, or untagged with a ``mass``) gives
     ``kind="quantile"`` with ``bits`` its layer count and ``k`` one
-    shard's live counters; a frequency dict gives ``k`` its slot count
-    and the caller's ``bits``.
+    shard's live counters; a tenant dict gives ``tenants``, ``bits``
+    its ``item_bits`` and ``k`` its live counters; another frequency
+    dict gives ``k`` its slot count and the caller's ``bits`` (a spill
+    dict's ``item_bits`` where the caller names none).
     """
     ids = np.asarray(d["ids"])
     shards = int(np.asarray(d["shards"])) if "shards" in d else None
+    if bits is None and "item_bits" in d:
+        bits = int(np.asarray(d["item_bits"]))
+    if d.get("tenants") is not None:
+        spec = SketchSpec(k=int((ids != BLOCKED).sum()), variant=variant,
+                          shards=shards or None, bits=bits,
+                          tenants=int(np.asarray(d["tenants"])))
+        return api.infer_spec(spec, d)
     probe = api.infer_spec(SketchSpec(k=1, bits=bits), d)
     if probe.kind == "quantile":
         k = int((ids != BLOCKED).sum()) // (shards or 1)

@@ -1,7 +1,9 @@
 """Bounded-deletion streams and their exact accounting, vectorised.
 
 The port's own counterpart of ``repro/core/streams.py``
-(``bounded_stream``, ``exact_stats``, ``heavy_hitters``). The reference
+(``bounded_stream``, ``exact_stats``, ``heavy_hitters``) and of the
+benchmarks' multi-tenant traffic generator (``mixed_traffic``,
+``benchmarks/common.py:56``). The reference
 builds its interleaved order with a Python loop over events, which
 takes minutes at millions of events; everything here is numpy array
 work. It does not reproduce the reference generator's bits: parity
@@ -16,6 +18,7 @@ frequencies never go negative (the strict turnstile), and
 from __future__ import annotations
 
 import dataclasses
+from typing import List
 
 import numpy as np
 
@@ -105,5 +108,81 @@ def heavy_hitters(stats: StreamStats, phi: float) -> np.ndarray:
     return stats.items[(stats.freqs >= thr) & (stats.freqs > 0)]
 
 
+
+def mixed_traffic(num_tenants: int, n_updates: int, *,
+                  delete_ratio: float = 0.5, skew: float = 1.2,
+                  item_skew: float = 1.0, query_frac: float = 0.1,
+                  query_size: int = 8, burst: int = 64,
+                  universe: int = 1 << 16, seed: int = 0) -> List[tuple]:
+    """A seeded day of multi-tenant traffic as a list of interleaved ops,
+
+        ("update", tenant, items, weights)   signed int32 fragments
+        ("query",  tenant, items)            point-query probes
+
+    Tenant sizes are Zipf-skewed (rank r weighted ``r^-skew``, drawn
+    multinomially to sum to ``n_updates`` insertions): a few whales and a
+    long tail. Each tenant's stream is a bounded-deletion stream of its
+    own (Zipf(``item_skew``) insertions over ``universe`` ids; a fraction
+    ``delete_ratio`` of them deleted again, each at a uniform time after
+    its insertion), cut into ``burst``-sized update ops; after each burst,
+    with probability ``query_frac``, a query probes ``query_size`` ids
+    drawn from it. The ops of all tenants are shuffled together, each
+    tenant's own order kept, so every deletion still follows its
+    insertion. The same shape as the reference's generator, drawn with
+    numpy arrays over all tenants at once (not its draws).
+    """
+    rng = np.random.default_rng(seed)
+    T = int(num_tenants)
+    p = np.arange(1, T + 1, dtype=np.float64) ** -float(skew)
+    sizes = rng.multinomial(int(n_updates), p / p.sum())
+    n = int(sizes.sum())
+    first = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+    tenant = np.repeat(np.arange(T), sizes)
+    local = np.arange(n) - first[tenant]
+    items = zipf_insertions(n, universe, item_skew,
+                            seed=int(rng.integers(2**31)))
+    # victims: the n_del[t] insertions of tenant t first in a random order
+    n_del = (delete_ratio * sizes).astype(np.int64)
+    shuffled = np.lexsort((rng.random(n), tenant))
+    victim = shuffled[(np.arange(n) - first[tenant[shuffled]])
+                      < n_del[tenant[shuffled]]]
+    t_del = rng.uniform(local[victim] + 0.5, sizes[tenant[victim]] + 0.5)
+    ev_tenant = np.concatenate([tenant, tenant[victim]])
+    ev_time = np.concatenate([local.astype(np.float64), t_del])
+    order = np.lexsort((ev_time, ev_tenant))
+    ev_tenant = ev_tenant[order]
+    ev_items = np.concatenate([items, items[victim]])[order].astype(np.int32)
+    ev_signs = np.concatenate([np.ones(n, np.int32),
+                               -np.ones(len(victim), np.int32)])[order]
+    # bursts: per tenant, consecutive runs of `burst` events
+    lens = sizes + n_del
+    ev_first = np.concatenate([[0], np.cumsum(lens)[:-1]])
+    nb = -(-lens // burst)
+    b_tenant = np.repeat(np.arange(T), nb)
+    b_index = np.arange(int(nb.sum())) - np.repeat(
+        np.concatenate([[0], np.cumsum(nb)[:-1]]), nb)
+    b_start = ev_first[b_tenant] + b_index * burst
+    b_len = np.minimum(burst, ev_first[b_tenant] + lens[b_tenant] - b_start)
+    asks = rng.random(len(b_start)) < query_frac
+    probe = (b_start[:, None] + (rng.random((len(b_start), query_size))
+                                 * b_len[:, None]).astype(np.int64))
+    # each tenant's ops in order: burst, its query if any, next burst...
+    ops_t: List[list] = [[] for _ in range(T)]
+    for b in range(len(b_start)):
+        t, s0 = int(b_tenant[b]), int(b_start[b])
+        ops_t[t].append(("update", t, ev_items[s0:s0 + b_len[b]],
+                         ev_signs[s0:s0 + b_len[b]]))
+        if asks[b]:
+            ops_t[t].append(("query", t, ev_items[probe[b, :min(
+                query_size, int(b_len[b]))]]))
+    labels = np.repeat(np.arange(T), [len(o) for o in ops_t])
+    rng.shuffle(labels)
+    cursors = [0] * T
+    out: List[tuple] = []
+    for t in labels.tolist():
+        out.append(ops_t[t][cursors[t]])
+        cursors[t] += 1
+    return out
+
 __all__ = ["zipf_insertions", "bounded_stream", "StreamStats",
-           "exact_stats", "heavy_hitters"]
+           "exact_stats", "heavy_hitters", "mixed_traffic"]

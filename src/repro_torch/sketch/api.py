@@ -8,6 +8,9 @@ Counterpart of ``repro/sketch/api.py`` for the base layouts, each with
   kernel 1 on the card), ``"block"`` (the two-phase block update),
   ``"kernel"`` (the fused kernel on the routed views) or ``"serial"``
   (the scan over each block's uniques; sharded, the per-shard oracle);
+- ``kind="frequency"`` with ``tenants=T`` (``sketch/tenant.py``): one
+  (T·S, k) bank ingesting composite keys ``(tenant << bits) | item`` on
+  ``"bank"``, per-tenant reads through ``tenant_topk``;
 - ``kind="quantile"`` (Dyadic SpaceSaving±, ``sketch/dyadic.py``) on
   ``"bank"`` (the dense core), ``"block"``, ``"kernel"`` or
   ``"serial"``, and its shard × level bank (``shards=S``,
@@ -16,15 +19,17 @@ Counterpart of ``repro/sketch/api.py`` for the base layouts, each with
 
 ``SketchSpec`` keeps the reference's fields and defaults; a value the
 reference has and the port lacks (the family variants and CR-precis,
-ROADMAP.md Queue 1 item 11; ``tenants``, item 12) raises
-``NotImplementedError`` naming its item. Adapters are looked up in a
-registry keyed as the reference's (``register_adapter``,
-``adapter_for``). Checkpoints are the reference's tagged numpy dicts, so
-a state saved by either package restores in the other.
+ROADMAP.md Queue 1 item 11) raises ``NotImplementedError`` naming its
+item. Adapters are looked up in a registry keyed as the reference's
+(``register_adapter``, ``adapter_for``). Checkpoints are the reference's
+tagged numpy dicts, so a state saved by either package restores in the
+other.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
+import warnings
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -60,7 +65,6 @@ _NOT_PORTED = {
     "double": _FAMILY,
     "unbiased": _FAMILY,
     "crprecis": _FAMILY,
-    "tenants": "ROADMAP.md Queue 1 item 12 (sketch/tenant.py)",
 }
 
 
@@ -86,6 +90,12 @@ class SketchSpec:
     and so differs from them where a block evicts (as the reference's
     does).
     ``backends_for(kind, shards)`` lists what a layout runs.
+
+    ``tenants=T`` selects the multi-tenant layout (``sketch/tenant.py``):
+    one (T·S, k) bank of composite keys ``(tenant << bits) | item``, rows
+    tenant-major, ``shards`` meaning per-tenant hash shards and ``bits``
+    required. Size it with ``k``/``eps`` (split evenly across tenants) or
+    ``tenant_caps`` (one capacity per tenant).
     """
 
     kind: str = "frequency"
@@ -120,18 +130,26 @@ class SketchSpec:
             raise ValueError(
                 f"SketchSpec.backend must be one of {BACKENDS}, got "
                 f"{self.backend!r}")
-        if self.tenants is not None or self.tenant_caps is not None:
-            _not_ported("the multi-tenant layout (tenants=)", "tenants")
-        if (self.k is None) == (self.eps is None):
+        if self.tenant_caps is not None and not isinstance(self.tenant_caps,
+                                                           tuple):
+            # the spec stays hashable (a cache key): any sequence is
+            # stored as the canonical tuple
+            object.__setattr__(self, "tenant_caps",
+                               tuple(int(c) for c in self.tenant_caps))
+        n_sizing = ((self.k is not None) + (self.eps is not None)
+                    + (self.tenant_caps is not None))
+        if n_sizing != 1:
             raise ValueError(
-                "size the spec with exactly one of k (total counters) or "
-                f"eps (+ alpha); got k={self.k}, eps={self.eps}")
+                "size the spec with exactly one of k (total counters), "
+                "eps (+ alpha) or tenant_caps (per-tenant counters); got "
+                f"k={self.k}, eps={self.eps}, tenant_caps={self.tenant_caps}")
         if self.kind == "quantile" and self.bits is None:
             raise ValueError(
                 "kind='quantile' needs bits (the dyadic universe bound "
                 "[0, 2^bits) fixes the layer count)")
         if self.shards is not None and self.shards < 1:
             raise ValueError(f"shards must be >= 1 or None, got {self.shards}")
+        self._check_tenants()
         supported = backends_for(self.kind, self.shards, self.variant,
                                  self.tenants)
         if self.backend not in supported:
@@ -140,6 +158,43 @@ class SketchSpec:
                 f"kind={self.kind!r}, shards={self.shards}, "
                 f"variant={self.variant!r}, tenants={self.tenants}; "
                 f"supported: {supported}")
+
+    def _check_tenants(self) -> None:
+        """The multi-tenant layout's conditions (reference ``api.py:168``):
+        a frequency kind with ``bits``, composite keys within int32, and
+        one positive capacity per tenant in ``tenant_caps``."""
+        if self.tenant_caps is not None and self.tenants is None:
+            raise ValueError(
+                "tenant_caps sizes the multi-tenant layout; set tenants=T "
+                "(the per-tenant capacity list has no meaning without it)")
+        if self.tenants is None:
+            return
+        if self.tenants < 1:
+            raise ValueError(f"tenants must be >= 1 or None, got {self.tenants}")
+        if self.kind != "frequency":
+            raise ValueError(
+                "tenants=T is a frequency-kind layout; per-tenant quantiles "
+                "run a plain quantile spec over composite keys instead "
+                "(repro_torch.sketch.tenant.tenant_rank_many)")
+        if self.bits is None:
+            raise ValueError(
+                "tenants=T needs bits (the per-tenant item-universe bound "
+                "composite keys (tenant << bits) | item are packed against)")
+        tb = (self.tenants - 1).bit_length()
+        if tb + self.bits > 31:
+            raise ValueError(
+                f"composite keys need tenant_bits + bits <= 31 to fit the "
+                f"int32 id dtype; got tenants={self.tenants} ({tb} bits) "
+                f"with bits={self.bits}")
+        if self.tenant_caps is not None:
+            if len(self.tenant_caps) != self.tenants:
+                raise ValueError(
+                    f"tenant_caps has {len(self.tenant_caps)} entries for "
+                    f"tenants={self.tenants}")
+            if min(self.tenant_caps) < 1:
+                raise ValueError(
+                    f"every tenant needs >= 1 counter; got "
+                    f"min(tenant_caps)={min(self.tenant_caps)}")
 
     @property
     def variant_id(self) -> int:
@@ -153,6 +208,8 @@ class SketchSpec:
             raise ValueError(
                 "capacity is the frequency-kind budget; quantile kinds size "
                 "per layer — use layer_capacities()")
+        if self.tenant_caps is not None:
+            return int(sum(self.tenant_caps))
         if self.k is not None:
             return int(self.k)
         return capacity_for(self.eps, self.alpha,
@@ -172,9 +229,8 @@ def backends_for(kind: str, shards: Optional[int], variant: str = "sspm",
     supports, as the reference's (``api.py:243``): every backend for the
     base layouts but the sharded quantile bank (``"bank"`` only), CR-
     precis beside them for plain sspm frequency specs, ``"bank"`` for the
-    family and tenant layouts. The port runs all of them but CR-precis,
-    the family and the tenants (ROADMAP.md Queue 1 items 11 and 12),
-    whose specs raise."""
+    family and tenant layouts. The port runs all of them but CR-precis
+    and the family (ROADMAP.md Queue 1 item 11), whose specs raise."""
     if tenants or variant in FAMILY_VARIANTS:
         return ("bank",) if kind == "frequency" else ()
     if kind == "quantile" and shards:
@@ -203,8 +259,9 @@ def validate_block(spec: SketchSpec, items, weights, *,
     Ids are non-negative ints (negative ids are sentinels) that fit
     int32; weight > 0 inserts, < 0 deletes, 0 pads; the block's weight
     magnitudes sum within int32, no item's net weight could carry a
-    counter already holding up to ``prior_mass`` past int32, and for
-    quantile kinds every real item lies in [0, 2^bits). Returns the
+    counter already holding up to ``prior_mass`` past int32, for
+    quantile kinds every real item lies in [0, 2^bits), and for tenant
+    specs every real composite key in [0, tenants << bits). Returns the
     block's positive mass.
     """
     i_shape = np.shape(items)
@@ -268,6 +325,14 @@ def validate_block(spec: SketchSpec, items, weights, *,
         raise ValueError(
             f"item {bad} is outside the dyadic universe [0, 2^{spec.bits}"
             f"); raise SketchSpec.bits or bucket ids before ingest")
+    if spec.tenants is not None and i64.size \
+            and i64.max() >= spec.tenants << spec.bits:
+        bad = int(i_real[i64 >= spec.tenants << spec.bits][0])
+        raise ValueError(
+            f"composite key {bad} is outside the tenant key space "
+            f"[0, {spec.tenants} << {spec.bits}); pack keys with "
+            f"tenant.pack_keys(tenant, item, item_bits={spec.bits}) and keep "
+            f"items inside [0, 2^{spec.bits})")
     return pos_mass
 
 
@@ -538,6 +603,14 @@ register_adapter("frequency", True, _ShardedFrequencyAdapter())
 register_adapter("quantile", False, _DyadicAdapter())
 register_adapter("quantile", True, _DyadicShardedAdapter())
 
+# the multi-tenant bank layout (tenant.py never imports this module at its
+# top, so the import after the registry is acyclic); the family's tenant
+# adapters wait for item 11, as the family does
+from . import tenant as _tenant  # noqa: E402
+
+register_adapter("frequency", False, _tenant.TenantAdapter(), tenants=True)
+register_adapter("frequency", True, _tenant.TenantAdapter(), tenants=True)
+
 
 # ---------------------------------------------------------------------------
 # The uniform functional surface
@@ -549,10 +622,22 @@ def make(spec: SketchSpec, device=DEFAULT_DEVICE):
 
 
 def _as_ids(x, device) -> torch.Tensor:
-    """int32 tensor on ``device`` from a tensor or a host array."""
+    """int32 tensor on ``device`` from a tensor, an array or Python ints.
+
+    As the reference's ``jnp.asarray(x, jnp.int32)``: a tensor or a numpy
+    array keeps its low 32 bits (the reference truncates an int64 array
+    with x64 off), while a Python int (or a sequence of them) outside
+    int32 raises ``OverflowError``."""
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=torch.int32)
-    return torch.as_tensor(np.asarray(x).astype(np.int32), device=device)
+    arr = np.asarray(x)
+    if not isinstance(x, np.ndarray) and arr.size and arr.dtype.kind in "iuO":
+        lo, hi = int(arr.min()), int(arr.max())
+        if lo < -2**31 or hi >= 2**31:
+            bad = lo if lo < -2**31 else hi
+            raise OverflowError(f"Python integer {bad} out of bounds for "
+                                f"int32 (the device-side id dtype)")
+    return torch.as_tensor(arr.astype(np.int32), device=device)
 
 
 def host_array(x) -> np.ndarray:
@@ -564,13 +649,20 @@ def host_array(x) -> np.ndarray:
     return np.asarray(x)
 
 
-def update(spec: SketchSpec, state, items, weights=None):
+def update(spec: SketchSpec, state, items, weights=None, *, path=None):
     """Ingest one block of signed weighted updates; returns the new state.
 
     ``weights=None`` means unit inserts. Every input, tensors included, is
     validated (``validate_block``, on a host copy) before it is cast to
-    int32 and moved to the state's device.
+    int32 and moved to the state's device. ``path=`` is the deprecated
+    spelling of the spec's ``backend`` (it warns and replaces it).
     """
+    if path is not None:
+        warnings.warn(
+            "api.update(..., path=...) is deprecated; the execution path "
+            "is part of the spec — use dataclasses.replace(spec, "
+            "backend=...) instead", DeprecationWarning, stacklevel=2)
+        spec = dataclasses.replace(spec, backend=path)
     ad = adapter_for(spec)
     dev = ad.device_of(state)
     if weights is None:
@@ -588,17 +680,26 @@ def query_many(spec: SketchSpec, state, items) -> torch.Tensor:
 def query(spec: SketchSpec, state, item) -> torch.Tensor:
     """Estimated frequency of one id; an id past int32 raises
     ``OverflowError``, as the reference's int32 cast does."""
-    item = int(item)
-    if not -2**31 <= item < 2**31:
-        raise OverflowError(f"item id {item} is out of bounds for int32 (the "
-                            f"device-side id dtype)")
     return query_many(spec, state, [item])[0]
 
 
 def topk(spec: SketchSpec, state, m: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-m (ids, counts) heavy hitters by estimated count (of the leaf
-    layer for quantile kinds)."""
+    layer for quantile kinds). On ``tenants=T`` specs the ids are
+    composite keys; one tenant's raw items come from ``tenant_topk``."""
     return adapter_for(spec).topk(spec, state, m)
+
+
+def tenant_topk(spec: SketchSpec, state, tenant,
+                m: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One tenant's top-m (raw items, counts), read from the tenant's own
+    rows only (multi-tenant specs)."""
+    ad = adapter_for(spec)
+    if spec.tenants is None or not hasattr(ad, "topk_tenant"):
+        raise ValueError(
+            f"tenant_topk needs a multi-tenant spec (tenants=T); this spec "
+            f"has tenants={spec.tenants}. Use topk for the global answer.")
+    return ad.topk_tenant(spec, state, tenant, m)
 
 
 def rank_many(spec: SketchSpec, state, xs) -> torch.Tensor:
@@ -648,10 +749,11 @@ def save(spec: SketchSpec, state) -> Dict[str, Any]:
 
 
 def infer_spec(spec: SketchSpec, d: Dict[str, Any]) -> SketchSpec:
-    """Adapt ``spec``'s layout axes (kind, shards) to a checkpoint dict
-    (reference ``api.py:812``). An untagged dict is a quantile one where
-    it holds ``mass``; a quantile spec without ``bits`` takes them from
-    the dict's layer count. Where the stored layout does not run the
+    """Adapt ``spec``'s layout axes (kind, shards, tenants) to a
+    checkpoint dict (reference ``api.py:812``). An untagged dict is a
+    quantile one where it holds ``mass``; a quantile spec without
+    ``bits`` takes them from the dict's layer count, a tenant spec from
+    its ``item_bits``. Where the stored layout does not run the
     spec's backend, the backend becomes ``"bank"``, as the reference's
     does. Layouts this port lacks raise NotImplementedError."""
     tag = int(np.asarray(d["layout"])) if "layout" in d else None
@@ -661,8 +763,6 @@ def infer_spec(spec: SketchSpec, d: Dict[str, Any]) -> SketchSpec:
         raise ValueError(
             f"unknown checkpoint layout tag {tag}; the dict is corrupted or "
             f"written by a newer layout")
-    if d.get("tenants") is not None:
-        _not_ported("a multi-tenant checkpoint", "tenants")
     kind = ("quantile" if tag == LAYOUT_QUANTILE
             or (tag is None and "mass" in d) else "frequency")
     shards = int(np.asarray(d["shards"])) if "shards" in d else 0
@@ -674,9 +774,21 @@ def infer_spec(spec: SketchSpec, d: Dict[str, Any]) -> SketchSpec:
             changes["bits"] = int(np.asarray(d["ids"]).shape[-2])
     if shards != spec.shards:
         changes["shards"] = shards
+    raw_tenants = d.get("tenants")
+    n_tenants = int(np.asarray(raw_tenants)) if raw_tenants is not None else 0
+    tenants = (n_tenants or None) if kind == "frequency" else None
+    if tenants != spec.tenants:
+        changes["tenants"] = tenants
+        if spec.tenant_caps is not None:
+            # caps sized for another fleet: the restored rows carry their
+            # own BLOCKED masks, so the spec takes the dict's live counters
+            changes["tenant_caps"] = None
+            changes["k"] = int((np.asarray(d["ids"]) != st.BLOCKED).sum())
+        if tenants is not None and spec.bits is None:
+            changes["bits"] = int(np.asarray(d["item_bits"]))
     if not changes:
         return spec
-    if spec.backend not in backends_for(kind, shards, spec.variant):
+    if spec.backend not in backends_for(kind, shards, spec.variant, tenants):
         changes["backend"] = "bank"
     return dataclasses.replace(spec, **changes)
 
@@ -714,14 +826,39 @@ def restore(spec: SketchSpec, d: Dict[str, Any], device=DEFAULT_DEVICE):
     pre-redesign layouts), on ``device``. The spec's kind and shards must
     be the dict's (``infer_spec`` adapts a spec)."""
     inferred = infer_spec(spec, d)
-    if (inferred.kind, inferred.shards) != (spec.kind, spec.shards):
+    if (inferred.kind, inferred.shards, inferred.tenants) != \
+            (spec.kind, spec.shards, spec.tenants):
         raise ValueError(
             f"checkpoint layout is kind={inferred.kind!r}, "
-            f"shards={inferred.shards}, but the spec says kind={spec.kind!r}, "
-            f"shards={spec.shards}; restore through infer_spec(spec, d) "
+            f"shards={inferred.shards}, tenants={inferred.tenants}, but the "
+            f"spec says kind={spec.kind!r}, shards={spec.shards}, "
+            f"tenants={spec.tenants}; restore through infer_spec(spec, d) "
             f"(StreamSession.load does)")
     _validate_checkpoint(spec, d)
     return adapter_for(spec).restore(spec, d, resolve_device(device))
+
+
+# ---------------------------------------------------------------------------
+# Deprecated spellings (reference api.py:972)
+# ---------------------------------------------------------------------------
+
+def deprecated_alias(old: str, new: str, fn):
+    """``fn`` under an old name: the first call warns (DeprecationWarning,
+    once per alias), every call forwards as it is; ``__wrapped__`` is
+    ``fn``."""
+    warned = []
+
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        if not warned:
+            warned.append(True)
+            warnings.warn(
+                f"{old} is deprecated; use {new} (the spec-driven "
+                f"repro_torch.sketch.api surface)", DeprecationWarning,
+                stacklevel=2)
+        return fn(*args, **kwargs)
+
+    return wrapper
 
 
 __all__ = ["KINDS", "VARIANTS", "FAMILY_VARIANTS", "BACKENDS",
@@ -729,5 +866,6 @@ __all__ = ["KINDS", "VARIANTS", "FAMILY_VARIANTS", "BACKENDS",
            "LAYOUT_CRPRECIS", "SketchSpec", "backends_for", "variants_for",
            "validate_block", "host_array", "spec_axis", "register_adapter",
            "adapter_for", "make", "update", "query_many", "query", "topk",
-           "rank_many", "rank", "quantile_many", "quantile", "merge",
-           "consolidate", "save", "infer_spec", "restore"]
+           "tenant_topk", "rank_many", "rank", "quantile_many", "quantile",
+           "merge", "consolidate", "save", "infer_spec", "restore",
+           "deprecated_alias"]

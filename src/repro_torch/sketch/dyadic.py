@@ -271,6 +271,21 @@ def merge(a: DyadicState, b: DyadicState) -> DyadicState:
                        mass=wrap_add(a.mass, b.mass))
 
 
+def __getattr__(name):
+    # the reference's client-specific spelling (repro/sketch/dyadic.py):
+    # the same update_block under the old name, warning once
+    if name == "ingest":
+        from .api import deprecated_alias
+
+        globals()["ingest"] = deprecated_alias(
+            "repro_torch.sketch.dyadic.ingest",
+            "repro_torch.sketch.api.update("
+            "SketchSpec(kind='quantile', ...), ...)",
+            update_block)
+        return globals()["ingest"]
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
 __all__ = ["DyadicState", "init", "layer_capacities", "space_counters",
            "layer_items", "update_block", "feed_blocks", "process_stream",
            "rank_many", "rank", "lockstep_quantile_search", "quantile_many",

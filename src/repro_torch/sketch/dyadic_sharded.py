@@ -190,6 +190,21 @@ def consolidate(state: DyadicShardedState) -> DyadicState:
     return DyadicState(bank=bk.consolidate(state.bank), mass=state.mass)
 
 
+def __getattr__(name):
+    # the reference's client-specific spelling (repro/sketch/dyadic_sharded.py):
+    # the same update_block under the old name, warning once
+    if name == "ingest":
+        from .api import deprecated_alias
+
+        globals()["ingest"] = deprecated_alias(
+            "repro_torch.sketch.dyadic_sharded.ingest",
+            "repro_torch.sketch.api.update("
+            "SketchSpec(kind='quantile', shards=S, ...), ...)",
+            update_block)
+        return globals()["ingest"]
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
 __all__ = ["DyadicShardedState", "init", "layer_capacities",
            "space_counters", "update_block", "process_stream", "rank",
            "rank_many", "quantile", "quantile_many", "merge", "consolidate"]

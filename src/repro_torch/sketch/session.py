@@ -3,17 +3,20 @@
 Counterpart of ``repro/sketch/session.py`` (``StreamSession``, :132):
 block buffering (``extend``/``observe`` auto-flush full blocks, the
 tail zero-weight padded), validated ``ingest``, windowed deletion
-scheduling (``push`` expires whole batches, ``observe`` single items,
-after ``window`` steps), queries that flush first (frequency reads,
-and ranks and quantiles of a quantile spec), merge and consolidation,
-and tagged checkpoints with an optional scheduling snapshot. A quantile
-state's 0-d ``mass`` is a state buffer like its bank's three.
+scheduling (``push`` expires whole batches on per-tenant FIFOs,
+``observe`` single items, after ``window`` steps; ``schedule_batch``
+returns the due expiries without ingesting them), queries that flush
+first (frequency reads, and ranks and quantiles of a quantile spec),
+merge and consolidation, and tagged checkpoints with an optional
+scheduling snapshot. A quantile state's 0-d ``mass`` is a state buffer
+like its bank's three.
 
 Ingest goes through one cached compiled ingest per ``(spec, block,
 donate)`` (``_ingest_fn``, as the reference's jitted one): on the card a
-CUDA graph of the adapter's ``update``, captured at its first call and
-replayed per block; on the CPU the eager update. ``BlockFeeder`` stages
-block i on the host and the copy engine while block i-1 computes.
+CUDA graph of the adapter's ``update`` per state shape, captured at its
+first call and replayed per block; on the CPU the eager update.
+``BlockFeeder`` stages block i on the host and the copy engine while
+block i-1 computes.
 
 Donation differs from JAX's. A donated JAX buffer is invalid after the
 next ingest and raises when read; with ``donate=True`` here the next
@@ -22,8 +25,7 @@ the newer state. ``donate=False`` leaves every kept state as it was, at
 one device copy of the bank per block.
 
 The reference's fault injection, straggler monitor and replay log are
-not part of this port yet (ROADMAP.md Queue 1 item 14), nor are
-per-tenant expiry FIFOs (item 12).
+not part of this port yet (ROADMAP.md Queue 1 item 14).
 """
 from __future__ import annotations
 
@@ -49,11 +51,11 @@ from .state import I32, SketchState
 
 def ingest_cache_spec(spec: SketchSpec) -> SketchSpec:
     """A spec's compiled-ingest cache identity. The update reads the spec
-    only through kind, variant, backend, bits and shards, so tenant specs
-    collapse onto a ``tenants=1`` form (capacity folded back into ``k``)
-    and the cache stays bounded by layouts, not tenant populations. The
-    port does not build tenant specs yet (ROADMAP.md Queue 1 item 12):
-    normalising one raises as constructing one does."""
+    only through kind, variant, backend, bits and shards (the tenant
+    adapter takes the tenant count from the state's shape), so tenant
+    specs collapse onto a ``tenants=1`` form (capacity folded back into
+    ``k``) and the cache stays bounded by layouts, not tenant
+    populations; a cell holds one CUDA graph per state shape."""
     if spec.tenants is None:
         return spec
     changes = {"tenants": 1, "tenant_caps": None}
@@ -91,26 +93,44 @@ def _alias(t: torch.Tensor) -> torch.Tensor:
     return torch.empty(0, dtype=t.dtype, device=t.device).set_(t)
 
 
+class _Graph:
+    """One captured ingest: the CUDA graph of one state shape, its static
+    buffers (the state's leaves, the block's items and weights), the
+    launch counts it holds, and the states it returned."""
+
+    def __init__(self):
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.device: Optional[torch.device] = None
+        self.buf: List[torch.Tensor] = []
+        self.items: Optional[torch.Tensor] = None
+        self.weights: Optional[torch.Tensor] = None
+        self.delta: Dict = {}
+        self.held: Optional[list] = None   # [(weakref, version)] returned
+        self.lent: Optional[list] = None   # weakrefs to donated aliases
+
+
 class CompiledIngest:
     """The ``(state, items, weights) -> state`` ingest of one cache cell.
 
     CPU states take the adapter's eager update. On the card the ingest
-    is one CUDA graph of ``adapter.update``: it reads the cell's own
-    state buffers and the block's static items and weights, and ends by
-    writing the new state back into the same buffers. It is captured at
-    the first call, after that call's block ran eagerly on a side stream
-    (the warm-up PyTorch's graph documentation asks for: it builds and
-    loads the kernels), so every block, the first included, launches
-    each kernel once. A capture that fails raises; nothing falls back to
-    the eager update. The graph stays on the device it was captured on.
+    is a CUDA graph of ``adapter.update`` per state shape (tenant specs
+    that differ only in their tenant count share a cell and hold one
+    graph each): it reads the graph's own state buffers and the block's
+    static items and weights, and ends by writing the new state back
+    into the same buffers. It is captured at the first call on a shape,
+    after that call's block ran eagerly on a side stream (the warm-up
+    PyTorch's graph documentation asks for: it builds and loads the
+    kernels), so every block, the first included, launches each kernel
+    once. A capture that fails raises; nothing falls back to the eager
+    update. A graph stays on the device it was captured on.
 
     The wrappers count their launches at capture, when nothing runs:
     those counts are taken back, kept as the graph's delta and added at
     every replay.
 
-    A state that arrives from outside (a restore, a merge, another
-    session of the same cell) is copied into the buffers first; the
-    state this cell last returned, unchanged since (the same tensor
+    A state that arrives from outside (a restore, a merge, a spill,
+    another session of the same cell) is copied into the buffers first;
+    the state this graph last returned, unchanged since (the same tensor
     objects at the same version), is used as it is. With donation the
     returned state shares the buffers' memory, so the next replay
     updates it in place; before another state is copied in, a returned
@@ -129,11 +149,14 @@ class CompiledIngest:
         self.block = block
         # donation only on the card (platform.donate_state_buffers)
         self.donate = bool(donate) and donate_state_buffers()
-        self.graph: Optional[torch.cuda.CUDAGraph] = None
-        self.device: Optional[torch.device] = None
-        self.delta: Dict = {}
-        self._held: Optional[list] = None   # [(weakref, version)] returned
-        self._lent: Optional[list] = None   # weakrefs to donated aliases
+        self.graphs: Dict[Tuple, _Graph] = {}
+        self._last: Optional[_Graph] = None
+
+    @property
+    def graph(self) -> Optional[torch.cuda.CUDAGraph]:
+        """The CUDA graph the last call replayed or captured (None before
+        a call on the card)."""
+        return self._last.graph if self._last is not None else None
 
     def __call__(self, state, items, weights, staged=None):
         if not isinstance(items, torch.Tensor):
@@ -145,91 +168,101 @@ class CompiledIngest:
                 f"the compiled ingest takes blocks of {self.block} updates, "
                 f"got items {tuple(items.shape)}, weights "
                 f"{tuple(weights.shape)}")
-        dev = _leaves(state)[0].device
+        leaves = _leaves(state)
+        dev = leaves[0].device
         if dev.type != "cuda":
             return api.adapter_for(self.spec).update(
                 self.spec, state, items.to(dev, I32), weights.to(dev, I32))
-        if self.graph is None:
-            return self._capture(state, items, weights, staged)
-        if dev != self.device:
+        shape = tuple(t.shape for t in leaves)
+        g = self.graphs.get(shape)
+        if g is None:
+            g = _Graph()
+            out = self._capture(g, state, items, weights, staged)
+            self.graphs[shape] = self._last = g
+            return out
+        if dev != g.device:
             raise ValueError(f"this compiled ingest was captured on "
-                             f"{self.device}, the state is on {dev}")
-        return self._replay(state, items, weights, staged)
+                             f"{g.device}, the state is on {dev}")
+        self._last = g
+        return self._replay(g, state, items, weights, staged)
 
-    def _update(self, template):
+    def _update(self, g: _Graph, template):
         return _leaves(api.adapter_for(self.spec).update(
-            self.spec, _like(template, self.buf), self.items, self.weights))
+            self.spec, _like(template, g.buf), g.items, g.weights))
 
-    def _stage(self, items, weights, staged) -> None:
-        self.items.copy_(items, non_blocking=True)
-        self.weights.copy_(weights, non_blocking=True)
+    @staticmethod
+    def _stage(g: _Graph, items, weights, staged) -> None:
+        g.items.copy_(items, non_blocking=True)
+        g.weights.copy_(weights, non_blocking=True)
         if staged is not None:
             staged.record()
 
-    def _holds(self, leaves) -> bool:
-        return self._held is not None and all(
+    @staticmethod
+    def _holds(g: _Graph, leaves) -> bool:
+        return g.held is not None and all(
             ref() is t and t._version == version
-            for (ref, version), t in zip(self._held, leaves))
+            for (ref, version), t in zip(g.held, leaves))
 
-    def _release(self) -> None:
+    @staticmethod
+    def _release(g: _Graph) -> None:
         """Move donated aliases still alive to memory of their own."""
-        for ref in self._lent or ():
+        for ref in g.lent or ():
             t = ref()
             if t is not None:
                 t.set_(t.clone())
-        self._lent = None
+        g.lent = None
 
-    def _out(self, state):
+    def _out(self, g: _Graph, state):
         if self.donate:
-            if self._lent is None:
-                out = [_alias(b) for b in self.buf]
-                self._lent = [weakref.ref(t) for t in out]
+            if g.lent is None:
+                out = [_alias(b) for b in g.buf]
+                g.lent = [weakref.ref(t) for t in out]
             else:
-                out = [ref() for ref in self._lent]
+                out = [ref() for ref in g.lent]
         else:
-            out = [b.clone() for b in self.buf]
-        self._held = [(weakref.ref(t), t._version) for t in out]
+            out = [b.clone() for b in g.buf]
+        g.held = [(weakref.ref(t), t._version) for t in out]
         return _like(state, out)
 
-    def _capture(self, state, items, weights, staged):
+    def _capture(self, g: _Graph, state, items, weights, staged):
         leaves = _leaves(state)
         dev = leaves[0].device
-        self.buf = [t.clone() for t in leaves]
-        self.items = torch.empty(self.block, dtype=I32, device=dev)
-        self.weights = torch.empty(self.block, dtype=I32, device=dev)
-        self._stage(items, weights, staged)
+        g.buf = [t.clone() for t in leaves]
+        g.items = torch.empty(self.block, dtype=I32, device=dev)
+        g.weights = torch.empty(self.block, dtype=I32, device=dev)
+        self._stage(g, items, weights, staged)
         caller = torch.cuda.current_stream(dev)
         side = torch.cuda.Stream(dev)
         side.wait_stream(caller)
         with torch.cuda.stream(side):
             # warm-up: this block's ingest, eagerly
-            for b, t in zip(self.buf, self._update(state)):
+            for b, t in zip(g.buf, self._update(g, state)):
                 b.copy_(t)
         before = _kernel.launch_counts()
         graph = torch.cuda.CUDAGraph()
         try:
             with torch.cuda.graph(graph, stream=side):
-                for b, t in zip(self.buf, self._update(state)):
+                for b, t in zip(g.buf, self._update(g, state)):
                     b.copy_(t)
         finally:
             after = _kernel.launch_counts()
             _kernel.set_launch_counts(before)
         caller.wait_stream(side)
-        self.delta = _kernel.launch_delta(before, after)
-        self.graph, self.device = graph, dev
-        return self._out(state)
+        g.delta = _kernel.launch_delta(before, after)
+        g.graph, g.device = graph, dev
+        return self._out(g, state)
 
-    def _replay(self, state, items, weights, staged):
+    def _replay(self, g: _Graph, state, items, weights, staged):
         leaves = _leaves(state)
-        if not self._holds(leaves):
-            self._release()
-            for b, t in zip(self.buf, leaves):
+        if not self._holds(g, leaves):
+            self._release(g)
+            for b, t in zip(g.buf, leaves):
                 b.copy_(t)
-        self._stage(items, weights, staged)
-        self.graph.replay()
+        self._stage(g, items, weights, staged)
+        g.graph.replay()
         _kernel.set_launch_counts(_kernel.add_counts(
-            _kernel.launch_counts(), self.delta))
-        return self._out(state)
+            _kernel.launch_counts(), g.delta))
+        return self._out(g, state)
 
 
 @functools.lru_cache(maxsize=None)
@@ -267,12 +300,21 @@ class StreamSession:
     existing state. ``donate``: let the compiled ingest update the state
     buffers in place on the card (see the module docstring); ``False``
     keeps every state a caller took unchanged. ``device``: where the
-    state lives (CUDA unless asked).
+    state lives (CUDA unless asked). The reference's ``replay``,
+    ``fault_plan`` and ``monitor`` raise unless left at their defaults
+    (ROADMAP.md Queue 1 item 14).
     """
 
     def __init__(self, spec: SketchSpec, block: int = 8192,
                  window: Optional[int] = None, state=None,
-                 donate: bool = True, device=DEFAULT_DEVICE):
+                 donate: bool = True, device=DEFAULT_DEVICE, **unported):
+        if unported.keys() - {"replay", "fault_plan", "monitor"}:
+            raise TypeError(f"unknown StreamSession options {sorted(unported)}")
+        if any(v is not None and v != 0 for v in unported.values()):
+            raise NotImplementedError(
+                f"StreamSession {sorted(unported)}: the replay log, fault "
+                f"plans and the straggler monitor are not ported to "
+                f"repro_torch yet; ROADMAP.md Queue 1 item 14 ports them")
         if block < 2:
             raise ValueError(f"block must be >= 2, got {block}")
         self.spec = spec
@@ -295,8 +337,12 @@ class StreamSession:
         self._buf_i: List[np.ndarray] = []
         self._buf_w: List[np.ndarray] = []
         self._buf_n = 0
-        self._batch_fifo: Deque[Tuple[np.ndarray, np.ndarray]] = \
-            collections.deque()
+        # batch expiry FIFOs per tenant (None: the single-stream
+        # schedule, made now: the stats trackers alias it through
+        # batch_fifo)
+        self._batch_fifos: Dict[Optional[int],
+                                Deque[Tuple[np.ndarray, np.ndarray]]] = {
+            None: collections.deque()}
         self._item_fifo: Deque[Tuple[int, int]] = collections.deque()
 
     # -- low-level ingest --------------------------------------------------
@@ -430,27 +476,49 @@ class StreamSession:
 
     # -- windowed batch scheduling -----------------------------------------
 
-    def push(self, items, weights) -> None:
-        """Ingest one batch now; after ``window`` further pushes it is
+    def push(self, items, weights, tenant: Optional[int] = None) -> None:
+        """Ingest one batch now; after ``window`` further pushes on the
+        same ``tenant``'s FIFO (None: the single-stream schedule) it is
         re-ingested with negated weights. Buffered updates flush first."""
         self.flush()
         items = api.host_array(items).ravel()
         weights = api.host_array(weights).ravel()
         self.ingest(items, weights)
+        for di, dw in self.schedule_batch(items.astype(np.int32),
+                                          weights.astype(np.int32), tenant):
+            self.ingest(di, dw)
+
+    def schedule_batch(self, items: np.ndarray, weights: np.ndarray,
+                       tenant: Optional[int] = None,
+                       ) -> List[Tuple[np.ndarray, np.ndarray]]:
+        """Account one already-ingested batch on ``tenant``'s window FIFO
+        and return the expiries now due (negated-weight fragments) without
+        ingesting them: the sketch service coalesces many tenants' due
+        expiries into its blocks. ``push`` is ``ingest``, this, and the
+        ingest of what it returns."""
         self.insertions += int(weights.sum())
         if self.window is None:
-            return
-        self._batch_fifo.append((items.astype(np.int32),
-                                 weights.astype(np.int32)))
-        while len(self._batch_fifo) > self.window:
-            di, dw = self._batch_fifo.popleft()
+            return []
+        fifo = self._batch_fifos.setdefault(tenant, collections.deque())
+        fifo.append((items, weights))
+        due: List[Tuple[np.ndarray, np.ndarray]] = []
+        while len(fifo) > self.window:
+            di, dw = fifo.popleft()
             self.deletions += int(dw.sum())
-            self.ingest(di, -dw)
+            due.append((di, -dw))
+        return due
 
     @property
     def batch_fifo(self) -> Deque[Tuple[np.ndarray, np.ndarray]]:
-        """The pending batch expiries (``push``), oldest first."""
-        return self._batch_fifo
+        """The pending batch expiries of the single-stream schedule
+        (tenant None), oldest first; the same deque across ``load``."""
+        return self._batch_fifos[None]
+
+    @property
+    def batch_fifos(self) -> Dict[Optional[int],
+                                  Deque[Tuple[np.ndarray, np.ndarray]]]:
+        """Every tenant's pending batch expiries (None: the default)."""
+        return self._batch_fifos
 
     @property
     def alpha_bound(self) -> float:
@@ -493,8 +561,9 @@ class StreamSession:
         """Cross-host reduction (mergeable summaries): ``other``'s state is
         merged into this one. The specs must agree on everything but
         ``backend`` (an execution path, not a layout), and the windows
-        must match; the other session's pending expiries carry over, so
-        every scheduled deletion still fires once."""
+        must match; the other session's pending expiries carry over, each
+        on its tenant's FIFO, so every scheduled deletion still fires
+        once."""
         if _layout(self.spec) != _layout(other.spec):
             raise ValueError(
                 f"cannot merge sessions of different layouts: {self.spec} "
@@ -510,7 +579,8 @@ class StreamSession:
         self.state = api.merge(self.spec, self.state, other.state)
         self.insertions += other.insertions
         self.deletions += other.deletions
-        self._batch_fifo.extend(other._batch_fifo)
+        for t, fifo in other._batch_fifos.items():
+            self._batch_fifos.setdefault(t, collections.deque()).extend(fifo)
         self._item_fifo.extend(other._item_fifo)
 
     def consolidated(self):
@@ -542,11 +612,17 @@ class StreamSession:
             [i for i, _ in self._item_fifo], np.int32)
         d["sched_item_fifo_weights"] = np.asarray(
             [w for _, w in self._item_fifo], np.int32)
-        d["sched_batch_items"] = cat([b for b, _ in self._batch_fifo])
-        d["sched_batch_weights"] = cat([w for _, w in self._batch_fifo])
-        d["sched_batch_lens"] = np.asarray(
-            [len(b) for b, _ in self._batch_fifo], np.int64)
-        d["sched_batch_tenants"] = np.full(len(self._batch_fifo), -1, np.int64)
+        # the FIFOs flattened in the reference's key order (None, then
+        # ascending tenants), each batch tagged with its tenant (-1: None)
+        keys = sorted(self._batch_fifos,
+                      key=lambda t: (t is not None, t if t is not None else 0))
+        flat = [(t, b, w) for t in keys for b, w in self._batch_fifos[t]]
+        d["sched_batch_items"] = cat([b for _, b, _ in flat])
+        d["sched_batch_weights"] = cat([w for _, _, w in flat])
+        d["sched_batch_lens"] = np.asarray([len(b) for _, b, _ in flat],
+                                           np.int64)
+        d["sched_batch_tenants"] = np.asarray(
+            [-1 if t is None else int(t) for t, _, _ in flat], np.int64)
         d["sched_insertions"] = self.insertions
         d["sched_deletions"] = self.deletions
         d["sched_seq"] = self.blocks_ingested
@@ -558,7 +634,10 @@ class StreamSession:
         """Restore from a ``save`` dict of either package; all scheduling
         state resets, then a ``sched_*`` snapshot is restored on top."""
         self._buf_i, self._buf_w, self._buf_n = [], [], 0
-        self._batch_fifo.clear()
+        # the None deque keeps its identity (the stats trackers alias it)
+        none_fifo = self._batch_fifos[None]
+        none_fifo.clear()
+        self._batch_fifos = {None: none_fifo}
         self._item_fifo.clear()
         self.insertions = 0
         self.deletions = 0
@@ -576,13 +655,11 @@ class StreamSession:
             raise ValueError(
                 f"checkpoint carries window={saved_window} but this session "
                 f"was built with window={self.window}")
-        tenants = np.asarray(d.get("sched_batch_tenants", []))
-        if (tenants >= 0).any() or len(d.get("sched_deferred_due", [])) \
+        if len(d.get("sched_deferred_due", [])) \
                 or int(np.asarray(d.get("sched_error_slack", 0))):
             raise NotImplementedError(
-                "the checkpoint carries per-tenant expiries, delayed fault "
-                "slices or resize slack; ROADMAP.md Queue 1 items 12 and 14 "
-                "port those")
+                "the checkpoint carries delayed fault slices or resize "
+                "slack; ROADMAP.md Queue 1 item 14 ports those")
         bi = np.asarray(d["sched_buf_items"], np.int32)
         bw = np.asarray(d["sched_buf_weights"], np.int32)
         self._buf_i = [bi] if len(bi) else []
@@ -594,10 +671,17 @@ class StreamSession:
                 np.asarray(d["sched_item_fifo_weights"])))
         cat_i = np.asarray(d["sched_batch_items"], np.int32)
         cat_w = np.asarray(d["sched_batch_weights"], np.int32)
+        lens = np.asarray(d["sched_batch_lens"], np.int64)
+        # a dict from before the tenant tags loads onto the None FIFO
+        tags = np.asarray(d.get("sched_batch_tenants",
+                                np.full(len(lens), -1)), np.int64)
         s = 0
-        for n in np.asarray(d["sched_batch_lens"], np.int64):
-            self._batch_fifo.append((cat_i[s:s + n], cat_w[s:s + n]))
-            s += int(n)
+        for n, t in zip(lens, tags):
+            n = int(n)
+            key = None if int(t) < 0 else int(t)
+            self._batch_fifos.setdefault(key, collections.deque()).append(
+                (cat_i[s:s + n], cat_w[s:s + n]))
+            s += n
         self.insertions = int(np.asarray(d["sched_insertions"]))
         self.deletions = int(np.asarray(d["sched_deletions"]))
         self.blocks_ingested = int(np.asarray(d["sched_seq"]))

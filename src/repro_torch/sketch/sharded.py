@@ -148,6 +148,21 @@ def to_dict(state: ShardedSketch) -> dict:
     return out
 
 
+def __getattr__(name):
+    # the reference's client-specific spelling (repro/sketch/sharded.py):
+    # the same update_block under the old name, warning once
+    if name == "ingest":
+        from .api import deprecated_alias
+
+        globals()["ingest"] = deprecated_alias(
+            "repro_torch.sketch.sharded.ingest",
+            "repro_torch.sketch.api.update("
+            "SketchSpec(kind='frequency', shards=S, ...), ...)",
+            update_block)
+        return globals()["ingest"]
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
 __all__ = ["ShardedSketch", "init", "shard_of", "route_block",
            "update_block", "update_block_serial_reference", "query_many", "query", "topk", "merge",
            "consolidate", "to_dict"]

@@ -394,3 +394,141 @@ def test_bank_phase_rehearsal(monkeypatch):
     twins["lazy"] = twins["lazy"]._replace(counts=twins["lazy"].counts + 1)
     with pytest.raises(SystemExit, match="twin"):
         cs.bank_phase(specs, streams, twins, BLOCK, cpu)
+
+
+# -- the multi-tenant serving phase, rehearsed at a small size ------------
+
+def test_tenant_phase_rehearsal(monkeypatch):
+    """The tenant phase at a small size: the service bench at both delete
+    ratios, the fleet (spill, save and load, subscriptions, the twin, the
+    oracle rows), quantile mode, the shared cell and the trackers, each
+    launch check recorded on its kernel and count; then the service
+    profiles it leaves for later."""
+    from repro_torch.kernels.sketch_update import kernel, ref
+
+    cs = _chip_smoke()
+    checked = _on_the_cpu(monkeypatch, cs)
+    monkeypatch.setattr(kernel, "sketch_update_kernel_fused",
+                        _written_back(ref.fused_update_ref,
+                                      kernel.sketch_update_kernel_fused))
+    monkeypatch.setattr(cs, "batched_query_ms", lambda *a, **k: 1.0)
+    monkeypatch.setattr(cs, "TENANT_BENCH", dict(
+        tenants=16, k=8, bits=8, block=256, updates=3000, ratios=(0.0, 0.5),
+        oracle_rows=4, twins=4, profile=dict(warm=2, ticks=3)))
+    monkeypatch.setattr(cs, "TENANT_FLEET", dict(
+        tenants=64, k=8, bits=8, block=256, updates=6000, ratio=0.5,
+        window=3, spill_after=4, subscribers=8, m=4, point_queries=64,
+        plain_blocks=2, oracle_rows=6, not_strict_rows=2,
+        profile=dict(warm=4, ticks=4)))
+    monkeypatch.setattr(cs, "TENANT_QUANTILE", dict(
+        bits=12, tenant_bits=3, eps=0.02, block=256, updates=4000,
+        subscribers=4, every=4, qs=(0.1, 0.5, 0.9)))
+    monkeypatch.setattr(cs, "TENANT_STATS", dict(
+        vocab=4096, capacity=256, window=4, steps=10, tokens=2048,
+        experts=16, top=4, phi=0.125))
+    runs, operands, later = cs.tenant_phase(torch.device("cpu"))
+    assert [label for label, _ in later] == [
+        "service bench delete=0.0", "service bench delete=0.5",
+        "service fleet twin", "service fleet"]
+    cs.service_profiles(later, runs)
+    for label, _ in later:
+        prof = runs[label]["profile"]
+        assert prof["blocks"] > 0 and prof["wall_ms_per_block"] > 0
+        assert prof["device_busy_ms_per_block"] is None   # no card here
+    assert set(runs) == {
+        "service bench delete=0.0", "service bench delete=0.5",
+        "service fleet", "service fleet twin", "service quantile",
+        "shared cell", "stats tokens", "stats experts",
+        "stats experts capacity=64"}
+    kernels = [c[1] for c in checked]
+    assert kernels.count("sketch_residual_kernel_banked") == 1
+    assert kernels.count("sketch_update_kernel_fused") == len(checked) - 1
+    for rec in runs.values():
+        assert rec["launches"] == rec["blocks"] > 0
+    fleet = runs["service fleet"]
+    assert fleet["spills"] > 0 and fleet["admits"] > 0
+    assert fleet["never_spilled"] + fleet["spilled_untouched"] \
+        + fleet["readmitted"] <= 64
+    assert runs["service fleet twin"]["oracle_updates"] > 0
+    assert runs["service bench delete=0.5"]["twins"]["tenants"] == 4
+    st, args = operands["fleet"]
+    assert st[0].shape == (64, 128) and len(args) == 8
+    assert operands["bench"][0][0].shape == (16, 128)
+
+
+def test_tenant_checks_reject_a_planted_fault(monkeypatch):
+    """The service bench's plain-version check, the twins and the Thm 4
+    check each refuse a bank with one count changed."""
+    import numpy as np
+
+    from repro_torch.kernels.sketch_update import ref
+    from repro_torch.serve import SketchService
+    from repro_torch.sketch import tenant as tn
+
+    cs = _chip_smoke()
+    _on_the_cpu(monkeypatch, cs)
+    cpu = torch.device("cpu")
+    spec = cs.tenant_spec(16, 8, 8)
+    svc = SketchService(spec, block=256, device=cpu)
+    svc.trace_blocks = []
+    _, tickets, at = cs.replay(svc, cs.traffic(16, 3000, 0.5, 8, seed=2),
+                               256)
+    bank = svc.session.state.bank
+    want, _ = cs.replay_blocks(spec, svc.trace_blocks, cpu,
+                               ref.fused_update_ref)
+    assert cs._same(want, bank)
+    live = np.flatnonzero(bank.ids[0].numpy() >= 0)[0]
+    counts = bank.counts.clone()
+    counts[0, live] += 1000
+    wrong = bank._replace(counts=counts)
+    assert not cs._same(want, wrong)
+    with pytest.raises(SystemExit, match="bound"):
+        cs.check_tenant_truth("planted", spec, svc.trace_blocks, wrong, cpu)
+    with pytest.raises(SystemExit, match="independent"):
+        cs.check_twins("planted", spec, svc.trace_blocks,
+                       tn.TenantBank(bank=wrong), [0], cpu)
+    with pytest.raises(SystemExit, match="oracle"):
+        cs.check_oracle_rows("planted", spec, svc.trace_blocks, wrong, [0],
+                             cpu)
+    held = np.ones(bank.ids.shape[0], bool)
+    rec = cs.check_ticket_bounds("planted", spec, svc.trace_blocks, bank,
+                                 tickets, at, held, cpu)
+    assert rec["ticket_ids_held"] == sum(len(t.items) for t in tickets) > 0
+    tickets[0]._value = tickets[0]._value + 1000
+    with pytest.raises(SystemExit, match="bound"):
+        cs.check_ticket_bounds("planted", spec, svc.trace_blocks, bank,
+                               tickets, at, held, cpu)
+
+
+def test_before_reads_each_groups_running_total():
+    """``_before``: a group's total over the blocks before the asked one,
+    0 for a group with no entry there."""
+    import numpy as np
+
+    cs = _chip_smoke()
+    groups = np.array([7, 3, 7, 3, 7], np.int64)
+    bidx = np.array([0, 0, 1, 2, 2])
+    vals = np.array([5, 1, -2, 4, 10], np.int64)
+    q_groups = np.array([7, 7, 7, 7, 3, 3, 3, 9])
+    q_at = np.array([0, 1, 2, 3, 1, 2, 3, 3])
+    np.testing.assert_array_equal(
+        cs._before(groups, bidx, vals, 3, q_groups, q_at),
+        [0, 5, 3, 13, 1, 1, 5, 0])
+
+
+def test_strict_keys_follow_each_key_block_by_block():
+    """A key's running count is taken block by block (a block's entries
+    act aggregated): a deletion before its insertion inside one block is
+    strict, a deletion in an earlier block than its insertion is not."""
+    import numpy as np
+
+    cs = _chip_smoke()
+    blocks = [(np.array([5, 7, 9, 9, 3], np.int32),
+               np.array([2, -1, -1, 1, 0], np.int32)),
+              (np.array([5, 7, 3], np.int32),
+               np.array([-1, 1, 4], np.int32))]
+    keys, net, pos, strict = cs.strict_keys(blocks)
+    np.testing.assert_array_equal(keys, [3, 5, 7, 9])
+    np.testing.assert_array_equal(net, [4, 1, 0, 0])
+    np.testing.assert_array_equal(pos, [4, 2, 1, 1])
+    np.testing.assert_array_equal(strict, [True, True, False, True])

@@ -615,6 +615,140 @@ def test_dyadic_stream_entry_on_the_card(cuda):
         assert torch.equal(a, b)
 
 
+# --- the multi-tenant layout on the card -------------------------------------
+
+def _tenant_stream(T, bits, n, seed):
+    """A bounded-deletion stream of composite keys over T tenants."""
+    s = bounded_stream(n, 0.5, universe=T << bits, seed=seed)
+    return s[:, 0], s[:, 1]
+
+
+@pytest.mark.parametrize("shards", [None, 2])
+@pytest.mark.parametrize("variant", ["sspm", "lazy"])
+def test_captured_tenant_ingest_equals_the_eager_update(cuda, shards,
+                                                        variant):
+    """A tenant session's captured ingest (the cell's ``tenants=1`` spec,
+    the tenant count from the state's shape) equals the eager update and
+    the CPU session, one kernel-1 launch a block."""
+    from repro_torch.kernels.sketch_update import kernel
+    from repro_torch.sketch import api
+
+    spec = SketchSpec(k=64 * 12, bits=12, tenants=64, shards=shards,
+                      variant=variant)
+    items, weights = _tenant_stream(64, 12, 30000, seed=20)
+    gpu = StreamSession(spec, block=2048, device=cuda)
+    cpu = StreamSession(spec, block=2048, device="cpu")
+    eager = api.make(spec, cuda)
+    for lo in range(0, len(items) - 2048, 2048):
+        it, w = items[lo:lo + 2048], weights[lo:lo + 2048]
+        c0 = kernel.launch_counts()
+        gpu.ingest_block(it, w)
+        launched = kernel.launch_delta(c0, kernel.launch_counts())
+        assert list(launched) == ["sketch_update_kernel_fused"]
+        assert sum(launched["sketch_update_kernel_fused"].values()) == 1
+        cpu.ingest_block(it, w)
+        eager = api.adapter_for(spec).update(
+            spec, eager, torch.as_tensor(it, device=cuda),
+            torch.as_tensor(w, device=cuda))
+        for a, b, c in zip(gpu.state.bank, eager.bank, cpu.state.bank):
+            assert torch.equal(a, b) and torch.equal(a.cpu(), c)
+    assert gpu._compiled.graph is not None
+
+
+def test_tenant_layouts_of_two_shapes_share_one_cell(cuda):
+    """Tenant specs differing only in the tenant count or the caps share
+    one cache cell: (2, 26) and (4, 13) states, one graph each. Sessions
+    in turns each answer their own queries, equal to the CPU's."""
+    from repro_torch.sketch import session as ses
+    from repro_torch.sketch import tenant as tn
+
+    specs = [SketchSpec(k=52, bits=8, tenants=2),
+             SketchSpec(k=52, bits=8, tenants=4),
+             SketchSpec(bits=8, tenants=4, tenant_caps=(13, 13, 13, 13))]
+    before = ses.ingest_cache_stats()["entries"]
+    gpu = [StreamSession(sp, block=64, device=cuda) for sp in specs]
+    cpu = [StreamSession(sp, block=64, device="cpu") for sp in specs]
+    assert ses.ingest_cache_stats()["entries"] - before <= 1
+    cell = gpu[0]._compiled
+    rng = np.random.default_rng(21)
+    for step in range(6):
+        for sp, g, c in zip(specs, gpu, cpu):
+            t = rng.integers(0, sp.tenants, 40)
+            keys = tn.pack_keys(t, rng.integers(0, 1 << 8, 40), 8)
+            w = rng.choice([1, 1, 2], 40).astype(np.int32)
+            g.ingest(keys, w)
+            c.ingest(keys, w)
+    assert sorted(tuple(k[0]) for k in cell.graphs) == [(2, 26), (4, 13)]
+    for sp, g, c in zip(specs, gpu, cpu):
+        probe = np.arange(sp.tenants << 8, dtype=np.int32)
+        assert torch.equal(g.query_many(probe).cpu(), c.query_many(probe))
+        for a, b in zip(g.state.bank, c.state.bank):
+            assert torch.equal(a.cpu(), b)
+
+
+def test_topk_tenants_on_the_card_equals_per_tenant_topk(cuda):
+    from repro_torch.sketch import api
+    from repro_torch.sketch import tenant as tn
+
+    spec = SketchSpec(k=32 * 16, bits=10, tenants=32, shards=2)
+    items, weights = _tenant_stream(32, 10, 20000, seed=22)
+    sess = StreamSession(spec, block=4096, device=cuda)
+    sess.ingest(items, weights)
+    tenants = torch.tensor([5, 0, 31, 5, 17], dtype=torch.int32,
+                           device=cuda)
+    got_i, got_v = tn.topk_tenants(sess.state, tenants, 6, num_shards=2,
+                                   item_bits=10)
+    cpu_state = tn.TenantBank(bank=SketchState(
+        *(t.cpu() for t in sess.state.bank)))
+    want_i, want_v = tn.topk_tenants(cpu_state, tenants.cpu(), 6,
+                                     num_shards=2, item_bits=10)
+    assert torch.equal(got_i.cpu(), want_i) and torch.equal(got_v.cpu(),
+                                                            want_v)
+    for i, t in enumerate(tenants.tolist()):
+        one_i, one_v = api.tenant_topk(spec, sess.state, t, 6)
+        assert torch.equal(got_i[i], one_i) and torch.equal(got_v[i], one_v)
+
+
+@pytest.mark.parametrize("donate", [True, False])
+def test_spill_and_admit_on_the_card_equal_the_cpu(cuda, donate):
+    """Spill a tenant from a session whose state the captured ingest lent
+    out, ingest more, re-admit: every step equals the CPU's, and the kept
+    state is never written by the row functions."""
+    from repro_torch.sketch import tenant as tn
+
+    spec = SketchSpec(k=16 * 8, bits=8, tenants=16, shards=2)
+    items, weights = _tenant_stream(16, 8, 12000, seed=23)
+    gpu = StreamSession(spec, block=1024, donate=donate, device=cuda)
+    cpu = StreamSession(spec, block=1024, device="cpu")
+    half = len(items) // 2
+    for sess in (gpu, cpu):
+        sess.ingest(items[:half], weights[:half])
+    lent = gpu.state.bank
+    kept = [t.clone() for t in lent]
+    spilled = {}
+    for name, sess in (("gpu", gpu), ("cpu", cpu)):
+        bank = sess.state.bank
+        spilled[name] = tn.spill_rows(bank, 3, 2, 8)
+        sess.state = tn.TenantBank(bank=tn.clear_rows(
+            bank, tn.tenant_rows(3, 2)))
+    assert all(torch.equal(a, b) for a, b in zip(lent, kept))
+    for key in spilled["cpu"]:
+        np.testing.assert_array_equal(spilled["gpu"][key],
+                                      spilled["cpu"][key])
+    # more traffic, none of it tenant 3's, then the exact re-admission
+    rest_t, _ = tn.unpack_keys(items[half:].astype(np.int64), 8)
+    keep = rest_t != 3
+    for sess in (gpu, cpu):
+        sess.ingest(items[half:][keep], weights[half:][keep])
+    for name, sess in (("gpu", gpu), ("cpu", cpu)):
+        sess.state = tn.TenantBank(bank=tn.admit_spill(sess.state.bank,
+                                                       spilled[name]))
+    for a, b in zip(gpu.state.bank, cpu.state.bank):
+        assert torch.equal(a.cpu(), b)
+    probe = np.arange(16 << 8, dtype=np.int32)
+    assert torch.equal(gpu.query_many(probe).cpu(), cpu.query_many(probe))
+
+
 # --- the attention kernels (5 and 6) against their plain versions ----------
 
 # B, S, T, H, KV, hd, causal, window: the reference's flash grid, a ragged

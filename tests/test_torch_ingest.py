@@ -34,6 +34,7 @@ from repro.sketch import api as japi
 from repro.sketch import bank as jbk
 from repro.sketch.session import BlockFeeder as JFeeder
 from repro.sketch.session import StreamSession as JSession
+from repro.sketch.session import ingest_cache_spec as jses_cache_spec
 from repro_torch import platform
 from repro_torch.kernels.sketch_update import kernel as tkernel
 from repro_torch.kernels.sketch_update import ops as tops
@@ -164,11 +165,34 @@ def test_ingest_cache_is_keyed_by_spec_block_and_donate():
     assert tsession.ingest_cache_spec(spec) is spec
 
 
-def test_tenant_specs_raise_until_the_tenant_layout_is_ported():
-    spec = tapi.SketchSpec(k=64)
-    object.__setattr__(spec, "tenants", 3)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tsession.ingest_cache_spec(spec)
+@pytest.mark.parametrize("shards", [None, 2])
+def test_tenant_specs_share_a_cache_cell_and_run_as_the_reference(shards):
+    """Tenant specs normalise onto one ``tenants=1`` cell, as the
+    reference's do (its ``ingest_cache_spec``); the cell's ingest of a
+    tenant state is the eager update and equals the reference's."""
+    fields = dict(k=64, bits=BITS - 2, shards=shards)
+    specs = [tapi.SketchSpec(tenants=3, **fields),
+             tapi.SketchSpec(tenants=4, **fields)]
+    norm = tsession.ingest_cache_spec(specs[0])
+    assert norm == tsession.ingest_cache_spec(specs[1])
+    assert (norm.tenants, norm.tenant_caps, norm.k) == (1, None, 64)
+    jnorm = jses_cache_spec(japi.SketchSpec(tenants=3, **fields))
+    assert (jnorm.tenants, jnorm.k, jnorm.shards) == (1, 64, shards)
+    assert tsession._ingest_fn(specs[0], 256) is \
+        tsession._ingest_fn(specs[1], 256)
+    rng = np.random.default_rng(6)
+    items = rng.integers(0, 3 << (BITS - 2), 256).astype(np.int32)
+    weights = rng.choice([-1, 1, 1, 2], 256).astype(np.int32)
+    for spec in specs:
+        got = tsession._ingest_fn(spec, 256)(tapi.make(spec, "cpu"), items,
+                                             weights)
+        want = tapi.adapter_for(spec).update(
+            spec, tapi.make(spec, "cpu"), torch.from_numpy(items),
+            torch.from_numpy(weights))
+        _assert_same(want, got)
+        jspec = japi.SketchSpec(tenants=spec.tenants, **fields)
+        _assert_same(japi.update(jspec, japi.make(jspec), jnp.asarray(items),
+                                 jnp.asarray(weights)), got)
 
 
 @pytest.mark.parametrize("shards", [None, 4])
@@ -281,11 +305,24 @@ def test_partition_core_holds_no_host_synchronisation(monkeypatch, router):
         sorted(set(ops.names) & _SYNCING)
 
 
-def _audit_update(spec):
+@pytest.mark.parametrize("shards", [None, 2])
+@pytest.mark.parametrize("variant", ["sspm", "lazy"])
+def test_captured_tenant_update_holds_no_host_synchronisation(
+        monkeypatch, shards, variant):
+    """The tenant adapter's update as the compiled ingest captures it:
+    the cell's normalised spec (``tenants=1``) on a 4-tenant state, the
+    tenant count read from the state's shape."""
+    monkeypatch.setattr(tops, "fused_update_ref", _kernel_stand_in)
+    spec = tapi.SketchSpec(k=96, bits=BITS - 2, tenants=4, shards=shards,
+                           variant=variant)
+    _audit_update(tsession.ingest_cache_spec(spec), tapi.make(spec, "cpu"))
+
+
+def _audit_update(spec, state=None):
     rng = np.random.default_rng(2)
     items = torch.from_numpy(rng.integers(0, 1 << BITS, 256).astype(np.int32))
     weights = torch.from_numpy(rng.choice([-1, 1, 2], 256).astype(np.int32))
-    state = tapi.make(spec, "cpu")
+    state = tapi.make(spec, "cpu") if state is None else state
     with _Ops() as ops:
         tapi.adapter_for(spec).update(spec, state, items, weights)
     assert ops.names and not set(ops.names) & _SYNCING, \

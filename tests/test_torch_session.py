@@ -10,6 +10,9 @@ default device and the stream helpers.
 """
 from __future__ import annotations
 
+import dataclasses
+import warnings
+
 import numpy as np
 import pytest
 
@@ -25,6 +28,8 @@ from repro_torch.core import streams as tstreams
 from repro_torch.core.spacesaving import capacity_for
 from repro_torch.sketch import api as tapi
 from repro_torch.sketch import bank as tbk
+from repro_torch.sketch import dyadic as tdy
+from repro_torch.sketch import dyadic_sharded as tdysh
 from repro_torch.sketch import sharded as tshd
 from repro_torch.sketch import state as tst
 from repro_torch.sketch.session import StreamSession as TSession
@@ -169,11 +174,34 @@ def test_eps_sizing_matches_reference(eps, alpha, variant):
     (dict(k=64, variant="double"), "item 11"),
     (dict(k=64, variant="unbiased"), "item 11"),
     (dict(k=64, backend="crprecis"), "item 11"),
-    (dict(k=64, bits=8, tenants=2), "item 12"),
 ])
 def test_unported_spec_values_name_their_roadmap_item(fields, item):
     with pytest.raises(NotImplementedError, match=item):
         tapi.SketchSpec(**fields)
+
+
+@pytest.mark.parametrize("fields", [
+    dict(k=64, bits=8, tenants=2),
+    dict(k=64, bits=8, tenants=2, variant="lazy"),
+    dict(k=64, bits=8, tenants=3, shards=2),
+    dict(bits=8, tenants=3, tenant_caps=(10, 30, 24)),
+])
+def test_tenant_spec_values_run_as_the_reference(fields):
+    """The spec values that raised until the tenant layout was ported: a
+    session on each, fed composite keys, equals the reference's, bit for
+    bit, and the spec's capacity is the reference's."""
+    jspec, tspec = japi.SketchSpec(**fields), tapi.SketchSpec(**fields)
+    assert tspec.capacity == jspec.capacity
+    js, ts = JSession(jspec, block=128), TSession(tspec, block=128,
+                                                  device="cpu")
+    s = tstreams.bounded_stream(500, 0.5, universe=tspec.tenants << 8,
+                                skew=1.1, seed=tspec.tenants)
+    js.extend(s[:, 0], s[:, 1])
+    ts.extend(s[:, 0], s[:, 1])
+    _assert_same(*_state_dicts(js, ts), str(fields))
+    probe = np.arange(tspec.tenants << 8)
+    np.testing.assert_array_equal(np.asarray(js.query_many(probe)),
+                                  ts.query_many(probe).numpy())
 
 
 @pytest.mark.parametrize("fields", [
@@ -253,6 +281,54 @@ def test_update_validates_tensor_inputs_as_the_reference_does(items, weights):
                     torch.as_tensor(weights))
     with pytest.raises(ValueError):
         tapi.update(tspec, tstate, items, weights)
+
+
+_QUERY_ENTRIES = {
+    "api.query_many": lambda api, spec, st, sess, x: api.query_many(
+        spec, st, [x]),
+    "api.query": lambda api, spec, st, sess, x: api.query(spec, st, x),
+    "api.rank_many": lambda api, spec, st, sess, x: api.rank_many(
+        spec, st, [x]),
+    "api.rank": lambda api, spec, st, sess, x: api.rank(spec, st, x),
+    "session.query_many": lambda api, spec, st, sess, x: sess.query_many(
+        [x]),
+    "session.rank_many": lambda api, spec, st, sess, x: sess.rank_many([x]),
+    "session.rank": lambda api, spec, st, sess, x: sess.rank(x),
+}
+
+
+@pytest.mark.parametrize("item", [2**32 + 5, 2**31, -2**31 - 1])
+@pytest.mark.parametrize("entry", list(_QUERY_ENTRIES))
+def test_query_ids_past_int32_raise_as_the_reference(entry, item):
+    """Every entry that takes query ids refuses a Python int outside int32
+    with ``OverflowError``, as the reference's ``jnp.asarray(x,
+    jnp.int32)`` does (the port used to keep the low 32 bits); an int64
+    numpy array keeps its low 32 bits in both packages."""
+    call = _QUERY_ENTRIES[entry]
+    kind = "quantile" if "rank" in entry else "frequency"
+    fields = dict(kind=kind, k=64, bits=8)
+    jspec, tspec = japi.SketchSpec(**fields), tapi.SketchSpec(**fields)
+    items = np.asarray([5, 5, 7, 200], np.int32)
+    js = japi.update(jspec, japi.make(jspec), items, None)
+    ts = tapi.update(tspec, tapi.make(tspec, device="cpu"), items, None)
+    jsess, tsess = JSession(jspec, block=8), TSession(tspec, block=8,
+                                                      device="cpu")
+    jsess.extend(items)
+    tsess.extend(items)
+    with pytest.raises(OverflowError):
+        call(japi, jspec, js, jsess, item)
+    with pytest.raises(OverflowError):
+        call(tapi, tspec, ts, tsess, item)
+    if entry.endswith("_many"):
+        name = entry.split(".")[1]
+        wide = np.asarray([item], np.int64)
+        if entry.startswith("api"):
+            got = getattr(tapi, name)(tspec, ts, wide)
+            want = getattr(japi, name)(jspec, js, wide)
+        else:
+            got = getattr(tsess, name)(wide)
+            want = getattr(jsess, name)(wide)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 @pytest.mark.parametrize("item", [2**32 + 3, -2**31 - 1])
@@ -530,3 +606,75 @@ def test_quantile_entry_points_default_to_cuda():
                  lambda: tbk.init([4, 2])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
+
+
+# -- the reference's deprecated spellings (its tests/test_api.py:241-280) --
+
+@pytest.mark.parametrize("mod", [tshd, tdy, tdysh],
+                         ids=["sharded", "dyadic", "dyadic_sharded"])
+def test_client_ingest_alias_warns_once_and_is_same_object(mod):
+    fn = mod.ingest
+    assert fn.__wrapped__ is mod.update_block
+    assert mod.ingest is fn
+    if mod is tshd:
+        state = tshd.init(16, 2, device="cpu")
+    elif mod is tdy:
+        state = tdy.init(8, total_counters=64, device="cpu")
+    else:
+        state = tdysh.init(8, 2, total_counters=64, device="cpu")
+    i = torch.arange(8, dtype=torch.int32)
+    w = torch.ones(8, dtype=torch.int32)
+    want = fn.__wrapped__(state, i, w)     # a direct call never warns
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        got = fn(state, i, w)
+        fn(state, i, w)
+    dep = [x for x in rec if issubclass(x.category, DeprecationWarning)]
+    # at most once per process (the first call may predate this test)
+    assert len(dep) <= 1
+    for x in dep:
+        assert "api.update" in str(x.message)
+    for a, b in zip(tapi.save(*_spec_of(mod), got).values(),
+                    tapi.save(*_spec_of(mod), want).values()):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    with pytest.raises(AttributeError, match="no attribute"):
+        mod.not_a_name
+
+
+def _spec_of(mod):
+    if mod is tshd:
+        return (tapi.SketchSpec(k=16, shards=2),)
+    if mod is tdy:
+        return (tapi.SketchSpec(kind="quantile", k=64, bits=8),)
+    return (tapi.SketchSpec(kind="quantile", k=64, bits=8, shards=2),)
+
+
+def test_deprecated_alias_warns_once_per_alias():
+    calls = []
+    alias = tapi.deprecated_alias("old.name", "new.name",
+                                  lambda *a, **k: calls.append((a, k)) or 7)
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        assert alias(1, x=2) == 7 and alias(3) == 7
+    dep = [x for x in rec if issubclass(x.category, DeprecationWarning)]
+    assert len(dep) == 1 and "old.name" in str(dep[0].message) \
+        and "new.name" in str(dep[0].message)
+    assert calls == [((1,), {"x": 2}), ((3,), {})]
+
+
+@pytest.mark.parametrize("path", ["block", "serial", "kernel"])
+def test_api_update_path_kwarg_warns_and_maps_to_backend(path):
+    jspec, tspec = _specs(None, "sspm", k=16)
+    items = np.arange(8, dtype=np.int32)
+    w = np.ones(8, np.int32)
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        got = tapi.update(tspec, tapi.make(tspec, device="cpu"), items, w,
+                          path=path)
+        jgot = japi.update(jspec, japi.make(jspec), items, w, path=path)
+    assert sum(issubclass(x.category, DeprecationWarning) for x in rec) == 2
+    want = tapi.update(dataclasses.replace(tspec, backend=path),
+                       tapi.make(tspec, device="cpu"), items, w)
+    for a, b, c in zip(got, want, jgot):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+        np.testing.assert_array_equal(a.numpy(), np.asarray(c))
