@@ -150,10 +150,44 @@ result):
      8 x 4,096 Zipf(1.0) tokens, window 64) and ``ExpertLoadStats``
      (OLMoE-1B-7B's 64 experts, top-8 routing) within their Thm 4
      bounds of the exact windowed counts;
+   - the family (``family_phase``): the unbiased kernel against its plain
+     version on small banks, rows at and past its staged limit (16,384 /
+     16,385 slots), a heavy hitter and warm banks; Double SpaceSaving± on
+     the main spec (``variant="double"``, 64 blocks, two kernel-1
+     launches a block and no other kernel; both banks equal to kernel
+     1's replay of the blocks, and kernel 1 to its plain version over 8;
+     every id within ``I_r/k_I + D_r/k_D`` of its count, never below it
+     where monitored, every id above its row's slack among the top
+     k_I); the service bench shape with ``variant="double"`` (the banks
+     equal to the plain version over every block, 16 tenants equal to
+     independent Double sketches); unbiased SpaceSaving± on the main
+     spec (16 blocks, one unbiased launch a block; the kernel equal to
+     its plain version on 8 sampled rows over 2 blocks, each bank's
+     total its substream's mass, two sessions equal); CR-precis at the
+     main budget (4 rows of primes up to 100,000, 64 blocks, no sketch
+     kernel: equal to a CPU run, never below the true count, the merge
+     of two halves the whole, ``topk`` at bits = 20 equal to the CPU's);
+   - the fault layer (``fault_phase``), on the main spec on ``"bank"``:
+     ``FaultPlan.random`` of 8 events over 64 blocks and 128 shards with
+     a replay log and a schedule checkpoint at block 0; after every
+     block ``dead_shards`` flags the rows corrupted that block, and any
+     other row only for a count or error below 0 (SS± reaches one on a
+     healthy row too: the never-failed twin's flags are recorded, each
+     such row equal to the row rebuilt alone on the CPU from its own
+     entries); recovery of the dead rows keeps every other row's
+     live values, recovery of all 128 equals a never-failed twin; two
+     delays on one row flag it on the port's straggler monitor;
+     ``reshard_session`` 128 -> 96 -> 1 within each id's Thm 4 bound
+     plus the accumulated ``error_slack``, the one row holding every
+     counter and equal to ``consolidated()``; ``reshard_dyadic`` of an
+     8-shard quantile bank to 4 within eps·|F|₁ plus 24 times the slack
+     in rank;
 5. times: per-block ms and updates/s of each run; each kernel's device
    ms at its run's shapes (the kernels the profiler sees, per call; and
    the time per call from the host, which holds the wrapper's host time,
-   the median of five rounds)
+   the median of five rounds; the unbiased kernel on unbiased main's
+   last block; the family's per-block ms, the recovery and resize
+   seconds in their records)
    beside its bound and the plain version's ms; kernel 1 also on the
    lazy run's block 1 and on the partition layout (the bank main run's
    last block, bank lazy's block 1, bank k=400000's block 8), kernel 3 also on path B's last block and on the
@@ -200,9 +234,11 @@ result):
      (the backend it took is printed; for decode it gives the context
      only, not the mass), beside each run's bound.
 
-The line before the last two is ``{"kernels": [...]}`` (all six kernels;
-the entries of flash and of kernels 1-3 give their launches by path,
-kernels 1-4 also ``stream_ms``);
+The line before the last two is ``{"kernels": [...]}`` (the six ported
+kernels and the port's own unbiased kernel, which replaces the
+reference's plain-JAX scan; the entries of flash and of kernels 1-3
+give their launches by path, kernels 1-4 and the unbiased kernel also
+``stream_ms``);
 the last line is ``{"ok": true, "device": {...}}``. A summary also goes to
 ``chiprun_out/chip_smoke.json``.
 """
@@ -247,6 +283,7 @@ def counted_kernels() -> dict:
     from repro_torch.kernels.sketch_update import kernel
 
     wrappers = {name: getattr(kernel, name) for name in KERNELS}
+    wrappers[UNBIASED] = kernel.sketch_unbiased_kernel
     wrappers[FLASH] = fa.flash_attention_kernel
     wrappers[DECODE] = da.decode_attention_kernel
     return wrappers
@@ -841,13 +878,14 @@ def check_all_cases(device) -> dict:
 # Phase 4: the runs
 # ---------------------------------------------------------------------------
 
-def make_stream(n_blocks, block, seed):
-    """A Zipf(1.0) bounded-deletion stream over 2^24 ids, delete ratio 0.5,
-    sized to fill ``n_blocks`` blocks (the last one partly)."""
+def make_stream(n_blocks, block, seed, bits=24):
+    """A Zipf(1.0) bounded-deletion stream over 2^bits ids, delete ratio
+    0.5, sized to fill ``n_blocks`` blocks (the last one partly)."""
     from repro_torch.core.streams import bounded_stream
 
     n_insert = (n_blocks * block) * 2 // 3
-    return bounded_stream(n_insert, 0.5, universe=1 << 24, skew=1.0, seed=seed)
+    return bounded_stream(n_insert, 0.5, universe=1 << bits, skew=1.0,
+                          seed=seed)
 
 
 def padded_blocks(stream, block):
@@ -2862,11 +2900,13 @@ def check_oracle_rows(label, spec, blocks, bank, rows, device) -> int:
     return n
 
 
-def check_twins(label, spec, blocks, state, tenants, device) -> dict:
+def check_twins(label, spec, blocks, state, tenants, device, k_solo=None,
+                m=None) -> dict:
     """Sampled tenants against independent ``SketchSpec(k=k_t, bits)``
-    sketches fed each block's fragment of the tenant: ``query_many`` on
-    every item the tenant saw and ``tenant_topk`` against ``topk`` at
-    m = k_t, bit for bit (the reference bench's ``_fused_vs_sessions``)."""
+    sketches of the spec's variant (``k_solo`` counters where given) fed
+    each block's fragment of the tenant: ``query_many`` on every item the
+    tenant saw and ``tenant_topk`` against ``topk`` at m = k_t (or
+    ``m``), bit for bit (the reference bench's ``_fused_vs_sessions``)."""
     import numpy as np
     import torch
     from repro_torch.sketch import api
@@ -2874,7 +2914,8 @@ def check_twins(label, spec, blocks, state, tenants, device) -> dict:
     from repro_torch.sketch.api import SketchSpec
 
     k_t = -(-spec.capacity // spec.tenants)
-    solo = SketchSpec(kind="frequency", k=k_t, bits=spec.bits,
+    m = m or k_t
+    solo = SketchSpec(kind="frequency", k=k_solo or k_t, bits=spec.bits,
                       variant=spec.variant)
     twins = {int(t): api.make(solo, device) for t in tenants}
     seen = {t: [] for t in twins}
@@ -2895,8 +2936,8 @@ def check_twins(label, spec, blocks, state, tenants, device) -> dict:
         if not torch.equal(got, api.query_many(solo, twin, probe)):
             raise SystemExit(f"{label}: tenant {t}'s queries differ from its "
                              f"independent sketch's")
-        if not _same(api.tenant_topk(spec, state, t, k_t),
-                     api.topk(solo, twin, k_t)):
+        if not _same(api.tenant_topk(spec, state, t, m),
+                     api.topk(solo, twin, m)):
             raise SystemExit(f"{label}: tenant {t}'s top-k differs from its "
                              f"independent sketch's")
         checked += len(probe)
@@ -3714,6 +3755,806 @@ def tenant_times(operands, device) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The SpaceSaving± family and the fault layer
+# ---------------------------------------------------------------------------
+
+UNBIASED = "sketch_unbiased_kernel"
+FUSED = "sketch_update_kernel_fused"
+# the family on the main spec (k = 400,000 split 266,667 / 133,333: 2,084 /
+# 1,042 counters a row at 128 shards); CR-precis at the same budget (4 rows
+# of primes up to 100,000) and its top-k over a 2^20 universe
+FAMILY = dict(double_blocks=64, plain_blocks=8, unbiased_blocks=16,
+              sampled_rows=8, sampled_blocks=2, crprecis_blocks=64,
+              topk_bits=20, topk_blocks=16, topk_m=64, service_twins=16)
+# a fault plan of 8 events over the main spec's 64 blocks and 128 shards;
+# a straggler (two delays of 5 s on one row); resizes 128 -> 96 -> 1 and
+# the quantile sharded bank 8 -> 4
+FAULTS = dict(blocks=64, seed=7, n_faults=8, straggler_blocks=16,
+              straggler_row=5, reshard=(96, 1), dyadic_shards=4,
+              dyadic_blocks=8, row_pad=1024)
+
+
+def family_specs():
+    """The family's specs: Double and unbiased SpaceSaving± on the main
+    spec (``"bank"``), CR-precis at its budget."""
+    from repro_torch.sketch.api import SketchSpec
+
+    main = dict(eps=1e-5, alpha=2.0, shards=128, bits=24)
+    return dict(double=SketchSpec(variant="double", **main),
+                unbiased=SketchSpec(variant="unbiased", **main),
+                crprecis=SketchSpec(eps=1e-5, alpha=2.0, backend="crprecis",
+                                    bits=24))
+
+
+def _blocks(stream, block):
+    items, weights = padded_blocks(stream, block)
+    return list(zip(items, weights))
+
+
+def double_replay(spec, blocks, device, update):
+    """The blocks through the partition prep and ``update`` (kernel 1 or its
+    plain version) on both banks of a Double state, from the spec's empty
+    state: ``bank.update_pair``'s updates outside the session."""
+    import torch
+    from repro_torch.kernels.sketch_update import ops
+    from repro_torch.sketch import api
+    from repro_torch.sketch import bank as bk
+    from repro_torch.sketch.family import DoubleState
+
+    state = api.make(spec, device)
+    router = api.adapter_for(spec)._router(spec, state.ins.ids.shape[0])
+    ins, dels = state.ins, state.dels
+    for items, weights in blocks:
+        it = torch.as_tensor(items, device=device)
+        w_i, w_d = bk.split_signed(torch.as_tensor(weights, device=device))
+        ins = ops.partition_update_with(update, ins, it, w_i, router, 2)
+        dels = ops.partition_update_with(update, dels, it, w_d, router, 2)
+    torch.cuda.synchronize()
+    return DoubleState(ins, dels, state.key)
+
+
+def unbiased_replay(spec, blocks, device, update, keep=()):
+    """The blocks through ``ops.unbiased_update_with`` and ``update`` (the
+    unbiased kernel or its plain version) from the spec's empty state,
+    the uniforms and the next key from ``family.draw``, as the session
+    draws them. Returns the state and, for each block in ``keep``, its
+    kernel operands (both banks, then the layout) as they were before
+    it."""
+    import torch
+    from repro_torch.kernels.sketch_update import ops
+    from repro_torch.sketch import api
+    from repro_torch.sketch import family as fam
+
+    state = api.make(spec, device)
+    router = api.adapter_for(spec)._router(spec, state.ins.ids.shape[0])
+    kept = {}
+    for b, (items, weights) in enumerate(blocks):
+        def run(*operands, b=b):
+            if b in keep:
+                kept[b] = ([t.clone() for t in operands[:6]],
+                           list(operands[6:]))
+            return update(*operands)
+
+        u, key = fam.draw(state.key, len(items))
+        ins, dels = ops.unbiased_update_with(
+            run, state.ins, state.dels, torch.as_tensor(items, device=device),
+            torch.as_tensor(weights, device=device), u, router)
+        state = fam.DoubleState(ins, dels, key)
+    torch.cuda.synchronize()
+    return state, kept
+
+
+def sampled_rows(st, args, rows):
+    """The unbiased kernel's operands cut to bank rows ``rows`` of both
+    banks: their slices and their runs of the flat layout (positions keep
+    indexing the whole block)."""
+    import torch
+
+    R = st[0].shape[0]
+    items, weights, u, perm, roff = args
+    bounds = roff.tolist()
+    segs, starts = [], [0]
+    for side in (0, 1):
+        for r in rows:
+            c = side * R + r
+            segs.append(perm[bounds[c]:bounds[c + 1]])
+            starts.append(starts[-1] + len(segs[-1]))
+    idx = torch.as_tensor(rows, device=st[0].device)
+    return ([t[idx] for t in st],
+            [items, weights, u, torch.cat(segs),
+             torch.tensor(starts, dtype=torch.int32, device=st[0].device)])
+
+
+def unbiased_bound(st, args):
+    """Least bytes: each bank row that has an entry read and written once
+    (ids, counts, errors), the block's ids, weights and positions and the
+    two banks' uniforms read once, the row starts; one operation an
+    entry."""
+    R, Ki = st[0].shape
+    Kd = st[3].shape[1]
+    items, _, u, perm, roff = args
+    n = (roff[1:] - roff[:-1]).cpu()
+    touched_i, touched_d = int((n[:R] > 0).sum()), int((n[R:] > 0).sum())
+    nbytes = (2 * 12 * (touched_i * Ki + touched_d * Kd)
+              + 4 * (2 * items.numel() + perm.numel() + roff.numel())
+              + 4 * u.numel())
+    return nbytes, int(n.sum()), touched_i + touched_d
+
+
+def time_unbiased(last, reps=10) -> dict:
+    """The unbiased kernel's device ms on a block (each launch on its own
+    copy of the banks), its host ms per call, its plain version's ms on
+    the same operands (one call), and the bound."""
+    import torch
+    from repro_torch.kernels.sketch_update import kernel, ref
+
+    st, args = last
+    fn = getattr(kernel, UNBIASED)
+    first = fn(*(t.clone() for t in st), *args)
+    rounds = stream_ms(lambda c: fn(*c, *args), st, reps)
+    ms = device_ms(lambda c: fn(*c, *args), st, reps)
+    start, end = torch.cuda.Event(True), torch.cuda.Event(True)
+    torch.cuda.synchronize()
+    start.record()
+    want = ref.unbiased_update_ref(*st, *args)
+    end.record()
+    torch.cuda.synchronize()
+    if not _same(want, first):
+        raise SystemExit("the timed unbiased launch differs from its plain "
+                         "version")
+    nbytes, entries, rows = unbiased_bound(st, args)
+    bound_s = max(nbytes / HBM_BYTES_PER_S, entries / INT32_OPS_PER_S)
+    return dict(ms=ms, stream_ms=sorted(rounds)[len(rounds) // 2],
+                stream_ms_rounds=rounds, plain_ms=start.elapsed_time(end),
+                bound_ms=bound_s * 1e3,
+                bound_by=("bytes" if nbytes / HBM_BYTES_PER_S
+                          >= entries / INT32_OPS_PER_S else "operations"),
+                bytes=nbytes, entries=entries, rows_touched=rows)
+
+
+def unbiased_cases(device) -> int:
+    """The unbiased kernel against its plain version beside the main run:
+    small banks, rows at and past the staged layout's limit (16,384 /
+    16,385 slots), a heavy hitter repeated through a block, warm banks
+    (after two blocks). Returns the worst error (0 or fatal)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.streams import bounded_stream
+    from repro_torch.kernels.sketch_update import kernel, ref
+    from repro_torch.sketch import bank as bk
+    from repro_torch.sketch import family as fam
+    from repro_torch.sketch.state import SketchState
+
+    fn = getattr(kernel, UNBIASED)
+    worst = 0
+    cases = ((1, 6, 3, 0), (7, 200, 100, 0), (128, 2084, 1042, 2),
+             (1, 16384, 16, 0), (1, 16385, 8, 0), (3, 40, 7, 1))
+    for i, (R, Ki, Kd, warm) in enumerate(cases):
+        B = 4096
+        router = bk.HashShardRouter(R, 24)
+        s = bounded_stream((warm + 1) * B, 0.5, universe=1 << 24, skew=1.0,
+                           seed=500 + i)
+        if i == len(cases) - 1:   # a heavy hitter through most of a block
+            s[::3, 0] = 4242
+        ins, dels = bk.init(Ki, R, device=device), bk.init(Kd, R, device=device)
+        key = torch.tensor([0, i], dtype=torch.int64).to(torch.uint32)
+        for b in range(warm + 1):
+            part = s[b * B:(b + 1) * B]
+            it = torch.as_tensor(part[:, 0], dtype=torch.int32, device=device)
+            w = torch.as_tensor(part[:, 1], dtype=torch.int32, device=device)
+            s_items, s_w, perm, roff = fam.unbiased_prep(it, w, router)
+            u, nxt = fam.draw(key.to(device), B)
+            args = [s_items, s_w, u, perm, roff]
+            st = [*ins, *dels]
+            want = ref.unbiased_update_ref(*st, *args)
+            if b == warm:
+                before = dict(fn.launches)
+                got = fn(*(t.clone() for t in st), *args)
+                torch.cuda.synchronize()
+                ran = [p for p, n in fn.launches.items() if n != before[p]]
+                if ran != [kernel.unbiased_layout(max(Ki, Kd))]:
+                    raise SystemExit(f"{UNBIASED} ran on {ran}")
+                err = max_abs_err(want, got)
+                if not _same(want, got):
+                    raise SystemExit(f"{UNBIASED} disagrees with its plain "
+                                     f"version: R={R}, K={Ki}/{Kd}")
+                log(f"{UNBIASED} vs plain [R={R} K={Ki}/{Kd} warm={warm}]: "
+                    f"equal (max_abs_err {err}, layout {ran[0]})")
+                worst = max(worst, err)
+            ins, dels = SketchState(*want[:3]), SketchState(*want[3:])
+            key = nxt
+    return worst
+
+
+def check_double_truth(label, spec, state, stream, device) -> dict:
+    """Every id of the universe within ``I_r / k_I + D_r / k_D`` of its
+    exact count, r its owner row (I_r, D_r the row's inserted and deleted
+    mass, k_I, k_D a row's counters: the family bound of
+    tests/test_family.py:82-107); never below it where the insert bank
+    monitors the id (an unmonitored id answers 0, as in the reference);
+    every id above its row's slack monitored and among the top k_I
+    (``topk``); ``query_many`` equal to the banks read directly."""
+    import numpy as np
+    import torch
+    from repro_torch.sketch import api
+    from repro_torch.sketch.bank import shard_of
+    from repro_torch.sketch.family import double_capacities
+
+    U = 1 << spec.bits
+    R, k_i = state.ins.ids.shape
+    k_d = state.dels.ids.shape[1]
+    items = torch.as_tensor(stream[:, 0], device=device).long()
+    w = torch.as_tensor(stream[:, 1], device=device).long()
+    f = torch.zeros(U, dtype=torch.int64, device=device).index_add_(0, items,
+                                                                     w)
+
+    def dense(bank, val):
+        live = bank.ids >= 0
+        out = torch.zeros(U, dtype=torch.int64, device=device)
+        out[bank.ids[live].long()] = val[live].long()
+        return out, live
+
+    est_i, live_i = dense(state.ins, state.ins.counts)
+    est_d, _ = dense(state.dels, torch.clamp(state.dels.counts
+                                             - state.dels.errors, min=0))
+    est = torch.clamp(est_i - est_d, min=0)
+    monitored = torch.zeros(U, dtype=torch.bool, device=device)
+    monitored[state.ins.ids[live_i].long()] = True
+    owner = shard_of(torch.arange(U, dtype=torch.int32, device=device),
+                     R).long()
+    row = owner[items]
+    ins_r = torch.zeros(R, dtype=torch.float64, device=device).index_add_(
+        0, row, torch.clamp(w, min=0).double())
+    del_r = torch.zeros(R, dtype=torch.float64, device=device).index_add_(
+        0, row, torch.clamp(-w, min=0).double())
+    slack = (ins_r / k_i + del_r / k_d)[owner]
+    err = (est - f).abs().double()
+    if bool((err > slack + 1e-9).any()):
+        x = int(torch.argmax(err - slack))
+        raise SystemExit(f"{label}: id {x} off by {float(err[x])} > slack "
+                         f"{float(slack[x])}")
+    if bool((monitored & (est < f)).any()):
+        raise SystemExit(f"{label}: a monitored id is estimated below its "
+                         f"true count")
+    above = f.double() > slack
+    if bool((above & ~monitored).any()):
+        raise SystemExit(f"{label}: an id above its row's slack is not "
+                         f"monitored")
+    m = double_capacities(spec.capacity, spec.alpha)[0]
+    t0 = time.perf_counter()
+    ids, _ = api.topk(spec, state, m)
+    torch.cuda.synchronize()
+    topk_ms = (time.perf_counter() - t0) * 1e3
+    reported = torch.zeros(U, dtype=torch.bool, device=device)
+    reported[ids[ids >= 0].long()] = True
+    if bool((above & ~reported).any()):
+        raise SystemExit(f"{label}: an id above its row's slack is not in "
+                         f"the top {m}")
+    rng = np.random.default_rng(9)
+    sample = np.concatenate([
+        torch.topk(f, 2048).indices.cpu().numpy(),
+        rng.integers(0, U, 2048)]).astype(np.int32)
+    got = api.query_many(spec, state, sample)
+    if not torch.equal(got.long(), est[torch.as_tensor(sample,
+                                                       device=device).long()]):
+        raise SystemExit(f"{label}: query_many differs from the banks")
+    has = slack > 0
+    return dict(worst_err_over_slack=float((err[has] / slack[has]).max()),
+                ids_above_slack=int(above.sum()),
+                monitored_ids=int(monitored.sum()), topk_m=m,
+                topk_ms=topk_ms)
+
+
+def family_run(label, spec, stream, block, device, launches):
+    """A session over the stream (``run_session``: the captured ingest),
+    its counted launches (``launches``: kernel key -> launches a block,
+    every other counter 0) and the per-block ms."""
+    reset_counts()
+    sess, secs, first = run_session(spec, stream, block, device)
+    counts = read_counts()
+    n = sess.blocks_ingested
+    for key, per in launches.items():
+        if counts[key] != per * n:
+            raise SystemExit(f"{label}: {counts[key]} launches of {key} for "
+                             f"{n} blocks, expected {per * n}")
+    others = {k: v for k, v in counts.items() if v and k not in launches}
+    if others:
+        raise SystemExit(f"{label}: other kernels launched: {others}")
+    if sess._compiled.graph is None:
+        raise SystemExit(f"{label}: the session did not run its CUDA graph")
+    rec = dict(label=label, blocks=n, events=len(stream),
+               launches={k: counts[k] for k in launches},
+               ms_per_block=secs * 1e3 / (n - 1),
+               updates_per_s=(len(stream) - block) / secs, **first)
+    return sess, rec
+
+
+def family_service(device) -> dict:
+    """The service bench shape with ``variant="double"``: the replay
+    through ``SketchService`` (two kernel-1 launches a block), both banks
+    equal to the plain version over every traced block, and sampled
+    tenants equal to independent Double sketches of the same per-row
+    capacities, queries and top-k."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.kernels.sketch_update import ref
+    from repro_torch.serve import SketchService
+    from repro_torch.sketch.family import double_capacities
+
+
+    c = TENANT_BENCH
+    spec = dataclasses.replace(tenant_spec(c["tenants"], c["k"], c["bits"]),
+                               variant="double")
+    label = "family service double delete=0.5"
+    ops = traffic(c["tenants"], c["updates"], 0.5, c["bits"], seed=6)
+    svc = SketchService(spec, block=c["block"], device=device)
+    svc.trace_blocks = []
+    reset_counts()
+    secs, tickets, _ = replay(svc, ops, c["block"])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    n = svc.stats["blocks"]
+    key = f"sketch_update_kernel_fused[{_fused_layout_of(c['k'])}]"
+    others = {k: v for k, v in counts.items() if v and k != key}
+    if counts[key] != 2 * n or others:
+        raise SystemExit(f"{label}: {counts[key]} launches of {key} for {n} "
+                         f"blocks; others {others}")
+    state = svc.session.state
+    t0 = time.perf_counter()
+    plain = double_replay(spec, svc.trace_blocks, device, ref.fused_update_ref)
+    plain_ms = (time.perf_counter() - t0) * 1e3 / n
+    if not (_same(plain.ins, state.ins) and _same(plain.dels, state.dels)):
+        raise SystemExit(f"{label}: the banks differ from the plain version's")
+    per_i, per_d = state.ins.ids.shape[1], state.dels.ids.shape[1]
+    k_solo = next(k for k in range(2, 64)
+                  if double_capacities(k, spec.alpha) == (per_i, per_d))
+    rng = np.random.default_rng(41)
+    twins = check_twins(label, spec, svc.trace_blocks, state,
+                        rng.choice(c["tenants"], FAMILY["service_twins"],
+                                   replace=False), device, k_solo=k_solo,
+                        m=per_i)
+    lat = [t.latency_s for t in tickets]
+    rec = dict(label=label, blocks=n, launches=counts[key],
+               rows=state.ins.ids.shape[0], k_per_row=[per_i, per_d],
+               updates=svc.stats["updates"], ms_per_block=secs * 1e3 / n,
+               updates_per_s=svc.stats["updates"] / secs,
+               plain_ms_per_block=plain_ms, twins=twins,
+               p99_ticket_ms=float(np.percentile(lat, 99)) * 1e3)
+    log(f"{label}: {json.dumps(rec)}")
+    return rec
+
+
+def family_phase(device, stream, block) -> tuple:
+    """The family on the main stream: double main (64 blocks, two kernel-1
+    launches a block, both banks equal to kernel 1's and the plain
+    version's replays, the family bound, the top-k), the double service,
+    unbiased main (16 blocks, one unbiased launch a block, equal to its
+    plain version on sampled rows, exact mass per bank, two sessions
+    equal), CR-precis (64 blocks, equal to the CPU, never below the true
+    count, merge of halves, top-k over 2^20 ids). Returns (records, the
+    unbiased kernel's operands for its times, its worst error)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.kernels.sketch_update import kernel, ref
+    from repro_torch.sketch import api
+    from repro_torch.sketch.session import StreamSession
+
+    specs = family_specs()
+    out = {}
+    worst = unbiased_cases(device)
+
+    # double main
+    label = "family double main"
+    spec = specs["double"]
+    s = stream[:FAMILY["double_blocks"] * block]
+    sess, rec = family_run(label, spec, s, block, device,
+                           {f"{FUSED}[staged]": 2})
+    blocks = _blocks(s, block)
+    fused = getattr(kernel, FUSED)
+    if not _same(tuple(_state_leaves(double_replay(spec, blocks, device,
+                                                   fused))),
+                 tuple(_state_leaves(sess.state))):
+        raise SystemExit(f"{label}: the session differs from kernel 1's "
+                         f"replay of its blocks")
+    n = FAMILY["plain_blocks"]
+    t0 = time.perf_counter()
+    plain = double_replay(spec, blocks[:n], device, ref.fused_update_ref)
+    rec["plain_ms_per_block"] = (time.perf_counter() - t0) * 1e3 / n
+    if not _same(tuple(_state_leaves(plain)), tuple(_state_leaves(
+            double_replay(spec, blocks[:n], device, fused)))):
+        raise SystemExit(f"{label}: kernel 1 differs from its plain version "
+                         f"over {n} blocks")
+    rec["plain_blocks"] = n
+    rec.update(check_double_truth(label, spec, sess.state, s, device))
+    out[label] = rec
+    log(f"{label}: {json.dumps(rec)}")
+    out["family service double"] = family_service(device)
+
+    # unbiased main
+    label = "family unbiased main"
+    spec = specs["unbiased"]
+    s = stream[:FAMILY["unbiased_blocks"] * block]
+    blocks = _blocks(s, block)
+    sess, rec = family_run(label, spec, s, block, device,
+                           {f"{UNBIASED}[staged]": 1})
+    live = sess.state
+    replayed, kept = unbiased_replay(
+        spec, blocks, device, getattr(kernel, UNBIASED),
+        keep=set(range(FAMILY["sampled_blocks"])) | {len(blocks) - 1})
+    if not _same(tuple(_state_leaves(replayed)), tuple(_state_leaves(live))):
+        raise SystemExit(f"{label}: the session differs from the kernel's "
+                         f"replay of its blocks")
+    rows = sorted(np.random.default_rng(3).choice(
+        live.ins.ids.shape[0], FAMILY["sampled_rows"], replace=False).tolist())
+    fn = getattr(kernel, UNBIASED)
+    for b in range(FAMILY["sampled_blocks"]):
+        st, args = kept[b]
+        got = fn(*(t.clone() for t in st), *args)
+        sub_st, sub_args = sampled_rows(st, args, rows)
+        want = ref.unbiased_update_ref(*sub_st, *sub_args)
+        idx = torch.as_tensor(rows, device=device)
+        if not _same(want, [t[idx] for t in got]):
+            raise SystemExit(f"{label}: block {b}, the kernel's sampled rows "
+                             f"differ from the plain version's")
+        worst = max(worst, max_abs_err(want, [t[idx] for t in got]))
+    w = s[:, 1].astype(np.int64)
+    mass = (int(live.ins.counts.sum(dtype=torch.int64)),
+            int(live.dels.counts.sum(dtype=torch.int64)))
+    if mass != (int(w[w > 0].sum()), int(-w[w < 0].sum())):
+        raise SystemExit(f"{label}: bank mass {mass} is not the substreams' "
+                         f"{(int(w[w > 0].sum()), int(-w[w < 0].sum()))}")
+    twin = StreamSession(spec, block=block, device=device)
+    twin.ingest(s[:, 0], s[:, 1])
+    if not _same(tuple(_state_leaves(twin.state)),
+                 tuple(_state_leaves(live))):
+        raise SystemExit(f"{label}: two sessions of one seed differ")
+    rec.update(sampled_rows=rows, sampled_blocks=FAMILY["sampled_blocks"],
+               insert_mass=mass[0], delete_mass=mass[1])
+    out[label] = rec
+    log(f"{label}: {json.dumps(rec)}")
+    last = kept[len(blocks) - 1]
+
+    # CR-precis
+    label = "family crprecis main"
+    spec = specs["crprecis"]
+    s = stream[:FAMILY["crprecis_blocks"] * block]
+    sess, rec = family_run(label, spec, s, block, device, {})
+    cpu = StreamSession(spec, block=block, device="cpu")
+    cpu.ingest(s[:, 0], s[:, 1])
+    if not all(torch.equal(a.cpu(), b) for a, b in zip(sess.state,
+                                                         cpu.state)):
+        raise SystemExit(f"{label}: the state differs from the CPU's")
+    ids = np.unique(s[:, 0]).astype(np.int32)
+    f = np.bincount(s[:, 0], weights=s[:, 1],
+                    minlength=1 << spec.bits).astype(np.int64)[ids]
+    est = sess.query_many(ids).cpu().numpy()
+    if (est < f).any():
+        raise SystemExit(f"{label}: an id is estimated below its count")
+    half = len(blocks) // 2 * block
+    a = StreamSession(spec, block=block, device=device)
+    b = StreamSession(spec, block=block, device=device)
+    a.ingest(s[:half, 0], s[:half, 1])
+    b.ingest(s[half:, 0], s[half:, 1])
+    merged = api.merge(spec, a.state, b.state)
+    if not torch.equal(merged.counts, sess.state.counts):
+        raise SystemExit(f"{label}: the merge of the halves differs from the "
+                         f"whole")
+    small = dataclasses.replace(spec, bits=FAMILY["topk_bits"])
+    ts = make_stream(FAMILY["topk_blocks"], block, seed=12,
+                     bits=FAMILY["topk_bits"])
+    gpu_t = StreamSession(small, block=block, device=device)
+    cpu_t = StreamSession(small, block=block, device="cpu")
+    for x in (gpu_t, cpu_t):
+        x.ingest(ts[:, 0], ts[:, 1])
+    t0 = time.perf_counter()
+    top = gpu_t.topk(FAMILY["topk_m"])
+    torch.cuda.synchronize()
+    topk_ms = (time.perf_counter() - t0) * 1e3
+    want = cpu_t.topk(FAMILY["topk_m"])
+    if not all(torch.equal(x.cpu(), y) for x, y in zip(top, want)):
+        raise SystemExit(f"{label}: top-k at bits=20 differs from the CPU's")
+    ft = np.bincount(ts[:, 0], weights=ts[:, 1],
+                     minlength=1 << FAMILY["topk_bits"])
+    tid, tval = (x.cpu().numpy() for x in top)
+    if (tval < ft[np.maximum(tid, 0)]).any():
+        raise SystemExit(f"{label}: a top-k value is below its id's count")
+    rec.update(streamed_ids=len(ids), worst_overestimate=int((est - f).max()),
+               topk_bits=FAMILY["topk_bits"], topk_ms=topk_ms,
+               rows=int(sess.state.counts.shape[0]),
+               primes=sess.state.primes.tolist())
+    out[label] = rec
+    log(f"{label}: {json.dumps(rec)}")
+    return out, last, worst
+
+
+def _state_leaves(state):
+    from repro_torch.sketch.session import _leaves
+
+    return _leaves(state)
+
+
+def reshard_bound(label, state, bound_old, stream, bits, slack) -> float:
+    """Every id of the universe within its old row's Thm 4 bound plus the
+    session's accumulated resize slack. Returns the worst error over that
+    bound."""
+    import numpy as np
+
+    U = 1 << bits
+    f = np.bincount(stream[:, 0], weights=stream[:, 1],
+                    minlength=U).astype(np.int64)
+    ids, cnt = (t.reshape(-1).cpu().numpy() for t in state.bank[:2])
+    live = ids >= 0
+    est = np.zeros(U, np.int64)
+    est[ids[live]] = cnt[live]
+    err = np.abs(est - f)
+    limit = bound_old + slack
+    if (err > limit + 1e-9).any():
+        x = int(np.argmax(err - limit))
+        raise SystemExit(f"{label}: id {x} off by {err[x]} > {limit[x]}")
+    return float((err / np.maximum(limit, 1e-9)).max())
+
+
+def fault_spec():
+    """The fault phase's spec: the main spec on the default ``"bank"``."""
+    from repro_torch.sketch.api import SketchSpec
+
+    return SketchSpec(eps=1e-5, alpha=2.0, shards=128, bits=24)
+
+
+def row_fragments(spec, blocks, row, pad):
+    """Each block's entries that row ``row`` of the spec's bank owns, in
+    block order, as host int32 (items, weights) of length ``pad``, filled
+    with no-op entries (id -1, weight 0)."""
+    import numpy as np
+    import torch
+    from repro_torch.sketch.bank import shard_of
+
+    out = []
+    for items, weights in blocks:
+        mine = shard_of(torch.as_tensor(items), spec.shards).numpy() == row
+        n = int(mine.sum())
+        if n > pad:
+            raise ValueError(f"row {row} owns {n} entries of a block, more "
+                             f"than the pad {pad}")
+        it = np.full(pad, -1, np.int32)
+        w = np.zeros(pad, np.int32)
+        it[:n], w[:n] = items[mine], weights[mine]
+        out.append((it, w))
+    return out
+
+
+def row_alone(spec, fragments, row):
+    """Row ``row`` of the spec's bank rebuilt on the CPU from its own
+    entries alone (``row_fragments``): a one-row sketch of the row's
+    capacity, fed them through the plain version. The partition core's
+    rows are independent, so this is the row of the whole bank."""
+    import torch
+    from repro_torch.sketch import api
+    from repro_torch.sketch.state import BLOCKED
+
+    k = int((api.make(spec, "cpu").bank.ids[row] != BLOCKED).sum())
+    one = api.SketchSpec(k=k, alpha=spec.alpha, variant=spec.variant,
+                         bits=spec.bits)
+    state = api.make(one, "cpu")
+    for items, weights in fragments:
+        state = api.update(one, state, torch.as_tensor(items),
+                           torch.as_tensor(weights))
+    return state
+
+
+def fault_phase(device, stream, block, q_spec) -> dict:
+    """The fault layer on the main spec (``"bank"``): a seeded random plan
+    over the 64 blocks and 128 shards (all four kinds) with a schedule
+    checkpoint at block 0 and a replay log of 64 blocks; ``dead_shards``
+    after every block (a corrupted row flagged the block it is poisoned,
+    any other row only for a count or error below 0, which SS± also
+    reaches on a healthy row: the twin's flags are recorded, and each row
+    it flags equals the row rebuilt alone, ``row_alone``); recovery of the
+    dead rows
+    (the other rows keep their live values) and of all 128 rows (equal
+    to a never-failed twin); a delay plan flagging its row on the port's
+    straggler monitor; ``reshard_session`` 128 -> 96 -> 1 within Thm 4
+    plus the slack, the one row lossless and its ``consolidated()``;
+    ``reshard_dyadic`` of the quantile sharded state 8 -> 4 within
+    eps·|F|₁ plus the slack per level."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.sketch import api, elastic, faults
+    from repro_torch.sketch.bank import shard_of
+    from repro_torch.sketch.session import StreamSession
+    from repro_torch.train.straggler import StragglerConfig, StragglerMonitor
+
+    c = FAULTS
+    out = {}
+    spec = fault_spec()
+    S = spec.shards
+    s = stream[:c["blocks"] * block]
+    blocks = _blocks(s, block)
+    plan = faults.FaultPlan.random(c["seed"], len(blocks), S,
+                                   n_faults=c["n_faults"])
+    sess = StreamSession(spec, block=block, replay=len(blocks),
+                         fault_plan=plan, device=device)
+    twin = StreamSession(spec, block=block, device=device)
+    ckpt = sess.save(include_schedule=True)
+    corrupted, touched, negative, healthy = set(), set(), set(), set()
+    t0 = time.perf_counter()
+    for b, (items, weights) in enumerate(blocks, start=1):
+        sess.ingest_block(items, weights)
+        twin.ingest_block(items, weights)
+        now = {e.row for e in plan.events_at(b) if e.kind == "corrupt"}
+        corrupted |= now
+        touched |= {e.row for e in plan.events_at(b)}
+        dead = set(np.flatnonzero(elastic.dead_shards(spec, sess.state)))
+        # a corrupted row is flagged the block it is poisoned. Another row
+        # may be flagged for a count below 0 (or an error, where such a
+        # count was evicted): SS± reaches one on a healthy stream too, an
+        # underestimate, so a row no event touched must then equal the
+        # twin's; a dropped, duplicated or delayed slice makes it likelier
+        if not now <= dead:
+            raise SystemExit(f"fault plan: after block {b} the scan flags "
+                             f"{sorted(dead)}, not the rows corrupted this "
+                             f"block {sorted(now)}")
+        for r in sorted(dead - corrupted):
+            row = [t[int(r)] for t in sess.state.bank]
+            if int(r) not in touched:
+                if not _same(row, [t[int(r)] for t in twin.state.bank]):
+                    raise SystemExit(f"fault plan: row {r}, which no event "
+                                     f"touched, differs from the twin's")
+                healthy.add(int(r))
+                continue
+            ids, cnt, err = (t.long() for t in row)
+            live = ids >= 0
+            empty, blocked = ids == -1, ids == -2
+            if (bool((ids < -2).any())
+                    or bool((empty & ((cnt != 0) | (err != 0))).any())
+                    or bool((blocked & ((cnt != IMAX) | (err != 0))).any())
+                    or len(torch.unique(ids[live])) != int(live.sum())
+                    or not bool((live & ((cnt < 0) | (err < 0))).any())):
+                raise SystemExit(f"fault plan: row {r} (no corrupt event) "
+                                 f"flagged for another reason than a count "
+                                 f"or error below 0")
+            negative.add(int(r))
+    sess.flush()
+    twin.flush()
+    fault_secs = time.perf_counter() - t0
+    # the twin's flagged rows are SS±'s, not the partition core's: each
+    # equals the row rebuilt alone on the CPU from its own entries, which
+    # tests/test_torch_elastic.py holds against the reference's engine
+    twin_dead = [int(r) for r in np.flatnonzero(
+        elastic.dead_shards(spec, twin.state))]
+    for r in twin_dead:
+        alone = row_alone(spec, row_fragments(spec, blocks, r,
+                                              c["row_pad"]), r)
+        if not _same([t[r].cpu() for t in twin.state.bank], list(alone)):
+            raise SystemExit(f"fault plan: the twin's flagged row {r} "
+                             f"differs from the row rebuilt alone")
+    dead = np.flatnonzero(elastic.dead_shards(spec, sess.state))
+    live = [t.clone() for t in sess.state.bank]
+    rep = elastic.recover_session(sess, ckpt, rows=dead)
+    keep = [r for r in range(S) if r not in set(dead.tolist())]
+    for t, lv, tw in zip(sess.state.bank, live, twin.state.bank):
+        if not (torch.equal(t[keep], lv[keep])
+                and torch.equal(t[dead], tw[dead])):
+            raise SystemExit("recovery of the dead rows: a spliced row "
+                             "differs from the twin's or a kept row moved")
+    full = elastic.recover_session(sess, ckpt, rows=range(S))
+    if not _same(sess.state.bank, twin.state.bank):
+        raise SystemExit("recovery of all rows differs from the never-failed "
+                         "twin")
+    out["faults"] = dict(
+        events=[dict(step=e.step, row=e.row, kind=e.kind) for e in plan.events],
+        corrupted=sorted(int(r) for r in corrupted),
+        dead_at_end=[int(r) for r in dead],
+        healed=sorted(int(r) for r in corrupted - set(dead.tolist())),
+        flagged_touched_not_corrupted=sorted(negative),
+        flagged_untouched=sorted(healthy),
+        twin_flagged=twin_dead, twin_flagged_equal_alone=True,
+        ms_per_block_faulted=fault_secs * 1e3 / len(blocks),
+        recover_dead_rows_s=rep.seconds, recover_all_s=full.seconds,
+        replayed_blocks=full.replayed_blocks)
+    log(f"fault plan: {json.dumps(out['faults'])}")
+
+    # a straggler: two delays on one row walk the monitor to a flag
+    row = c["straggler_row"]
+    flagged = []
+    mon = StragglerMonitor(StragglerConfig(min_steps=4, sustained=2,
+                                           z_threshold=3.0),
+                           on_straggler=lambda h, t, z: flagged.append(h))
+    n = c["straggler_blocks"]
+    dplan = faults.FaultPlan(events=(
+        faults.FaultEvent(step=n - 3, row=row, kind="delay", delay_s=5.0),
+        faults.FaultEvent(step=n - 2, row=row, kind="delay", delay_s=5.0)))
+    strag = StreamSession(spec, block=block, fault_plan=dplan, device=device)
+    for items, weights in blocks[:2]:     # warm, unobserved
+        strag.ingest_block(items, weights)
+    strag.monitor = mon
+    t0 = time.perf_counter()
+    for items, weights in blocks[2:n]:
+        strag.ingest_block(items, weights)
+    mon_ms = (time.perf_counter() - t0) * 1e3 / (n - 2)
+    if row not in mon.flagged:
+        raise SystemExit(f"straggler: row {row} not flagged ({mon.flagged})")
+    # every host reports the same block time, so a slow block may flag
+    # others too: recorded, not fatal
+    out["straggler"] = dict(row=row, flagged=sorted(set(flagged)),
+                            still_flagged=sorted(mon.flagged),
+                            ms_per_block_with_monitor=mon_ms)
+    log(f"straggler: {json.dumps(out['straggler'])}")
+
+    # resize the twin: 128 -> 96 -> 1
+    R0, k0 = twin.state.bank.ids.shape
+    owner = shard_of(torch.arange(1 << spec.bits, dtype=torch.int32,
+                                  device=device), R0).long()
+    ins = torch.zeros(R0, dtype=torch.float64, device=device).index_add_(
+        0, owner[torch.as_tensor(s[s[:, 1] > 0, 0], device=device).long()],
+        torch.as_tensor(s[s[:, 1] > 0, 1], device=device).double())
+    bound_old = (2.0 * ins / k0)[owner].cpu().numpy()
+    resized = []
+    for new in c["reshard"]:
+        live_before = [t.clone() for t in twin.state.bank]
+        t0 = time.perf_counter()
+        report = elastic.reshard_session(twin, new)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        ratio = reshard_bound(f"reshard -> {new}", twin.state, bound_old, s,
+                              spec.bits, twin.error_slack)
+        resized.append(dict(new_shards=new, seconds=secs, moved=report.moved,
+                            dropped=report.dropped,
+                            dropped_mass=report.dropped_mass,
+                            error_slack=report.error_slack,
+                            session_slack=twin.error_slack,
+                            worst_err_over_bound=ratio))
+    def live_map(bank):
+        ids, cnt, err = (t.reshape(-1).cpu().numpy() for t in bank)
+        keep = ids >= 0
+        return set(zip(ids[keep].tolist(), cnt[keep].tolist(),
+                       err[keep].tolist()))
+
+    if resized[-1]["dropped"] or live_map(twin.state.bank) \
+            != live_map(live_before):
+        raise SystemExit("reshard to one row lost a counter")
+    cons = twin.consolidated()
+    if not _same(cons, [t[0] for t in twin.state.bank]):
+        raise SystemExit("consolidated() of the one-row session differs from "
+                         "its row")
+    out["reshard"] = resized
+    log(f"reshard: {json.dumps(resized)}")
+
+    # the quantile sharded bank 8 -> 4
+    qsess = StreamSession(q_spec, block=block, device=device)
+    qs = stream[:c["dyadic_blocks"] * block]
+    qsess.ingest(qs[:, 0], qs[:, 1])
+    t0 = time.perf_counter()
+    new_state, report = elastic.reshard_dyadic(qsess.state,
+                                               c["dyadic_shards"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    new_spec = dataclasses.replace(q_spec, shards=c["dyadic_shards"])
+    cum = exact_ranks(qs, q_spec.bits)
+    xs = rank_grid(cum)
+    est = api.rank_many(new_spec, new_state, xs).cpu().numpy()
+    eps = q_spec.eps
+    limit = eps * int(cum[-1]) + q_spec.bits * report.error_slack
+    err = np.abs(est.astype(np.int64) - cum[xs])
+    if (err > limit).any() or int(new_state.mass) != int(qsess.state.mass):
+        raise SystemExit(f"reshard_dyadic: rank off by {err.max()} > "
+                         f"{limit}")
+    out["reshard_dyadic"] = dict(
+        old_shards=q_spec.shards, new_shards=c["dyadic_shards"], seconds=secs,
+        moved=report.moved, dropped=report.dropped,
+        error_slack=report.error_slack, worst_rank_err=int(err.max()),
+        limit=limit)
+    log(f"reshard_dyadic: {json.dumps(out['reshard_dyadic'])}")
+    return out
+
+
 def gpu_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3850,6 +4691,11 @@ def main() -> int:
     tenant_runs, tenant_operands, tenant_later = tenant_phase(device)
     runs.update({f"tenant {name}": r for name, r in tenant_runs.items()})
     phase_done("tenant runs")
+    family_runs, unbiased_last, worst[UNBIASED] = family_phase(
+        device, main_stream, B)
+    phase_done("family")
+    fault_runs = fault_phase(device, main_stream, B, q_specs["sharded"])
+    phase_done("faults")
 
     times = {
         fused: time_kernel(kernel.sketch_update_kernel_fused,
@@ -3898,6 +4744,9 @@ def main() -> int:
     for label, t in bank_times.items():
         log(f"{label} on the partition layout: {json.dumps(t)}")
     tenant_kernel_times = tenant_times(tenant_operands, device)
+    times[UNBIASED] = time_unbiased(unbiased_last)
+    log(f"{UNBIASED} on unbiased main's last block: "
+        f"{json.dumps(times[UNBIASED])}")
     phase_done("kernel times")
     prof = {label: profile_blocks(spec, B, 8, seed=3, device=device)
             for label, spec in (("main", main_spec), ("lazy", lazy_spec),
@@ -3940,7 +4789,25 @@ def main() -> int:
         "bound_by": times[name]["bound_by"],
         "library_ms": None,   # no PyTorch call computes these chains
         "stream_ms": times[name]["stream_ms"],
-    } for name in KERNELS] + attention_entries
+    } for name in KERNELS]
+    # the port's own kernel: no Pallas counterpart (the reference's scan)
+    kernels.append({
+        "name": UNBIASED,
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/sketch_update/csrc/"
+                  "unbiased_update.cu",
+        "replaces": "src/repro/sketch/family.py:123",
+        "launches": sum(n for r in family_runs.values()
+                        if isinstance(r.get("launches"), dict)
+                        for key, n in r["launches"].items()
+                        if key.startswith(UNBIASED)),
+        "max_abs_err": worst[UNBIASED],
+        **{key: times[UNBIASED][key] for key in ("ms", "plain_ms",
+                                                 "bound_ms", "bound_by",
+                                                 "stream_ms")},
+        "library_ms": None,   # no PyTorch call computes this scan
+    })
+    kernels += attention_entries
     # kernels 1-3 by layout: calls in the counted runs (a call on kernel
     # 3's unstaged layouts is two device launches)
     # kernel 1 on the tenant layouts (R = 1,024 and 32,768 rows)
@@ -3965,6 +4832,7 @@ def main() -> int:
         serial_paths=serial_by_path, quantile=q_extra, elapsed_s=elapsed,
         quantile_kernel_times=q_times,
         tenant=tenant_runs, tenant_kernel_times=tenant_kernel_times,
+        family=family_runs, faults=fault_runs,
         profile=prof, attention=attention,
         kernels=kernels), indent=1))
     print(json.dumps({"kernels": kernels}))

@@ -4,10 +4,12 @@ The interchange is the reference's ``api.save`` dict: numpy arrays
 with the integer ``layout`` tag (``repro/sketch/api.py:450, :497``),
 for the frequency kind (plain, sharded, and the multi-tenant bank with
 its ``tenants``/``shards``/``item_bits``), the quantile kind (with its
-``mass``), and a tenant's spill dict (``tenant.spill_rows``: its (S, k)
-rows of composite keys, read as an S-shard bank). Both packages save and restore those
-layouts, so a checkpoint written by either loads in the other and both
-compute the same thing from it.
+``mass``), the family's two banks (layout 3: ``_del`` fields, the key,
+``family`` 1 double or 2 unbiased), CR-precis (layout 4: ``counts`` and
+``primes``), and a tenant's spill dict (``tenant.spill_rows``: its
+(S, k) rows of composite keys, read as an S-shard bank). Both packages
+save and restore those layouts, so a checkpoint written by either loads
+in the other and both compute the same thing from it.
 """
 from __future__ import annotations
 
@@ -17,7 +19,8 @@ import numpy as np
 
 from .platform import DEFAULT_DEVICE
 from .sketch import api
-from .sketch.api import SketchSpec
+from .sketch.api import LAYOUT_CRPRECIS, LAYOUT_DOUBLE, SketchSpec
+from .sketch.family import _primes_descending, crprecis_depth
 from .sketch.state import BLOCKED
 
 
@@ -32,12 +35,31 @@ def spec_for(d: Dict[str, Any], variant: str = "sspm",
     shard's live counters; a tenant dict gives ``tenants``, ``bits``
     its ``item_bits`` and ``k`` its live counters; another frequency
     dict gives ``k`` its slot count and the caller's ``bits`` (a spill
-    dict's ``item_bits`` where the caller names none).
+    dict's ``item_bits`` where the caller names none). A family dict
+    (tag 3) gives the variant its ``family`` field names and ``k`` the
+    live counters of both banks; a CR-precis dict (tag 4) gives ``k`` the
+    least budget whose primes are the dict's.
     """
+    tag = int(np.asarray(d["layout"])) if "layout" in d else None
+    if tag == LAYOUT_CRPRECIS:
+        primes = [int(p) for p in np.asarray(d["primes"])]
+        t = len(primes)
+        # t rows need a budget of at least 64 for t = 4 (crprecis_depth)
+        k = max(t * primes[0], 64 if t == 4 else 0)
+        if crprecis_depth(k) != t or _primes_descending(k // t, t) != primes:
+            raise ValueError(f"no counter budget gives the moduli {primes}")
+        return api.infer_spec(SketchSpec(k=k, bits=bits), d)
     ids = np.asarray(d["ids"])
     shards = int(np.asarray(d["shards"])) if "shards" in d else None
     if bits is None and "item_bits" in d:
         bits = int(np.asarray(d["item_bits"]))
+    if tag == LAYOUT_DOUBLE:
+        live = int((ids != BLOCKED).sum()
+                   + (np.asarray(d["ids_del"]) != BLOCKED).sum())
+        tenants = int(np.asarray(d["tenants"])) or None
+        spec = SketchSpec(k=live, variant=variant, shards=shards or None,
+                          bits=bits or None, tenants=tenants)
+        return api.infer_spec(spec, d)
     if d.get("tenants") is not None:
         spec = SketchSpec(k=int((ids != BLOCKED).sum()), variant=variant,
                           shards=shards or None, bits=bits,

@@ -13,14 +13,19 @@ Each replaces one Pallas TPU kernel of
   summary pass over the card where R > 128 (reference :220, vmapped by
   its ``_batched`` caller);
 - ``sketch_update_kernel_serial`` (``serial_update.cu``): one update per
-  raw item, one CTA (reference :396).
+  raw item, one CTA (reference :396);
+- ``sketch_unbiased_kernel`` (``unbiased_update.cu``): the unbiased
+  variant's randomized eviction on both banks of the family, one CTA
+  per bank row. It replaces no Pallas kernel: the reference runs that
+  update as a plain-JAX scan (``repro/sketch/family.py:123``).
 
 A wrapper checks its operands, launches on the current stream, raises on
 a refused launch and counts its launches (a call of kernel 3 on its
 unstaged layouts makes two device launches and counts one). Kernels 1,
-2 and 3 count per layout, in a dict by the layout's name
-(``FUSED_LAYOUTS``, ``BANKED_LAYOUTS``, ``RESIDUAL_LAYOUTS``):
-``fused_layout``, ``banked_layout`` and ``residual_layout`` choose it by
+2 and 3 and the unbiased kernel count per layout, in a dict by the
+layout's name (``FUSED_LAYOUTS``, ``BANKED_LAYOUTS``,
+``RESIDUAL_LAYOUTS``, ``UNBIASED_LAYOUTS``): ``fused_layout``,
+``banked_layout``, ``residual_layout`` and ``unbiased_layout`` choose it by
 size, and the C entry point refuses a launch whose layout or scratch
 disagrees with its own rule. The kernels
 update the state in place. Wrappers take CUDA tensors only: ``ops.py``
@@ -37,20 +42,23 @@ from .. import _build
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 SOURCES = (CSRC / "fused_update.cu", CSRC / "residual.cu",
-           CSRC / "serial_update.cu")
+           CSRC / "serial_update.cu", CSRC / "unbiased_update.cu")
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _INT31 = 2**31
 
-# Kernel 3's layouts by rows per sketch, and kernels 1 and 2's by slots
-# per row, as residual.cu (kStageRows, kSumRows) and fused_update.cu
-# (kFusedStageSlots, kStageSlots) choose them.
+# Kernel 3's layouts by rows per sketch, and kernels 1 and 2's and the
+# unbiased kernel's by slots per row, as residual.cu (kStageRows,
+# kSumRows), fused_update.cu (kFusedStageSlots, kStageSlots) and
+# unbiased_update.cu (kStageSlots) choose them.
 RESIDUAL_STAGE_ROWS, RESIDUAL_SUM_ROWS = 128, 8192
 FUSED_STAGE_SLOTS = 24576
 BANKED_STAGE_SLOTS = 24576
+UNBIASED_STAGE_SLOTS = 16384
 RESIDUAL_LAYOUTS = ("staged", "summary+chain", "summary+chain/scratch")
 FUSED_LAYOUTS = ("staged", "unstaged")
 BANKED_LAYOUTS = ("staged", "unstaged")
+UNBIASED_LAYOUTS = ("staged", "global")
 
 
 def residual_layout(R: int) -> str:
@@ -74,6 +82,13 @@ def banked_layout(K: int) -> str:
     in shared memory (K <= 24,576), else in device memory with the chunk
     minima in the scratch."""
     return BANKED_LAYOUTS[0 if K <= BANKED_STAGE_SLOTS else 1]
+
+
+def unbiased_layout(K: int) -> str:
+    """The unbiased kernel's layout for banks whose larger row holds K
+    slots: the row in shared memory (K <= 16,384), else in device
+    memory."""
+    return UNBIASED_LAYOUTS[0 if K <= UNBIASED_STAGE_SLOTS else 1]
 
 
 def entry_point(source: str, name: str, n_ptr: int, n_int: int):
@@ -270,14 +285,53 @@ def sketch_update_kernel_serial(ids2, cnt2, err2, items, weights, *,
     return ids2, cnt2, err2
 
 
+def sketch_unbiased_kernel(ids_i, cnt_i, err_i, ids_d, cnt_d, err_d, items,
+                           weights, u, perm, roff):
+    """The unbiased variant's update of both banks in place.
+
+    ``ids_i, cnt_i, err_i``: the (R, Ki) insert bank, ``ids_d, cnt_d,
+    err_d`` the (R, Kd) delete bank, int32; the flat layout of
+    ``family.unbiased_prep``: ``items, weights`` (B,) int32 (id-sorted,
+    weights signed), ``perm`` (B,) int32 positions by class, ``roff``
+    (2R+1,) int32 class starts; ``u`` (2, B) float32, one uniform per
+    bank and position. Returns the six tensors, updated.
+    """
+    R, Ki = ids_i.shape
+    Kd = ids_d.shape[1]
+    B = items.shape[0]
+    named = dict(ids_i=ids_i, cnt_i=cnt_i, err_i=err_i, ids_d=ids_d,
+                 cnt_d=cnt_d, err_d=err_d, items=items, weights=weights,
+                 perm=perm, roff=roff)
+    shapes = dict(ids_i=(R, Ki), cnt_i=(R, Ki), err_i=(R, Ki),
+                  ids_d=(R, Kd), cnt_d=(R, Kd), err_d=(R, Kd), items=(B,),
+                  weights=(B,), perm=(B,), roff=(2 * R + 1,))
+    _check("sketch_unbiased_kernel", named, shapes, ids_i.device)
+    _build.check_operands("sketch_unbiased_kernel", dict(u=u), ids_i.device)
+    if u.dtype != torch.float32 or tuple(u.shape) != (2, B):
+        raise ValueError(f"sketch_unbiased_kernel: u must be float32 of "
+                         f"shape {(2, B)}, got {u.dtype} {tuple(u.shape)}")
+    _check_sizes("sketch_unbiased_kernel", R, Ki, Kd, B, 2 * R + 1, R * Ki,
+                 R * Kd)
+    layout = unbiased_layout(max(Ki, Kd))
+    _launch(entry_point("unbiased_update.cu", "sketch_unbiased_update", 11,
+                        5),
+            [ids_i, cnt_i, err_i, ids_d, cnt_d, err_d, items, weights, u,
+             perm, roff], (R, Ki, Kd, B, UNBIASED_LAYOUTS.index(layout)),
+            ids_i.device, "unbiased_update")
+    sketch_unbiased_kernel.launches[layout] += 1
+    return ids_i, cnt_i, err_i, ids_d, cnt_d, err_d
+
+
 # launches since the last reset (chip_smoke.py reads them around each path);
-# kernels 1, 2 and 3 per layout
+# kernels 1, 2 and 3 and the unbiased kernel per layout
 sketch_update_kernel_fused.launches = dict.fromkeys(FUSED_LAYOUTS, 0)
 sketch_residual_kernel_banked.launches = dict.fromkeys(BANKED_LAYOUTS, 0)
 sketch_residual_kernel.launches = dict.fromkeys(RESIDUAL_LAYOUTS, 0)
 sketch_update_kernel_serial.launches = 0
+sketch_unbiased_kernel.launches = dict.fromkeys(UNBIASED_LAYOUTS, 0)
 WRAPPERS = (sketch_update_kernel_fused, sketch_residual_kernel_banked,
-            sketch_residual_kernel, sketch_update_kernel_serial)
+            sketch_residual_kernel, sketch_update_kernel_serial,
+            sketch_unbiased_kernel)
 
 
 # A CUDA graph launches its kernels at every replay, but a wrapper counts
@@ -329,9 +383,10 @@ def set_launch_counts(counts: dict) -> None:
 
 
 __all__ = ["SOURCES", "RESIDUAL_LAYOUTS", "FUSED_LAYOUTS", "BANKED_LAYOUTS",
-           "residual_layout", "fused_layout", "banked_layout", "entry_point",
+           "UNBIASED_LAYOUTS", "residual_layout", "fused_layout",
+           "banked_layout", "unbiased_layout", "entry_point",
            "WRAPPERS", "launch_counts", "launch_delta", "add_counts",
            "set_launch_counts",
            "sketch_update_kernel_fused",
            "sketch_residual_kernel_banked", "sketch_residual_kernel",
-           "sketch_update_kernel_serial"]
+           "sketch_update_kernel_serial", "sketch_unbiased_kernel"]

@@ -27,7 +27,11 @@ never modified: the kernels update fresh padded copies in place.
   row view, then one phase-2 kernel call for all E (the ``block``
   backend; two launches past 128 rows a sketch);
 - ``sketch_block_update_serial`` (:268): one launch of the serial
-  baseline over the raw block.
+  baseline over the raw block;
+- ``sketch_unbiased_update``: the family's unbiased variant on its two
+  banks, ``family.unbiased_prep``'s owner-sorted layout, then one launch
+  of the unbiased kernel (the reference runs it as a plain-JAX scan,
+  ``family.py:183``).
 
 The ``*_with`` functions take the update to run (a kernel wrapper or
 its plain version), so ``chip_smoke.py`` can run both on the card.
@@ -39,12 +43,14 @@ import torch
 from ...sketch.bank import (phase1_dense, phase1_dense_prep,
                            phase1_partition_prep)
 from ...sketch.blocks import _phase1
+from ...sketch.family import unbiased_prep
 from ...sketch.phases import pad_rows
 from ...sketch.state import BLOCKED, I32, INT_MAX, LANES, SketchState
 from .kernel import (sketch_residual_kernel, sketch_residual_kernel_banked,
-                     sketch_update_kernel_fused, sketch_update_kernel_serial)
+                     sketch_unbiased_kernel, sketch_update_kernel_fused,
+                     sketch_update_kernel_serial)
 from .ref import (fused_update_ref, residual_phase, residual_phase_banked,
-                  serial_update_ref)
+                  serial_update_ref, unbiased_update_ref)
 
 
 def _pad_bank(bank: SketchState) -> SketchState:
@@ -253,10 +259,36 @@ def sketch_block_update_serial(state: SketchState, items: torch.Tensor,
     return serial_update_with(update, state, items, weights, variant)
 
 
+def unbiased_update_with(update, ins: SketchState, dels: SketchState,
+                        items: torch.Tensor, weights: torch.Tensor,
+                        u: torch.Tensor, router):
+    """``family.unbiased_prep``, then ``update`` (the unbiased kernel or
+    ``unbiased_update_ref``) on copies of both banks. Returns the new
+    (insert bank, delete bank)."""
+    s_items, s_w, perm, roff = unbiased_prep(items, weights, router)
+    out = update(*(t.clone() for t in ins), *(t.clone() for t in dels),
+                 s_items, s_w, u.to(torch.float32).contiguous(), perm, roff)
+    return SketchState(*out[:3]), SketchState(*out[3:])
+
+
+def sketch_unbiased_update(ins: SketchState, dels: SketchState,
+                           items: torch.Tensor, weights: torch.Tensor,
+                           u: torch.Tensor, router):
+    """The unbiased variant's update of one raw (B,) block: one launch of
+    the unbiased kernel for CUDA banks (both banks, one CTA a row), its
+    plain version for CPU banks. ``u``: (2, B) float32 uniforms, row 0
+    for the insert bank and row 1 for the delete bank, by position in
+    the id-sorted block."""
+    update = (sketch_unbiased_kernel if ins.ids.is_cuda
+              else unbiased_update_ref)
+    return unbiased_update_with(update, ins, dels, items, weights, u, router)
+
+
 __all__ = ["prep_block", "block_update_with", "sketch_block_update_fused",
            "prep_partition", "partition_update_with",
            "sketch_block_update_partition", "sketch_block_update_stream",
            "banked_update_with", "sketch_block_update_banked",
            "split_update_with", "sketch_block_update_batched",
            "sketch_block_update", "serial_update_with",
-           "sketch_block_update_serial"]
+           "sketch_block_update_serial", "unbiased_update_with",
+           "sketch_unbiased_update"]

@@ -15,7 +15,10 @@ version on the card.
   sketches (``csrc/residual.cu``, reference ``_residual_kernel``);
 - ``serial_update_ref``: one update per raw item
   (``csrc/serial_update.cu``, reference ``_serial_kernel`` and
-  ``_apply_one``, ``kernel.py:317``).
+  ``_apply_one``, ``kernel.py:317``);
+- ``unbiased_update_ref``: the unbiased variant's randomized eviction on
+  both banks (``csrc/unbiased_update.cu``; the reference's plain-JAX
+  ``_unbiased_rows``, ``repro/sketch/family.py:123``).
 """
 from __future__ import annotations
 
@@ -23,7 +26,8 @@ import torch
 
 from ...sketch.bank import phase1_apply, residual_phase_banked
 from ...sketch.phases import residual_phase
-from ...sketch.state import I32, INT_MAX, VARIANT_LAZY, SketchState
+from ...sketch.state import EMPTY, I32, INT_MAX, VARIANT_LAZY, SketchState, \
+    sat_add
 
 
 def fused_update_ref(ids, counts, errors, delta, h_uids, h_net, i0, mu, nnu,
@@ -100,5 +104,68 @@ def serial_update_ref(ids2, cnt2, err2, items, weights, variant: int = 2,
     return ids.reshape(shape), counts.reshape(shape), errors.reshape(shape)
 
 
+def _unbiased_step(ids, cnt, err, uid, w, u, active):
+    """One lockstep step of the reference's ``_unbiased_rows`` scan: each
+    row applies its entry ``(uid, w, u)`` where ``active``."""
+    lane = torch.arange(ids.shape[1], device=ids.device)[None, :]
+    eq = (ids == uid[:, None]) & (ids >= 0)
+    monitored = eq.any(dim=1)
+    slot_mon = torch.argmax(eq.to(I32), dim=1)      # the first, as jnp's
+    empty = ids == EMPTY
+    has_empty = empty.any(dim=1)
+    slot_empty = torch.argmax(empty.to(I32), dim=1)
+    cnt_min = torch.where(empty, INT_MAX, cnt)
+    jmin = torch.argmin(cnt_min, dim=1)
+    mc = cnt_min.gather(1, jmin[:, None])[:, 0]
+    sel = torch.where(monitored, slot_mon, torch.where(has_empty, slot_empty,
+                                                       jmin))
+    old_cnt = cnt.gather(1, sel[:, None])[:, 0]
+    old_err = err.gather(1, sel[:, None])[:, 0]
+    new_cnt = torch.where(monitored, sat_add(old_cnt, w),
+                          torch.where(has_empty, w, sat_add(mc, w)))
+    # float32, each operation rounded on its own, as the reference
+    take = u * (mc.to(torch.float32) + w.to(torch.float32)) \
+        < w.to(torch.float32)
+    evicted = ids.gather(1, jmin[:, None])[:, 0]
+    new_id = torch.where(monitored | has_empty, uid,
+                         torch.where(take, uid, evicted))
+    new_err = torch.where(monitored, old_err, torch.where(has_empty, 0, mc))
+    hot = (lane == sel[:, None]) & active[:, None]
+    return (torch.where(hot, new_id[:, None], ids),
+            torch.where(hot, new_cnt[:, None], cnt),
+            torch.where(hot, new_err[:, None], err))
+
+
+def unbiased_update_ref(ids_i, cnt_i, err_i, ids_d, cnt_d, err_d, items,
+                        weights, u, perm, roff):
+    """Both banks' randomized-eviction update from the flat layout of
+    ``family.unbiased_prep`` (the unbiased kernel's operands). Per bank,
+    the rows step through their entries in lockstep, the reference's
+    step on each: a row's entries are the positions it owns in block
+    order, and zero-weight positions, which the reference also visits,
+    are no-ops. ``perm`` and ``roff`` may list a subset of the rows'
+    positions (a sample of rows: ``roff`` then has 2R + 1 entries for
+    the R rows given). Returns six new tensors; the inputs are not
+    modified."""
+    R = ids_i.shape[0]
+    last = max(perm.shape[0] - 1, 0)
+    out = []
+    for side, bank in enumerate(((ids_i, cnt_i, err_i),
+                                 (ids_d, cnt_d, err_d))):
+        ids, cnt, err = bank
+        lo = roff[side * R:side * R + R].long()
+        n = roff[side * R + 1:side * R + R + 1].long() - lo
+        for step in range(int(n.max()) if R else 0):
+            p = perm[torch.clamp(lo + step, max=last)].long()
+            uid = items[p]
+            w = weights[p] if side == 0 else -weights[p]
+            w = torch.clamp(w, min=0)
+            active = (step < n) & (w > 0) & (uid >= 0)
+            ids, cnt, err = _unbiased_step(ids, cnt, err, uid, w,
+                                           u[side, p], active)
+        out += [ids, cnt, err]
+    return tuple(out)
+
+
 __all__ = ["fused_update_ref", "residual_phase_banked", "residual_phase",
-           "serial_update_ref"]
+           "serial_update_ref", "unbiased_update_ref"]

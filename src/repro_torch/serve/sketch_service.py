@@ -86,8 +86,9 @@ class SketchService:
     """Multi-tenant serving front-end over one ``SketchSpec``.
 
     Frequency mode (``spec.tenants`` set): per-tenant counts and top-k on
-    the (T*S, k) tenant bank (variants sspm and lazy; the family waits
-    for ROADMAP.md Queue 1 item 11). Quantile mode (``spec.kind ==
+    the (T*S, k) tenant bank, any registered variant (sspm, lazy, and the
+    family's double and unbiased, whose rows stay resident: no spill).
+    Quantile mode (``spec.kind ==
     'quantile'``): pass ``tenant_bits``, the split of the dyadic spec's
     keys into tenant and item; per-tenant quantile subscriptions, no
     top-k, no spill.

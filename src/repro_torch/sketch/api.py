@@ -1,13 +1,17 @@
 """One spec-driven front-end over the port's SpaceSaving± layouts.
 
-Counterpart of ``repro/sketch/api.py`` for the base layouts, each with
-``variant`` "sspm" or "lazy", on every backend the reference runs them:
+Counterpart of ``repro/sketch/api.py``, every layout the reference
+registers, on every backend the reference runs it:
 
 - ``kind="frequency"``, plain (``shards=None``) or hash-sharded
-  (``shards=S``), on ``"bank"`` (the default: the partition core,
-  kernel 1 on the card), ``"block"`` (the two-phase block update),
-  ``"kernel"`` (the fused kernel on the routed views) or ``"serial"``
-  (the scan over each block's uniques; sharded, the per-shard oracle);
+  (``shards=S``), variants "sspm" and "lazy", on ``"bank"`` (the
+  default: the partition core, kernel 1 on the card), ``"block"`` (the
+  two-phase block update), ``"kernel"`` (the fused kernel on the routed
+  views) or ``"serial"`` (the scan over each block's uniques; sharded,
+  the per-shard oracle);
+- the family (``sketch/family.py``): ``variant="double"`` and
+  ``"unbiased"`` (two coupled banks, plain, sharded or multi-tenant) and
+  ``backend="crprecis"`` (plain sspm specs);
 - ``kind="frequency"`` with ``tenants=T`` (``sketch/tenant.py``): one
   (T·S, k) bank ingesting composite keys ``(tenant << bits) | item`` on
   ``"bank"``, per-tenant reads through ``tenant_topk``;
@@ -17,13 +21,11 @@ Counterpart of ``repro/sketch/api.py`` for the base layouts, each with
   ``sketch/dyadic_sharded.py``) on ``"bank"``, with the rank and
   quantile queries.
 
-``SketchSpec`` keeps the reference's fields and defaults; a value the
-reference has and the port lacks (the family variants and CR-precis,
-ROADMAP.md Queue 1 item 11) raises ``NotImplementedError`` naming its
-item. Adapters are looked up in a registry keyed as the reference's
+``SketchSpec`` keeps the reference's fields, defaults and checks.
+Adapters are looked up in a registry keyed as the reference's
 (``register_adapter``, ``adapter_for``). Checkpoints are the reference's
-tagged numpy dicts, so a state saved by either package restores in the
-other.
+tagged numpy dicts (layout tags 1-4), so a state saved by either package
+restores in the other.
 """
 from __future__ import annotations
 
@@ -49,28 +51,18 @@ from .bank import HashShardRouter
 from .state import VARIANT_LAZY, VARIANT_SSPM, SketchState
 
 KINDS = ("frequency", "quantile")
-VARIANTS = {"sspm": VARIANT_SSPM, "lazy": VARIANT_LAZY}
-# the reference's family variants (api.py:72): their specs raise
+# variant name -> engine-layer integer; the family's banks run plain
+# SpaceSaving updates on insert-only streams (reference api.py:66-73)
+VARIANTS = {"sspm": VARIANT_SSPM, "lazy": VARIANT_LAZY,
+            "double": VARIANT_SSPM, "unbiased": VARIANT_SSPM}
 FAMILY_VARIANTS = ("double", "unbiased")
 BACKENDS = ("bank", "block", "kernel", "serial")
 
 # the reference's integer layout tags (api.py:79-82)
 LAYOUT_FREQUENCY = 1
 LAYOUT_QUANTILE = 2
-LAYOUT_DOUBLE = 3
-LAYOUT_CRPRECIS = 4
-
-_FAMILY = "ROADMAP.md Queue 1 item 11 (sketch/family.py)"
-_NOT_PORTED = {
-    "double": _FAMILY,
-    "unbiased": _FAMILY,
-    "crprecis": _FAMILY,
-}
-
-
-def _not_ported(what: str, key: str):
-    raise NotImplementedError(
-        f"{what} is not ported to repro_torch yet; {_NOT_PORTED[key]} ports it")
+LAYOUT_DOUBLE = 3     # two coupled banks (Double / unbiased SpaceSaving±)
+LAYOUT_CRPRECIS = 4   # CR-precis prime-modulus counter array
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,23 +105,15 @@ class SketchSpec:
         if self.kind not in KINDS:
             raise ValueError(
                 f"SketchSpec.kind must be one of {KINDS}, got {self.kind!r}")
-        if self.variant in FAMILY_VARIANTS:
-            if self.kind != "frequency":
-                raise ValueError(
-                    f"variant={self.variant!r} (the Double/unbiased "
-                    f"SpaceSaving± family) is a frequency-kind layout; "
-                    f"kind={self.kind!r} does not support it")
-            _not_ported(f"variant={self.variant!r}", self.variant)
         if self.variant not in VARIANTS:
             raise ValueError(
                 f"SketchSpec.variant must be one of {tuple(VARIANTS)}, got "
-                f"{self.variant!r}")
-        if self.backend == "crprecis":
-            _not_ported("backend='crprecis'", "crprecis")
-        if self.backend not in BACKENDS:
+                f"{self.variant!r} (the integer VARIANT_* constants belong "
+                f"to the engine layer; the spec speaks names)")
+        if self.backend not in BACKENDS + ("crprecis",):
             raise ValueError(
-                f"SketchSpec.backend must be one of {BACKENDS}, got "
-                f"{self.backend!r}")
+                f"SketchSpec.backend must be one of "
+                f"{BACKENDS + ('crprecis',)}, got {self.backend!r}")
         if self.tenant_caps is not None and not isinstance(self.tenant_caps,
                                                            tuple):
             # the spec stays hashable (a cache key): any sequence is
@@ -149,6 +133,11 @@ class SketchSpec:
                 "[0, 2^bits) fixes the layer count)")
         if self.shards is not None and self.shards < 1:
             raise ValueError(f"shards must be >= 1 or None, got {self.shards}")
+        if self.variant in FAMILY_VARIANTS and self.kind != "frequency":
+            raise ValueError(
+                f"variant={self.variant!r} (the Double/unbiased "
+                f"SpaceSaving± family) is a frequency-kind layout; "
+                f"kind={self.kind!r} does not support it")
         self._check_tenants()
         supported = backends_for(self.kind, self.shards, self.variant,
                                  self.tenants)
@@ -195,6 +184,12 @@ class SketchSpec:
                 raise ValueError(
                     f"every tenant needs >= 1 counter; got "
                     f"min(tenant_caps)={min(self.tenant_caps)}")
+            if self.variant in FAMILY_VARIANTS:
+                raise ValueError(
+                    "tenant_caps (per-tenant BLOCKED masks) is a "
+                    "base-layout feature; the family's k_I/k_D split "
+                    "sizes evenly — use k or eps with "
+                    f"variant={self.variant!r}")
 
     @property
     def variant_id(self) -> int:
@@ -229,8 +224,7 @@ def backends_for(kind: str, shards: Optional[int], variant: str = "sspm",
     supports, as the reference's (``api.py:243``): every backend for the
     base layouts but the sharded quantile bank (``"bank"`` only), CR-
     precis beside them for plain sspm frequency specs, ``"bank"`` for the
-    family and tenant layouts. The port runs all of them but CR-precis
-    and the family (ROADMAP.md Queue 1 item 11), whose specs raise."""
+    family and tenant layouts."""
     if tenants or variant in FAMILY_VARIANTS:
         return ("bank",) if kind == "frequency" else ()
     if kind == "quantile" and shards:
@@ -242,10 +236,8 @@ def backends_for(kind: str, shards: Optional[int], variant: str = "sspm",
 
 def variants_for(kind: str) -> Tuple[str, ...]:
     """Variant names a kind supports, as the reference's (``api.py:273``):
-    the family variants are frequency-only (and raise in the port, item
-    11)."""
-    return (tuple(VARIANTS) + FAMILY_VARIANTS if kind == "frequency"
-            else tuple(VARIANTS))
+    the family variants are frequency-only."""
+    return tuple(VARIANTS) if kind == "frequency" else ("sspm", "lazy")
 
 
 # ---------------------------------------------------------------------------
@@ -603,13 +595,28 @@ register_adapter("frequency", True, _ShardedFrequencyAdapter())
 register_adapter("quantile", False, _DyadicAdapter())
 register_adapter("quantile", True, _DyadicShardedAdapter())
 
-# the multi-tenant bank layout (tenant.py never imports this module at its
-# top, so the import after the registry is acyclic); the family's tenant
-# adapters wait for item 11, as the family does
+# the family layouts (family.py and tenant.py never import this module at
+# their top, so the imports after the registry are acyclic), each on its
+# registry axis, and the multi-tenant layouts: the base variants through
+# TenantAdapter, the family's through the tenant-aware DoubleAdapter
+from . import family as _family  # noqa: E402
 from . import tenant as _tenant  # noqa: E402
 
-register_adapter("frequency", False, _tenant.TenantAdapter(), tenants=True)
-register_adapter("frequency", True, _tenant.TenantAdapter(), tenants=True)
+for _sharded in (False, True):
+    register_adapter("frequency", _sharded, _family.DoubleAdapter(),
+                     axis="double")
+    register_adapter("frequency", _sharded,
+                     _family.DoubleAdapter(unbiased=True), axis="unbiased")
+    register_adapter("frequency", _sharded, _tenant.TenantAdapter(),
+                     tenants=True)
+    register_adapter("frequency", _sharded, _family.DoubleAdapter(),
+                     axis="double", tenants=True)
+    register_adapter("frequency", _sharded,
+                     _family.DoubleAdapter(unbiased=True), axis="unbiased",
+                     tenants=True)
+register_adapter("frequency", False, _family.CRPrecisAdapter(),
+                 axis="crprecis")
+del _sharded
 
 
 # ---------------------------------------------------------------------------
@@ -749,20 +756,22 @@ def save(spec: SketchSpec, state) -> Dict[str, Any]:
 
 
 def infer_spec(spec: SketchSpec, d: Dict[str, Any]) -> SketchSpec:
-    """Adapt ``spec``'s layout axes (kind, shards, tenants) to a
-    checkpoint dict (reference ``api.py:812``). An untagged dict is a
-    quantile one where it holds ``mass``; a quantile spec without
-    ``bits`` takes them from the dict's layer count, a tenant spec from
-    its ``item_bits``. Where the stored layout does not run the
-    spec's backend, the backend becomes ``"bank"``, as the reference's
-    does. Layouts this port lacks raise NotImplementedError."""
+    """Adapt ``spec``'s layout axes (kind, shards, tenants, the family
+    axis) to a checkpoint dict (reference ``api.py:812``). An untagged
+    dict is a quantile one where it holds ``mass``; a quantile spec
+    without ``bits`` takes them from the dict's layer count, a tenant
+    spec from its ``item_bits``. Tag 3 (the family's two banks) gives the
+    variant its ``family`` field names (1 double, 2 unbiased), tag 4 the
+    ``crprecis`` backend. Where the stored layout does not run the spec's
+    backend, the backend becomes ``"bank"``, as the reference's does."""
+    known = {LAYOUT_FREQUENCY: "frequency", LAYOUT_QUANTILE: "quantile",
+             LAYOUT_DOUBLE: "double/unbiased family",
+             LAYOUT_CRPRECIS: "crprecis"}
     tag = int(np.asarray(d["layout"])) if "layout" in d else None
-    if tag in (LAYOUT_DOUBLE, LAYOUT_CRPRECIS):
-        _not_ported(f"a checkpoint with layout tag {tag}", "double")
-    if tag not in (None, LAYOUT_FREQUENCY, LAYOUT_QUANTILE):
+    if tag is not None and tag not in known:
         raise ValueError(
-            f"unknown checkpoint layout tag {tag}; the dict is corrupted or "
-            f"written by a newer layout")
+            f"unknown checkpoint layout tag {tag} (known: {known}); the "
+            f"dict is corrupted or written by a newer layout")
     kind = ("quantile" if tag == LAYOUT_QUANTILE
             or (tag is None and "mass" in d) else "frequency")
     shards = int(np.asarray(d["shards"])) if "shards" in d else 0
@@ -786,33 +795,76 @@ def infer_spec(spec: SketchSpec, d: Dict[str, Any]) -> SketchSpec:
             changes["k"] = int((np.asarray(d["ids"]) != st.BLOCKED).sum())
         if tenants is not None and spec.bits is None:
             changes["bits"] = int(np.asarray(d["item_bits"]))
-    if not changes:
-        return spec
-    if spec.backend not in backends_for(kind, shards, spec.variant, tenants):
-        changes["backend"] = "bank"
-    return dataclasses.replace(spec, **changes)
+    if tag == LAYOUT_DOUBLE:
+        want = ("unbiased" if int(np.asarray(d.get("family", 1))) == 2
+                else "double")
+        if spec.variant != want:
+            changes["variant"] = want
+        if spec.backend != "bank":
+            changes["backend"] = "bank"
+    elif tag == LAYOUT_CRPRECIS:
+        if spec.backend != "crprecis":
+            changes["backend"] = "crprecis"
+        if spec.variant != "sspm":
+            changes["variant"] = "sspm"
+    else:
+        if spec.variant in FAMILY_VARIANTS:
+            changes["variant"] = "sspm"
+        if spec.backend == "crprecis":
+            changes["backend"] = "bank"
+    if changes and "backend" not in changes:
+        # the stored layout may not run the spec's backend
+        probe = {**{f.name: getattr(spec, f.name)
+                    for f in dataclasses.fields(spec)}, **changes}
+        if spec.backend not in backends_for(probe["kind"], probe["shards"],
+                                            probe["variant"],
+                                            probe["tenants"]):
+            changes["backend"] = "bank"
+    return dataclasses.replace(spec, **changes) if changes else spec
 
 
 def _validate_checkpoint(spec: SketchSpec, d: Dict[str, Any]) -> None:
     """Reject truncated or corrupted dicts before any state is built: the
-    keys present (``mass`` too for quantile kinds), integer counter
-    fields of one shape, an integer scalar mass."""
-    keys = ("ids", "counts", "errors")
-    required = keys + (("mass",) if spec.kind == "quantile" else ())
+    keys present (``mass`` too for quantile kinds, the ``_del`` bank for
+    the family, ``counts`` and ``primes`` for CR-precis), integer fields
+    of one shape per bank, an integer scalar mass."""
+    axis = spec_axis(spec)
+    if axis == "crprecis":
+        for key in ("counts", "primes"):
+            if key not in d:
+                raise ValueError(
+                    f"checkpoint dict is missing key {key!r} (truncated "
+                    f"write?); a crprecis checkpoint needs counts + primes")
+            if np.asarray(d[key]).dtype.kind not in "iu":
+                raise ValueError(
+                    f"checkpoint field {key!r} has dtype "
+                    f"{np.asarray(d[key]).dtype}; crprecis counters and "
+                    f"moduli are integer arrays")
+        return
+    required = ["ids", "counts", "errors"]
+    if spec.kind == "quantile":
+        required.append("mass")
+    triples = [("ids", "counts", "errors")]
+    if axis in FAMILY_VARIANTS:
+        required += ["ids_del", "counts_del", "errors_del"]
+        triples.append(("ids_del", "counts_del", "errors_del"))
     missing = [k for k in required if k not in d]
     if missing:
         raise ValueError(
-            f"checkpoint dict is missing key(s) {missing} (truncated write?)")
-    shapes = {}
-    for key in keys:
-        arr = np.asarray(d[key])
-        if arr.dtype.kind not in "iu":
+            f"checkpoint dict is missing key(s) {missing} (truncated "
+            f"write?); a {spec.kind!r} checkpoint needs {required}")
+    for keys in triples:
+        shapes = {}
+        for key in keys:
+            arr = np.asarray(d[key])
+            if arr.dtype.kind not in "iu":
+                raise ValueError(
+                    f"checkpoint field {key!r} has dtype {arr.dtype}; "
+                    f"sketch counters are integer arrays")
+            shapes[key] = arr.shape
+        if len(set(shapes.values())) != 1:
             raise ValueError(
-                f"checkpoint field {key!r} has dtype {arr.dtype}; sketch "
-                f"counters are integer arrays")
-        shapes[key] = arr.shape
-    if len(set(shapes.values())) != 1:
-        raise ValueError(f"checkpoint counter fields disagree in shape: {shapes}")
+                f"checkpoint counter fields disagree in shape: {shapes}")
     if spec.kind == "quantile":
         mass = np.asarray(d["mass"])
         if mass.dtype.kind not in "iu" or mass.size != 1:
@@ -823,17 +875,20 @@ def _validate_checkpoint(spec: SketchSpec, d: Dict[str, Any]) -> None:
 
 def restore(spec: SketchSpec, d: Dict[str, Any], device=DEFAULT_DEVICE):
     """State from a ``save`` dict of either package (or the untagged
-    pre-redesign layouts), on ``device``. The spec's kind and shards must
-    be the dict's (``infer_spec`` adapts a spec)."""
+    pre-redesign layouts), on ``device``. The spec's kind, shards, family
+    axis and tenants must be the dict's (``infer_spec`` adapts a
+    spec)."""
     inferred = infer_spec(spec, d)
-    if (inferred.kind, inferred.shards, inferred.tenants) != \
-            (spec.kind, spec.shards, spec.tenants):
+    if (inferred.kind, inferred.shards, spec_axis(inferred),
+            inferred.tenants) != \
+            (spec.kind, spec.shards, spec_axis(spec), spec.tenants):
         raise ValueError(
             f"checkpoint layout is kind={inferred.kind!r}, "
-            f"shards={inferred.shards}, tenants={inferred.tenants}, but the "
-            f"spec says kind={spec.kind!r}, shards={spec.shards}, "
-            f"tenants={spec.tenants}; restore through infer_spec(spec, d) "
-            f"(StreamSession.load does)")
+            f"shards={inferred.shards}, axis={spec_axis(inferred)!r}, "
+            f"tenants={inferred.tenants}, but the spec says "
+            f"kind={spec.kind!r}, shards={spec.shards}, "
+            f"axis={spec_axis(spec)!r}, tenants={spec.tenants}; restore "
+            f"through infer_spec(spec, d) (StreamSession.load does)")
     _validate_checkpoint(spec, d)
     return adapter_for(spec).restore(spec, d, resolve_device(device))
 

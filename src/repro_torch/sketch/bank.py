@@ -10,7 +10,9 @@ banked residual loop ``residual_phase_banked``, the two fused cores
 under ``update_block_fused``: the partition core (``_fused_partition``,
 ``update_single``; kernel 1 on the card) and the dense core
 (``update_rows``; kernel 2 on the card), the bank-wide reads
-``query_rows``/``topk_bank``/``topk_rows``, the reductions
+``query_rows``/``topk_bank``/``topk_rows`` and the row-index reads of
+the reference's gathers and dynamic slices (``gather_rows``,
+``slice_start``), the reductions
 ``merge_banks``/``consolidate`` and the Double SpaceSaving± hooks
 ``split_signed``/``update_pair``.
 
@@ -563,6 +565,23 @@ def query_rows(bank: SketchState, rows: torch.Tensor,
     return hit * eq.any(dim=1)
 
 
+def gather_rows(rows: torch.Tensor, num_rows: int) -> torch.Tensor:
+    """Row indices as the reference's gathers read them: a negative index
+    counts from the end, then every index is clamped into the bank."""
+    rows = rows.long()
+    return torch.where(rows < 0, rows + num_rows, rows).clamp(0, num_rows - 1)
+
+
+def slice_start(tenant, num_shards: int, num_rows: int) -> int:
+    """The first row of a tenant's row slice, ``tenant * S``, read as the
+    reference's dynamic slice reads it: a negative start counts from the
+    end of the bank, then the slice is clamped into it."""
+    start = int(tenant) * num_shards
+    if start < 0:
+        start += num_rows
+    return min(max(start, 0), num_rows - num_shards)
+
+
 def topk_bank(bank: SketchState, m: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Global top-m (ids, counts) over all R·k slots; sentinels never show."""
     ids = bank.ids.reshape(-1)
@@ -644,5 +663,6 @@ __all__ = ["init", "row_capacities", "shard_of", "sort_block",
            "ShardLevelRouter", "residual_phase_banked", "phase1_dense_prep",
            "phase1_apply", "phase1_dense", "phase1_partition_prep",
            "update_rows", "update_block_fused", "update_single",
-           "query_rows", "topk_bank", "topk_rows", "merge_banks",
+           "gather_rows", "slice_start", "query_rows", "topk_bank",
+           "topk_rows", "merge_banks",
            "consolidate", "split_signed", "update_pair"]

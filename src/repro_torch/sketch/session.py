@@ -24,14 +24,22 @@ ingest overwrites it: a state a caller kept from the session then holds
 the newer state. ``donate=False`` leaves every kept state as it was, at
 one device copy of the bank per block.
 
-The reference's fault injection, straggler monitor and replay log are
-not part of this port yet (ROADMAP.md Queue 1 item 14).
+Fault tolerance (reference ``session.py:34-43``): ``replay=N`` keeps the
+last N ingested blocks, host copies keyed by a block sequence number
+(``replay_log``, for ``elastic.recover_session``); ``fault_plan`` (a
+``faults.FaultPlan``) drops, duplicates, corrupts or delays a shard's
+slice at the block boundary, the log holding the intended block; a
+``monitor`` (``train.straggler.StragglerMonitor``) observes each shard's
+block time, inflated by injected delays. ``save(include_schedule=True)``
+carries pending delayed slices and the resize ``error_slack`` in the
+reference's key names.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
 import functools
+import time
 import weakref
 from typing import Deque, Dict, List, Optional, Tuple
 
@@ -42,7 +50,7 @@ from ..kernels.sketch_update import kernel as _kernel
 from ..platform import DEFAULT_DEVICE, donate_state_buffers, resolve_device
 from . import api
 from .api import SketchSpec
-from .state import I32, SketchState
+from .state import I32
 
 
 # ---------------------------------------------------------------------------
@@ -65,20 +73,24 @@ def ingest_cache_spec(spec: SketchSpec) -> SketchSpec:
 
 
 def _leaves(state) -> List[torch.Tensor]:
-    """The tensors of a state: (ids, counts, errors) of a plain or sharded
-    state, and a dyadic state's 0-d ``mass`` after them."""
-    if hasattr(state, "mass"):
-        return [*state.bank, state.mass]
-    return list(state.bank if hasattr(state, "bank") else state)
+    """The tensors of a state in field order, nested named tuples
+    flattened: a bank's (ids, counts, errors), a dyadic state's 0-d
+    ``mass`` after them, the family's two banks and then its key."""
+    if isinstance(state, torch.Tensor):
+        return [state]
+    return [t for part in state for t in _leaves(part)]
 
 
 def _like(state, leaves):
-    """A state of ``state``'s type holding ``leaves``."""
-    if hasattr(state, "mass"):
-        return type(state)(bank=SketchState(*leaves[:3]), mass=leaves[3])
-    if hasattr(state, "bank"):
-        return type(state)(bank=SketchState(*leaves))
-    return SketchState(*leaves)
+    """A state of ``state``'s structure holding ``leaves``."""
+    it = iter(leaves)
+
+    def build(part):
+        if isinstance(part, torch.Tensor):
+            return next(it)
+        return type(part)(*(build(p) for p in part))
+
+    return build(state)
 
 
 def _layout(spec: SketchSpec) -> dict:
@@ -291,6 +303,11 @@ def ingest_cache_stats() -> Dict[str, int]:
             "misses": int(info.misses)}
 
 
+def _host_copy(x) -> np.ndarray:
+    """An int32 host copy of a block given as an array or a tensor."""
+    return np.array(api.host_array(x), dtype=np.int32, copy=True)
+
+
 class StreamSession:
     """Streaming front-end over one :class:`SketchSpec` on one device.
 
@@ -299,24 +316,24 @@ class StreamSession:
     and in observations for ``observe``. ``state``: resume from an
     existing state. ``donate``: let the compiled ingest update the state
     buffers in place on the card (see the module docstring); ``False``
-    keeps every state a caller took unchanged. ``device``: where the
-    state lives (CUDA unless asked). The reference's ``replay``,
-    ``fault_plan`` and ``monitor`` raise unless left at their defaults
-    (ROADMAP.md Queue 1 item 14).
+    keeps every state a caller took unchanged. ``replay``: keep the last
+    N ingested blocks for ``elastic.recover_session`` (at least the
+    checkpoint cadence in blocks). ``fault_plan``: a
+    ``faults.FaultPlan`` applied at the block boundary (sharded specs
+    only). ``monitor``: a ``StragglerMonitor`` observing per-shard block
+    times. ``device``: where the state lives (CUDA unless asked).
     """
 
     def __init__(self, spec: SketchSpec, block: int = 8192,
                  window: Optional[int] = None, state=None,
-                 donate: bool = True, device=DEFAULT_DEVICE, **unported):
-        if unported.keys() - {"replay", "fault_plan", "monitor"}:
-            raise TypeError(f"unknown StreamSession options {sorted(unported)}")
-        if any(v is not None and v != 0 for v in unported.values()):
-            raise NotImplementedError(
-                f"StreamSession {sorted(unported)}: the replay log, fault "
-                f"plans and the straggler monitor are not ported to "
-                f"repro_torch yet; ROADMAP.md Queue 1 item 14 ports them")
+                 donate: bool = True, replay: int = 0, fault_plan=None,
+                 monitor=None, device=DEFAULT_DEVICE):
         if block < 2:
             raise ValueError(f"block must be >= 2, got {block}")
+        if fault_plan is not None and spec.shards is None:
+            raise ValueError(
+                "fault_plan injects shard-granular faults; the spec must "
+                "be sharded (shards=S)")
         self.spec = spec
         self.block = int(block)
         self.window = window
@@ -333,7 +350,8 @@ class StreamSession:
         # positive mass validated into this session: the prior_mass bound
         # api.validate_block holds each new block against
         self.ingested_mass = 0
-        self.blocks_ingested = 0
+        # the bound widening resizes add (elastic.reshard_session)
+        self.error_slack = 0
         self._buf_i: List[np.ndarray] = []
         self._buf_w: List[np.ndarray] = []
         self._buf_n = 0
@@ -344,6 +362,25 @@ class StreamSession:
                                 Deque[Tuple[np.ndarray, np.ndarray]]] = {
             None: collections.deque()}
         self._item_fifo: Deque[Tuple[int, int]] = collections.deque()
+        # the fault machinery, inert by default
+        self.replay = int(replay)
+        self._seq = 0   # blocks ingested so far; block i carries seq i
+        self._replay: Deque[Tuple[int, np.ndarray, np.ndarray]] = (
+            collections.deque(maxlen=max(self.replay, 0)))
+        self.fault_plan = fault_plan
+        self.monitor = monitor
+        # due seq -> [(items, weights)] delayed slices
+        self._deferred: Dict[int, List[Tuple[np.ndarray, np.ndarray]]] = {}
+
+    @property
+    def blocks_ingested(self) -> int:
+        """Blocks ingested so far (the checkpoint's ``sched_seq``)."""
+        return self._seq
+
+    @property
+    def replay_log(self) -> Tuple[Tuple[int, np.ndarray, np.ndarray], ...]:
+        """The retained (seq, items, weights) blocks, oldest first."""
+        return tuple(self._replay)
 
     # -- low-level ingest --------------------------------------------------
 
@@ -351,14 +388,69 @@ class StreamSession:
         """Feed ONE exactly block-sized, already-padded int32 block through
         the compiled ingest. On the card a host block goes through the
         session's pinned slot, copied to the device without synchronising
-        the host; a block already on the card is used as it is."""
+        the host; a block already on the card is used as it is.
+
+        The replay log keeps a host copy of the block before any fault is
+        injected (a caller's buffer, the pinned slot or a feeder's device
+        slot is reused for later blocks): faults corrupt the live state,
+        never the recovery truth."""
+        self._seq += 1
+        if self.replay:
+            self._replay.append((self._seq, _host_copy(items),
+                                 _host_copy(weights)))
+        if self.fault_plan is not None or self.monitor is not None:
+            self._ingest_faulty(self._seq, items, weights)
+            return
         staged = None
         if self.device.type == "cuda" and not (
                 isinstance(items, torch.Tensor) and items.is_cuda):
             items, weights = self._pin(items, weights)
             staged = self._pinned_free
         self.state = self._compiled(self.state, items, weights, staged)
-        self.blocks_ingested += 1
+
+    def _apply(self, items, weights) -> None:
+        """One compiled ingest of a host block (the fault path's blocks and
+        slices)."""
+        self.state = self._compiled(self.state, items, weights)
+
+    def _ingest_faulty(self, seq: int, items, weights) -> None:
+        """The fault-injected or monitored ingest of one block (reference
+        ``session.py:231``). Delayed slices that came due land before the
+        new block; each shard's host reports the primary block's time to
+        the monitor, a delayed shard's host the injected delay on top."""
+        from . import faults as flt
+
+        items, weights = api.host_array(items), api.host_array(weights)
+        shards = self.spec.shards or 1
+        for due in sorted(k for k in self._deferred if k <= seq):
+            for di, dw in self._deferred.pop(due):
+                self._apply(di, dw)
+        delay_s = {}
+        if self.fault_plan is not None:
+            out = flt.inject(self.fault_plan, seq, shards, items, weights)
+            delay_s = out.delay_s
+            dt = self._timed_ingest(*out.blocks[0])
+            for bi, bw in out.blocks[1:]:
+                self._apply(bi, bw)
+            for due, di, dw in out.deferred:
+                self._deferred.setdefault(due, []).append((di, dw))
+            if out.poison_rows:
+                self.state = flt.poison_rows(self.state, out.poison_rows)
+        else:
+            dt = self._timed_ingest(items, weights)
+        if self.monitor is not None:
+            for r in range(shards):
+                self.monitor.observe(r, dt + delay_s.get(r, 0.0))
+
+    def _timed_ingest(self, items, weights) -> float:
+        """One compiled ingest, timed to its end on the device when a
+        monitor needs the time (the synchronisation costs the overlap, so
+        a fault run without a monitor does not wait)."""
+        t0 = time.perf_counter()
+        self._apply(items, weights)
+        if self.monitor is not None and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return time.perf_counter() - t0
 
     def _pin(self, items, weights):
         """The block in the pinned slot, once the slot's last copy to the
@@ -452,8 +544,16 @@ class StreamSession:
                 self.deletions += old_w
 
     def flush(self) -> None:
-        """Ingest everything buffered, padding the final partial block."""
+        """Ingest everything buffered, padding the final partial block,
+        then deliver the delayed fault slices still pending (a delay near
+        the end of a stream would otherwise lose its slice)."""
         self._drain(keep_partial=False)
+        self._drain_deferred()
+
+    def _drain_deferred(self) -> None:
+        for due in sorted(self._deferred):
+            for di, dw in self._deferred.pop(due):
+                self._apply(di, dw)
 
     def _drain(self, keep_partial: bool) -> None:
         if not self._buf_n:
@@ -579,6 +679,7 @@ class StreamSession:
         self.state = api.merge(self.spec, self.state, other.state)
         self.insertions += other.insertions
         self.deletions += other.deletions
+        self.error_slack += other.error_slack
         for t, fifo in other._batch_fifos.items():
             self._batch_fifos.setdefault(t, collections.deque()).extend(fifo)
         self._item_fifo.extend(other._item_fifo)
@@ -596,7 +697,9 @@ class StreamSession:
         ``include_schedule=False`` flushes first and saves the sketch only.
         ``include_schedule=True`` does not flush: it adds the reference's
         ``sched_*`` keys (buffer, expiry FIFOs, totals, block cursor,
-        window) so ``load`` resumes mid-stream in either package.
+        window, resize slack, pending delayed fault slices) so ``load``
+        resumes mid-stream in either package; ``sched_seq`` keys
+        ``elastic.recover_session``'s replay.
         """
         if not include_schedule:
             self.flush()
@@ -625,9 +728,21 @@ class StreamSession:
             [-1 if t is None else int(t) for t, _, _ in flat], np.int64)
         d["sched_insertions"] = self.insertions
         d["sched_deletions"] = self.deletions
-        d["sched_seq"] = self.blocks_ingested
+        d["sched_seq"] = self._seq
         d["sched_window"] = -1 if self.window is None else int(self.window)
-        d["sched_error_slack"] = 0
+        d["sched_error_slack"] = self.error_slack
+        # pending delayed slices, in due order (a crash between a delay and
+        # its due block must not lose the slice)
+        flat = [(due, di, dw) for due in sorted(self._deferred)
+                for di, dw in self._deferred[due]]
+        d["sched_deferred_due"] = np.asarray([due for due, _, _ in flat],
+                                             np.int64)
+        d["sched_deferred_lens"] = np.asarray([len(di) for _, di, _ in flat],
+                                              np.int64)
+        d["sched_deferred_items"] = cat([np.asarray(di, np.int32)
+                                         for _, di, _ in flat])
+        d["sched_deferred_weights"] = cat([np.asarray(dw, np.int32)
+                                           for _, _, dw in flat])
         return d
 
     def load(self, d: dict) -> None:
@@ -641,7 +756,10 @@ class StreamSession:
         self._item_fifo.clear()
         self.insertions = 0
         self.deletions = 0
-        self.blocks_ingested = 0
+        self.error_slack = 0
+        self._seq = 0
+        self._replay.clear()
+        self._deferred = {}
         self.spec = api.infer_spec(self.spec, d)
         self.state = api.restore(self.spec, d, self.device)
         self._compiled = _ingest_fn(self.spec, self.block, self.donate)
@@ -655,11 +773,6 @@ class StreamSession:
             raise ValueError(
                 f"checkpoint carries window={saved_window} but this session "
                 f"was built with window={self.window}")
-        if len(d.get("sched_deferred_due", [])) \
-                or int(np.asarray(d.get("sched_error_slack", 0))):
-            raise NotImplementedError(
-                "the checkpoint carries delayed fault slices or resize "
-                "slack; ROADMAP.md Queue 1 item 14 ports those")
         bi = np.asarray(d["sched_buf_items"], np.int32)
         bw = np.asarray(d["sched_buf_weights"], np.int32)
         self._buf_i = [bi] if len(bi) else []
@@ -684,7 +797,19 @@ class StreamSession:
             s += n
         self.insertions = int(np.asarray(d["sched_insertions"]))
         self.deletions = int(np.asarray(d["sched_deletions"]))
-        self.blocks_ingested = int(np.asarray(d["sched_seq"]))
+        self._seq = int(np.asarray(d["sched_seq"]))
+        self.error_slack = int(np.asarray(d["sched_error_slack"]))
+        # schedule checkpoints from before the delayed slices carry none
+        if "sched_deferred_due" in d:
+            dd_i = np.asarray(d["sched_deferred_items"], np.int32)
+            dd_w = np.asarray(d["sched_deferred_weights"], np.int32)
+            s = 0
+            for due, n in zip(np.asarray(d["sched_deferred_due"], np.int64),
+                              np.asarray(d["sched_deferred_lens"], np.int64)):
+                due, n = int(due), int(n)
+                self._deferred.setdefault(due, []).append(
+                    (dd_i[s:s + n], dd_w[s:s + n]))
+                s += n
 
 
 class BlockFeeder:

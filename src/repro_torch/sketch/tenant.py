@@ -129,18 +129,11 @@ def update_block(tb: TenantBank, keys: torch.Tensor, weights: torch.Tensor,
         bank=bk.update_block_fused(tb.bank, keys, weights, router, variant))
 
 
-def _gather_rows(rows: torch.Tensor, num_rows: int) -> torch.Tensor:
-    """Row indices as the reference's gathers read them: a negative index
-    counts from the end, then every index is clamped into the bank."""
-    rows = rows.long()
-    return torch.where(rows < 0, rows + num_rows, rows).clamp(0, num_rows - 1)
-
-
 def query_many_tenant(tb: TenantBank, keys: torch.Tensor,
                       router: bk.TenantRouter) -> torch.Tensor:
     """Estimated count per composite key, read from its owner row only."""
     keys = keys.to(I32)
-    rows = _gather_rows(router.owner_of(keys), tb.num_rows)
+    rows = bk.gather_rows(router.owner_of(keys), tb.num_rows)
     return bk.query_rows(tb.bank, rows, keys)
 
 
@@ -151,10 +144,8 @@ def _items_of(keys: torch.Tensor, item_bits: int) -> torch.Tensor:
 
 def topk_tenant(tb: TenantBank, tenant, m: int, *, num_shards: int,
                 item_bits: int):
-    """One tenant's top-m (raw items, counts); never crosses tenants.
-    The row slice starts at ``tenant * S``, clamped into the bank as the
-    reference's dynamic slice clamps it."""
-    start = min(max(int(tenant) * num_shards, 0), tb.num_rows - num_shards)
+    """One tenant's top-m (raw items, counts); never crosses tenants."""
+    start = bk.slice_start(tenant, num_shards, tb.num_rows)
     sub = SketchState(*(t[start:start + num_shards] for t in tb.bank))
     keys, vals = bk.topk_bank(sub, m)
     return _items_of(keys, item_bits), vals
@@ -169,7 +160,7 @@ def topk_tenants(tb: TenantBank, tenants: torch.Tensor, m: int, *,
     tenants = tenants.to(I32)
     rows = (tenants[:, None] * num_shards
             + torch.arange(num_shards, dtype=I32, device=tenants.device))
-    rows = _gather_rows(rows, tb.num_rows)
+    rows = bk.gather_rows(rows, tb.num_rows)
     n = tenants.shape[0]
     ids = tb.bank.ids[rows].reshape(n, -1)
     cnt = tb.bank.counts[rows].reshape(n, -1)
@@ -190,7 +181,7 @@ def tenant_rows(tenant: int, num_shards: int) -> np.ndarray:
 
 def _rows_on(bank: SketchState, rows) -> torch.Tensor:
     rows = torch.as_tensor(np.asarray(rows), device=bank.ids.device)
-    return _gather_rows(rows, bank.ids.shape[0])
+    return bk.gather_rows(rows, bank.ids.shape[0])
 
 
 def _with_rows(bank: SketchState, rows: torch.Tensor,

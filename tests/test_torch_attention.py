@@ -19,6 +19,7 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)   # the suite runs under xdist; do not oversubscribe
 
+from jax_executables import free_jax_executables  # noqa: F401
 import jax.numpy as jnp
 
 from repro.kernels.decode_attention.ops import decode_attention as jdecode

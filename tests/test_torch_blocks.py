@@ -19,6 +19,7 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)   # the suite runs under xdist; do not oversubscribe
 
+from jax_executables import free_jax_executables  # noqa: F401
 import jax
 import jax.numpy as jnp
 
@@ -408,6 +409,7 @@ def test_library_name_follows_included_headers(tmp_path):
     # kernels' sources through the header they share
     want = {"fused_update.cu": ["residual_common.cuh", "common.cuh"],
             "residual.cu": ["residual_common.cuh", "common.cuh"],
-            "serial_update.cu": ["common.cuh"]}
+            "serial_update.cu": ["common.cuh"],
+            "unbiased_update.cu": ["common.cuh"]}
     for source in tkernel.SOURCES:
         assert [p.name for p in _build.includes(source)] == want[source.name]

@@ -532,3 +532,97 @@ def test_strict_keys_follow_each_key_block_by_block():
     np.testing.assert_array_equal(net, [4, 1, 0, 0])
     np.testing.assert_array_equal(pos, [4, 2, 1, 1])
     np.testing.assert_array_equal(strict, [True, True, False, True])
+
+
+# -- the family and fault phases' checks ----------------------------------
+
+def test_double_truth_and_the_sampled_rows(monkeypatch):
+    """``check_double_truth`` holds a Double session to the family bound
+    and rejects a bank with a count moved; the unbiased kernel's operands
+    cut to sampled rows give, through the plain version, those rows of
+    the whole bank's update."""
+    from repro_torch.kernels.sketch_update.ref import unbiased_update_ref
+    from repro_torch.sketch.session import StreamSession
+
+    cs = _chip_smoke()
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    cpu = torch.device("cpu")
+    spec = SketchSpec(eps=0.02, alpha=2.0, shards=4, bits=12,
+                      variant="double")
+    stream = bounded_stream(1500, 0.5, universe=1 << 12, seed=8)
+    sess = StreamSession(spec, block=BLOCK, device=cpu)
+    sess.ingest(stream[:, 0], stream[:, 1])
+    out = cs.check_double_truth("double", spec, sess.state, stream, cpu)
+    assert out["worst_err_over_slack"] <= 1.0 and out["ids_above_slack"]
+    live = sess.state.ins.ids >= 0
+    bad = sess.state._replace(ins=sess.state.ins._replace(
+        counts=torch.where(live, sess.state.ins.counts - 50,
+                           sess.state.ins.counts)))
+    with pytest.raises(SystemExit):
+        cs.check_double_truth("double", spec, bad, stream, cpu)
+    uspec = SketchSpec(eps=0.02, alpha=2.0, shards=5, bits=12,
+                       variant="unbiased")
+    blocks = cs._blocks(stream, BLOCK)
+    _, kept = cs.unbiased_replay(uspec, blocks, cpu, unbiased_update_ref,
+                                 keep={2})
+    st, args = kept[2]
+    whole = unbiased_update_ref(*st, *args)
+    rows = [0, 3, 4]
+    sub = unbiased_update_ref(*cs.sampled_rows(st, args, rows)[0],
+                              *cs.sampled_rows(st, args, rows)[1])
+    for a, b in zip(sub, whole):
+        assert torch.equal(a, b[rows])
+
+
+def test_row_alone_is_the_row_of_the_whole_bank():
+    """Each row of a sharded bank, rebuilt on the CPU from the entries it
+    owns alone (``row_fragments`` padded with no-ops, ``row_alone``),
+    equals the row of the session that ingested the whole blocks."""
+    from repro_torch.sketch.session import StreamSession
+
+    cs = _chip_smoke()
+    spec = SketchSpec(eps=0.05, alpha=2.0, shards=8, bits=12)
+    stream = cs.make_stream(12, BLOCK, seed=3, bits=12)
+    blocks = cs._blocks(stream, BLOCK)
+    sess = StreamSession(spec, block=BLOCK, device="cpu")
+    for items, weights in blocks:
+        sess.ingest_block(items, weights)
+    for r in range(spec.shards):
+        alone = cs.row_alone(spec, cs.row_fragments(spec, blocks, r, BLOCK),
+                             r)
+        for t, a in zip(sess.state.bank, alone):
+            assert torch.equal(t[r], a), r
+
+
+def test_fault_phase_rehearsal(monkeypatch):
+    """The fault phase at a small size: the plan's corrupted rows flagged,
+    recovery equal to the never-failed twin, the straggler flagged, the
+    resizes within their bounds; a recovery that restores nothing is
+    fatal."""
+    from repro_torch.sketch import elastic
+
+    cs = _chip_smoke()
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(cs, "fault_spec", lambda: SketchSpec(
+        eps=0.05, alpha=2.0, shards=8, bits=12))
+    monkeypatch.setattr(cs, "FAULTS", dict(
+        blocks=12, seed=7, n_faults=8, straggler_blocks=14,
+        straggler_row=5, reshard=(6, 1), dyadic_shards=2, dyadic_blocks=2,
+        row_pad=BLOCK))
+    cpu = torch.device("cpu")
+    q_spec = SketchSpec(kind="quantile", bits=12, eps=0.1, alpha=2.0,
+                        shards=3)
+    stream = cs.make_stream(16, BLOCK, seed=1, bits=12)
+    out = cs.fault_phase(cpu, stream, BLOCK, q_spec)
+    assert out["faults"]["replayed_blocks"] == 12
+    assert set(out["faults"]["flagged_untouched"]) <= set(
+        out["faults"]["twin_flagged"])
+    assert 5 in out["straggler"]["flagged"]
+    assert [r["new_shards"] for r in out["reshard"]] == [6, 1]
+    assert out["reshard"][-1]["dropped"] == 0
+    assert out["reshard_dyadic"]["new_shards"] == 2
+    monkeypatch.setattr(elastic, "recover_session",
+                        lambda sess, ckpt, rows=None: elastic.RecoveryReport(
+                            rows=(), replayed_blocks=0, seconds=0.0))
+    with pytest.raises(SystemExit, match="recovery"):
+        cs.fault_phase(cpu, stream, BLOCK, q_spec)

@@ -24,7 +24,8 @@ from repro_torch.kernels.sketch_update.kernel import (
     sketch_update_kernel_serial)
 from repro_torch.kernels.sketch_update.ops import _pad_bank
 from repro_torch.kernels.sketch_update.ref import (
-    fused_update_ref, residual_phase, residual_phase_banked, serial_update_ref)
+    fused_update_ref, residual_phase, residual_phase_banked, serial_update_ref,
+    unbiased_update_ref)
 from repro_torch.sketch import bank as bk
 from repro_torch.sketch.blocks import _phase1
 from repro_torch.sketch.phases import pad_rows
@@ -1025,3 +1026,151 @@ def test_full_width_row_check_rejects_a_mutant_kernel(cuda, name, tmp_path,
     assert min(share for share, _ in bad) > limit
     # the old tolerance alone would let the mutant through
     assert any(ok for _, ok in bad)
+
+
+# ---------------------------------------------------------------------------
+# The family (the unbiased kernel) and the fault layer
+# ---------------------------------------------------------------------------
+
+def _unbiased_operands(R, Ki, Kd, state, device, B=4096, seed=0):
+    """Both banks (cold, or warm after two blocks of the plain version)
+    and the flat layout of one signed block: the unbiased kernel's
+    operands."""
+    from repro_torch.sketch import family as fam
+
+    router = bk.HashShardRouter(R, 16)
+    ins = bk.init(Ki, R, device=device)
+    dels = bk.init(Kd, R, device=device)
+    s = bounded_stream(3 * B, 0.5, universe=1 << 16, seed=seed + R + Ki)
+    key = torch.tensor([0, seed], dtype=torch.int64).to(torch.uint32)
+    parts = np.array_split(s[:3 * B], 3)
+    for i, part in enumerate(parts):
+        it = torch.as_tensor(part[:, 0], dtype=torch.int32, device=device)
+        w = torch.as_tensor(part[:, 1], dtype=torch.int32, device=device)
+        u, key = fam.draw(key.to(device), len(it))
+        s_items, s_w, perm, roff = fam.unbiased_prep(it, w, router)
+        if i == 2 or state == "cold":
+            return (*ins, *dels, s_items, s_w, u, perm, roff)
+        out = unbiased_update_ref(*ins, *dels, s_items, s_w, u, perm, roff)
+        ins, dels = SketchState(*out[:3]), SketchState(*out[3:])
+
+
+@pytest.mark.parametrize("R,Ki,Kd", [(1, 6, 3), (7, 200, 100), (128, 21, 11),
+                                     # the largest row staged in shared
+                                     # memory, and past it
+                                     (1, 16384, 16), (1, 16385, 8)])
+@pytest.mark.parametrize("state", ["cold", "warm"])
+def test_unbiased_kernel_equals_plain_version(cuda, R, Ki, Kd, state):
+    from repro_torch.kernels.sketch_update.kernel import (
+        sketch_unbiased_kernel, unbiased_layout)
+
+    ops = _unbiased_operands(R, Ki, Kd, state, cuda)
+    want = unbiased_update_ref(*ops)
+    got, ran = _run(sketch_unbiased_kernel, *(t.clone() for t in ops[:6]),
+                    *ops[6:])
+    torch.cuda.synchronize()
+    for a, b in zip(want, got):
+        assert torch.equal(a, b)
+    assert ran == [unbiased_layout(max(Ki, Kd))]
+
+
+def test_unbiased_kernel_on_a_heavy_hitter_run(cuda):
+    """One id repeated through most of a block (its repeats skip the
+    search once it sits in the row) and BLOCKED slots, against the plain
+    version."""
+    from repro_torch.kernels.sketch_update.kernel import sketch_unbiased_kernel
+    from repro_torch.sketch import family as fam
+
+    R, B = 3, 8192
+    rng = np.random.default_rng(5)
+    items = np.where(rng.random(B) < 0.7, 4242,
+                     rng.integers(0, 1 << 12, B)).astype(np.int32)
+    weights = rng.choice([-2, -1, 1, 1, 3], B).astype(np.int32)
+    it, w = (torch.as_tensor(x, device=cuda) for x in (items, weights))
+    router = bk.HashShardRouter(R, 16)
+    ins, dels = bk.init([40, 13, 7], device=cuda), bk.init([5, 9, 2],
+                                                           device=cuda)
+    u = fam.uniforms(torch.tensor([0, 3], dtype=torch.int64)
+                     .to(torch.uint32).to(cuda), B)
+    ops = (*ins, *dels, *fam.unbiased_prep(it, w, router))
+    ops = (*ops[:8], u, *ops[8:])
+    want = unbiased_update_ref(*ops)
+    got = sketch_unbiased_kernel(*(t.clone() for t in ops[:6]), *ops[6:])
+    torch.cuda.synchronize()
+    for a, b in zip(want, got):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("variant,backend,shards", [
+    ("unbiased", "bank", 8), ("unbiased", "bank", None),
+    ("double", "bank", 8), ("sspm", "crprecis", None)])
+def test_family_session_on_the_card_equals_the_cpu_session(cuda, variant,
+                                                           backend, shards):
+    """Captured family sessions on the card equal the CPU's, bit for bit
+    (the unbiased uniforms are the same integer hash on both): one
+    unbiased-kernel launch a block, two kernel-1 launches a block for
+    double, no sketch kernel for CR-precis."""
+    from repro_torch.kernels.sketch_update import kernel
+
+    spec = SketchSpec(k=2000, bits=16, variant=variant, backend=backend,
+                      shards=shards)
+    s = bounded_stream(20000, 0.5, universe=1 << 16, seed=31)
+    gpu = StreamSession(spec, block=4096, device=cuda)
+    cpu = StreamSession(spec, block=4096, device="cpu")
+    c0 = kernel.launch_counts()
+    gpu.ingest(s[:, 0], s[:, 1])
+    launched = kernel.launch_delta(c0, kernel.launch_counts())
+    n = gpu.blocks_ingested
+    want = {"unbiased": {"sketch_unbiased_kernel": {"staged": n}},
+            "double": {"sketch_update_kernel_fused": {"staged": 2 * n}},
+            "sspm": {}}[variant]
+    assert launched == want
+    assert gpu._compiled.graph is not None
+    cpu.ingest(s[:, 0], s[:, 1])
+    for a, b in zip(_state_leaves(gpu.state), _state_leaves(cpu.state)):
+        assert torch.equal(a.cpu(), b)
+    probe = np.arange(1 << 12)
+    assert torch.equal(gpu.query_many(probe).cpu(), cpu.query_many(probe))
+
+
+def _state_leaves(state):
+    from repro_torch.sketch.session import _leaves
+
+    return _leaves(state)
+
+
+@pytest.mark.parametrize("donate", [True, False])
+def test_recovery_on_the_card_keeps_the_rows_it_does_not_splice(cuda,
+                                                               donate):
+    """``recover_session`` replays the log through the session's captured
+    ingest into a state of its own: the rows it splices equal a
+    never-failed twin, the others keep their live (faulted) values, and
+    the session keeps ingesting, equal to the CPU session that ran the
+    same faults and recovery."""
+    from repro_torch.sketch import elastic, faults
+
+    spec = SketchSpec(k=4096, bits=16, shards=8)
+    s = bounded_stream(40000, 0.5, universe=1 << 16, seed=33)
+    plan = faults.FaultPlan(events=(
+        faults.FaultEvent(step=3, row=2, kind="corrupt"),
+        faults.FaultEvent(step=4, row=5, kind="drop")))
+    sess = {d: StreamSession(spec, block=4096, replay=16, fault_plan=plan,
+                             donate=donate, device=d)
+            for d in (cuda, "cpu")}
+    twin = StreamSession(spec, block=4096, device="cpu")
+    ckpt = {d: x.save(include_schedule=True) for d, x in sess.items()}
+    for x in (*sess.values(), twin):
+        x.ingest(s[:24576, 0], s[:24576, 1])
+    live = [t.clone() for t in sess[cuda].state.bank]
+    for d, x in sess.items():
+        rep = elastic.recover_session(x, ckpt[d], rows=[2])
+        assert rep.rows == (2,) and rep.replayed_blocks == 6
+    got = sess[cuda].state.bank
+    for t, lv, tw in zip(got, live, twin.state.bank):
+        assert torch.equal(t[2].cpu(), tw[2])
+        keep = [r for r in range(8) if r != 2]
+        assert torch.equal(t[keep], lv[keep])
+    for x in (*sess.values(), twin):
+        x.ingest(s[24576:, 0], s[24576:, 1])
+    for a, b in zip(sess[cuda].state.bank, sess["cpu"].state.bank):
+        assert torch.equal(a.cpu(), b)

@@ -24,6 +24,7 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
+from jax_executables import free_jax_executables  # noqa: F401
 import jax.numpy as jnp
 from torch.utils._python_dispatch import TorchDispatchMode
 

@@ -17,6 +17,7 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
+from jax_executables import free_jax_executables  # noqa: F401
 import jax.numpy as jnp
 
 from repro.kernels.sketch_update.ops import sketch_block_update_fused as jfused

@@ -62,3 +62,17 @@ def test_each_layout_counts_its_own_launches():
                kernel.sketch_residual_kernel,
                kernel.sketch_residual_kernel_banked):
         assert all(isinstance(n, int) for n in fn.launches.values())
+
+
+def test_unbiased_layout_limit_is_the_source():
+    assert kernel.UNBIASED_STAGE_SLOTS == \
+        _constants("unbiased_update.cu")["kStageSlots"]
+    assert tuple(kernel.sketch_unbiased_kernel.launches) == \
+        kernel.UNBIASED_LAYOUTS
+
+
+@pytest.mark.parametrize("K,want", [
+    (1, "staged"), (2084, "staged"), (16384, "staged"),
+    (16385, "global"), (400000, "global")])
+def test_unbiased_layout_by_slots(K, want):
+    assert kernel.unbiased_layout(K) == want

@@ -22,6 +22,7 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)   # the suite runs under xdist; do not oversubscribe
 
+from jax_executables import free_jax_executables  # noqa: F401
 import jax.numpy as jnp
 
 from helpers import random_strict_stream

@@ -8,8 +8,7 @@ besides the reference test's own checks: exact counts, per-tenant window
 isolation, spill and exact re-admission against a twin that never
 spills, a crashed-and-resumed service against an uninterrupted twin
 (checkpoints of either package), the validation errors and the block
-accounting. The ``double`` service waits for ROADMAP.md Queue 1 item 11:
-its cases assert ``NotImplementedError`` naming it.
+accounting, and the family's ``double`` and ``unbiased`` tenant specs.
 """
 from __future__ import annotations
 
@@ -19,6 +18,7 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)   # the suite runs under xdist; do not oversubscribe
 
+from jax_executables import free_jax_executables  # noqa: F401
 from repro.serve.sketch_service import SketchService as JService
 from repro.sketch import api as japi
 from repro_torch.core.streams import mixed_traffic
@@ -347,29 +347,51 @@ def test_validation_errors():
                        block=64, tenant_bits=2, **kw)
         with pytest.raises(ValueError, match="frequency"):
             qsvc.subscribe_topk(0, 3)
-    # the double service's spill check waits for the family (item 11)
-    with pytest.raises(ValueError, match="spill"):
-        JService(japi.SketchSpec(**_fields(T=4, variant="double",
-                                           alpha=2.0)), block=64,
-                 spill_after=1)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        TService(tapi.SketchSpec(**_fields(T=4, variant="double",
-                                           alpha=2.0)), block=64,
-                 spill_after=1, device="cpu")
+    # the family keeps every row resident: spill is refused, in both
+    for Service, api, kw in ((JService, japi, {}),
+                             (TService, tapi, {"device": "cpu"})):
+        with pytest.raises(ValueError, match="spill"):
+            Service(api.SketchSpec(**_fields(T=4, variant="double",
+                                             alpha=2.0)), block=64,
+                    spill_after=1, **kw)
 
 
 def test_double_variant_service():
-    """The double service waits for the family (item 11); the reference
-    serves it exactly in the large-capacity regime."""
+    """The double service answers as the reference's, bit for bit (both
+    banks after every tick, tickets, top-k subscriptions) and exactly in
+    the large-capacity regime; the unbiased service serves the same
+    traffic with exact per-bank mass."""
     fields = _fields(T=4, k_t=12, variant="double", alpha=2.0)
-    svc = JService(japi.SketchSpec(**fields), block=64)
-    svc.submit(1, [3, 3, 3, 3, 5])
-    svc.tick()
-    svc.submit(1, [3], [-2])
-    svc.tick()
-    np.testing.assert_array_equal(svc.query(1, [3, 5]).result(), [2, 1])
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tapi.SketchSpec(**fields)
+    pair = _pair(fields, block=64)
+    for s in pair:
+        s.submit(1, [3, 3, 3, 3, 5])
+        s.subscribe_topk(1, 2)
+    _both(pair, lambda s: s.tick())
+    for s in pair:
+        s.submit(1, [3], [-2])
+        s.submit(2, [7, 7, 9])
+    _both(pair, lambda s: s.tick())
+    tickets = _both(pair, lambda s: s.query(1, [3, 5]))
+    for t in tickets:
+        np.testing.assert_array_equal(t.result(), [2, 1])
+    j, t = pair
+    for side in ("ins", "dels"):
+        for x, y in zip(getattr(j.session.state, side),
+                        getattr(t.session.state, side)):
+            _same(x, y.numpy(), side)
+    for want, got in zip(j.topk_result(1), t.topk_result(1)):
+        _same(want, got)
+    for want, got in zip(j.topk(2, 2), t.topk(2, 2)):
+        _same(want, got)
+    unb = TService(tapi.SketchSpec(**_fields(T=4, k_t=12, variant="unbiased",
+                                             alpha=2.0)), block=64,
+                   device="cpu")
+    unb.submit(1, [3, 3, 3, 3, 5])
+    unb.submit(1, [3], [-2])
+    unb.tick()
+    np.testing.assert_array_equal(unb.query(1, [3, 5]).result(), [2, 1])
+    assert int(unb.session.state.ins.counts.sum()) == 5
+    assert int(unb.session.state.dels.counts.sum()) == 2
 
 
 def test_service_stats_and_blocks():

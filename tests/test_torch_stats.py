@@ -20,6 +20,7 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)   # the suite runs under xdist; do not oversubscribe
 
+from jax_executables import free_jax_executables  # noqa: F401
 from repro.sketch import stats as jstats
 from repro_torch.sketch import stats as tstats
 

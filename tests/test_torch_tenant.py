@@ -12,9 +12,9 @@ re-admitted banks equal the reference's; dicts cross packages), the
 per-tenant quantiles over a composite-key dyadic bank, and the session's
 tenant plumbing (one compiled-ingest cell per layout, per-tenant window
 FIFOs through checkpoints of either package, legacy schedule dicts).
-The ``double`` cases wait for ROADMAP.md Queue 1 item 11 and the replay
-recovery for item 14: they assert ``NotImplementedError`` naming it.
-Inputs come from numpy seeds; the state is int32, so every comparison is
+The ``double`` cases run the family's tenant layout (both banks
+tenant-major); replay recovery on a tenant spec equals a never-failed
+twin. Inputs come from numpy seeds; the state is int32, so every comparison is
 exact.
 """
 from __future__ import annotations
@@ -27,6 +27,7 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)   # the suite runs under xdist; do not oversubscribe
 
+from jax_executables import free_jax_executables  # noqa: F401
 import jax.numpy as jnp
 
 from helpers import random_strict_stream
@@ -207,7 +208,8 @@ def _mt_fields(T, variant, shards, k_t):
 def _assert_parity(T, variant, shards, k_t, delete_frac, seed):
     """The tenant bank equals the reference's after every block, and each
     tenant's queries and top-k equal an independent per-tenant sketch's
-    (the port's) fed the same fragments."""
+    (the port's) fed the same fragments. A ``double`` bank is compared as
+    its two banks; its top-k reads the insert bank's candidates (m = 4)."""
     jspec, tspec = _specs(**_mt_fields(T, variant, shards, k_t))
     solo = tapi.SketchSpec(kind="frequency", k=k_t, bits=BITS,
                            variant=variant,
@@ -220,7 +222,9 @@ def _assert_parity(T, variant, shards, k_t, delete_frac, seed):
     for b, ((ci, cw), pt) in enumerate(zip(blocks, per_tenant)):
         js = japi.update(jspec, js, jnp.asarray(ci), jnp.asarray(cw))
         ts = tapi.update(tspec, ts, ci, cw)
-        _same_bank(js.bank, ts.bank, f"block {b}")
+        for jb, tb in ([(js.ins, ts.ins), (js.dels, ts.dels)]
+                       if variant == "double" else [(js.bank, ts.bank)]):
+            _same_bank(jb, tb, f"block {b}")
         for t, (it, wt) in pt.items():
             twins[t] = tapi.update(solo, twins[t], it, wt)
     probe = np.arange(UNIVERSE, dtype=np.int32)
@@ -232,9 +236,10 @@ def _assert_parity(T, variant, shards, k_t, delete_frac, seed):
         np.testing.assert_array_equal(
             q.numpy(), tapi.query_many(solo, twins[t], probe).numpy(),
             err_msg=f"tenant {t} ({variant}, S={shards}, del={delete_frac})")
-        i_mt, v_mt = tapi.tenant_topk(tspec, ts, t, k_t)
-        ji, jv = japi.tenant_topk(jspec, js, t, k_t)
-        i_1, v_1 = tapi.topk(solo, twins[t], k_t)
+        m = 4 if variant == "double" else k_t
+        i_mt, v_mt = tapi.tenant_topk(tspec, ts, t, m)
+        ji, jv = japi.tenant_topk(jspec, js, t, m)
+        i_1, v_1 = tapi.topk(solo, twins[t], m)
         for got, want in ((i_mt, ji), (v_mt, jv), (i_mt, i_1), (v_mt, v_1)):
             np.testing.assert_array_equal(got.numpy(), _np(want))
     return ts, tspec
@@ -243,20 +248,14 @@ def _assert_parity(T, variant, shards, k_t, delete_frac, seed):
 @pytest.mark.parametrize("variant", ["sspm", "lazy", "double"])
 @pytest.mark.parametrize("delete_frac", [0.0, 0.5, 0.9])
 def test_isolation_parity(variant, delete_frac):
-    if variant == "double":
-        with pytest.raises(NotImplementedError, match="item 11"):
-            tapi.SketchSpec(**_mt_fields(5, variant, 1, 6), alpha=2.0)
-        return
+    # k_t = 6 at alpha = 2 splits k_I = 4, k_D = 2 per tenant, the solo
+    # twin's capacities
     _assert_parity(T=5, variant=variant, shards=1, k_t=6,
                    delete_frac=delete_frac, seed=11)
 
 
 @pytest.mark.parametrize("variant", ["sspm", "double"])
 def test_isolation_parity_sharded(variant):
-    if variant == "double":
-        with pytest.raises(NotImplementedError, match="item 11"):
-            tapi.SketchSpec(**_mt_fields(3, variant, 2, 6), alpha=2.0)
-        return
     _assert_parity(T=3, variant=variant, shards=2, k_t=6, delete_frac=0.4,
                    seed=13)
 
@@ -653,11 +652,58 @@ def test_tenant_checkpoint_roundtrip_and_infer():
 
 
 def test_recover_session_on_tenant_spec_waits_for_item_14():
-    tspec = tapi.SketchSpec(kind="frequency", k=32, bits=BITS, tenants=4)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tses.StreamSession(tspec, block=32, replay=16, device=CPU)
-    # the reference's defaults are accepted; an unknown option is refused
-    tses.StreamSession(tspec, block=32, replay=0, fault_plan=None,
-                       device=CPU)
+    """Replay recovery on a tenant spec as the reference's (the name is
+    the placeholder's, kept so the test's id carries over; item 14 has
+    landed). Unsharded, the whole state is rebuilt: the live bank,
+    poisoned after a schedule checkpoint, comes back equal to the
+    reference's recovery and to a twin that never failed; an unknown
+    option is refused."""
+    from repro.sketch import elastic as jel
+    from repro.sketch import faults as jfl
+    from repro_torch.sketch import elastic as tel
+    from repro_torch.sketch import faults as tfl
+
+    jspec, tspec = _specs(kind="frequency", k=32, bits=BITS, tenants=4)
+    js = jses.StreamSession(jspec, block=32, replay=16)
+    ts = tses.StreamSession(tspec, block=32, replay=16, device=CPU)
+    twin = tses.StreamSession(tspec, block=32, device=CPU)
+    rng = np.random.default_rng(21)
+    keys = ttn.pack_keys(rng.integers(0, 4, 96), rng.integers(0, UNIVERSE, 96),
+                         BITS).astype(np.int32)
+    for s in (js, ts, twin):
+        s.ingest(keys[:32], np.ones(32, np.int32))
+    jck, tck = js.save(include_schedule=True), ts.save(include_schedule=True)
+    for s in (js, ts, twin):
+        s.ingest(keys[32:], np.ones(64, np.int32))
+    js.state = jfl.poison_rows(js.state, [1, 3])
+    ts.state = tfl.poison_rows(ts.state, [1, 3])
+    assert list(np.flatnonzero(tel.dead_shards(tspec, ts.state))) == [1, 3]
+    jrep = jel.recover_session(js, jck)
+    trep = tel.recover_session(ts, tck)
+    assert (trep.rows, trep.replayed_blocks) == (jrep.rows,
+                                                 jrep.replayed_blocks) \
+        == ((), 2)
+    _same_bank(js.state.bank, ts.state.bank, "recovered")
+    _same_bank(twin.state.bank, ts.state.bank, "never failed")
     with pytest.raises(TypeError, match="replay_log"):
         tses.StreamSession(tspec, block=32, replay_log=16, device=CPU)
+
+
+def test_topk_tenant_of_a_negative_tenant_reads_as_the_reference():
+    """A negative tenant's row slice counts from the end of the bank, as
+    the reference's dynamic slice reads it (it used to clamp to row 0)."""
+    for shards in (1, 2):
+        jspec, tspec = _specs(kind="frequency", k=3 * 24, bits=BITS,
+                              tenants=3, **({"shards": 2} if shards > 1
+                                            else {}))
+        rng = np.random.default_rng(shards)
+        keys = ttn.pack_keys(rng.integers(0, 3, 256),
+                             rng.integers(0, 64, 256), BITS).astype(np.int32)
+        js = japi.update(jspec, japi.make(jspec), keys, np.ones(256, np.int32))
+        ts = tapi.update(tspec, tapi.make(tspec, CPU), keys,
+                         np.ones(256, np.int32))
+        for t in (-1, -2, -3, -7, 0, 2, 3, 9):
+            for want, got in zip(japi.tenant_topk(jspec, js, t, 4),
+                                 tapi.tenant_topk(tspec, ts, t, 4)):
+                np.testing.assert_array_equal(got.numpy(), _np(want),
+                                              err_msg=f"tenant {t}")
