@@ -234,11 +234,61 @@ result):
      (the backend it took is printed; for decode it gives the context
      only, not the mass), beside each run's bound.
 
+7. the model phase (``model_phase``): the model stack and model serving
+   on kernels 5 and 6, random bf16 weights from a seed, each config cut
+   to one period of its layer pattern at full width:
+   - Gemma3-27B (6 layers: 5 local, 1 global) serves B = 2 requests of
+     8,192-token prompts and 32 greedy tokens through ``ServeEngine`` at
+     a 131,072-token context: the global layer's SS± heavy-hitter cache
+     of 8,192 slots is full after the prefill, so every step evicts, and
+     its counts halve every 16 steps. Every counter reset before and read
+     after: kernel 5 six times a prefill (5 windowed, 1 causal, by
+     ``AttentionSpy``), kernel 6 six times a step, no other kernel and no
+     plain version. Its plain twin (``attention="plain"`` on the card,
+     teacher-forced on the kernel run's tokens, one request at a time)
+     holds every step's logits row by row (|got - want| <=
+     LOGIT_ROUNDING·|want| + LOGIT_SHARE·RMS(row), the check shown to
+     reject the two requests' rows swapped) and the SS± cache (ids
+     unique, EMPTY or a position before ``pos``, 0 <= errors <= counts,
+     HH_OVERLAP of the ids in common with the twin's, counts on common
+     ids within a quantum a step, one of the twin's 16 heaviest prompt
+     positions resident); kernels 5 and 6 held to their plain versions
+     on the operands this run gave them, as in the attention phase, with
+     one fault planted per shape (``hold_kept``: the run's own logits see
+     a prefill's last token only); times: prefill ms, decode ms a step,
+     tokens/s over the whole timed window, the unembed's ms, one decode step profiled (device ms of kernel 6,
+     the matmuls and the rest), beside the analytic bounds of the port's
+     ``roofline_terms``; kernels 5 and 6 timed at the shapes this run
+     gave them, beside their plain versions, one SDPA call and their
+     bounds;
+   - the serving invariant of ``tests/test_serve.py:24`` at the same
+     width (a 1,024-token prompt, B = 2, context 4,096): prefill (kernel
+     5) then one step gives the next token of 1,024 decode steps
+     (kernel 6), the logits held row by row as the twin's (the
+     reference's rtol = atol = 0.05, set at smoke width, is exceeded
+     at this width by the plain versions too: the same run through
+     them is the witness, the counts beyond it recorded for both), and
+     the kernels held on its operands (``hold_kept``);
+   - ``hh_planted``: the main run's SS± cache size with one heavy key a
+     row, 64 evicting steps through the serving path's own SS± step
+     (``decode.hh_attend_step``) on kernel 6 and on its plain version: the heavy position on top after every step, the two
+     caches' ids and counts as above (at random init the main run's
+     counts all round to 0);
+   - the nine other configs (``MODEL_OTHERS``: Zamba2 with its shared
+     block's SS± cache, Whisper with 1,500 frames, LLaVA with 2,880
+     vision tokens, Mixtral and OLMoE with their experts, Mamba2 with no
+     attention), each serving 4 tokens, held to its plain twin with its
+     launch counts checked, and its kernels on their operands
+     (``hold_kept``).
+
 The line before the last two is ``{"kernels": [...]}`` (the six ported
 kernels and the port's own unbiased kernel, which replaces the
 reference's plain-JAX scan; the entries of flash and of kernels 1-3
 give their launches by path, kernels 1-4 and the unbiased kernel also
-``stream_ms``);
+``stream_ms``; flash's and decode's launches include the model phase's,
+decode's by run in ``launches_by_run``, their ``max_abs_err`` the
+model phase's shapes too, and both give their times and row shares at
+the serving shapes under ``serving``);
 the last line is ``{"ok": true, "device": {...}}``. A summary also goes to
 ``chiprun_out/chip_smoke.json``.
 """
@@ -2525,35 +2575,38 @@ def _swap_heads(t, dim):
     return t.index_select(dim, torch.tensor(perm, device=t.device))
 
 
-def planted_flash(label, q, k, v, window, want) -> dict:
-    """The plain version with one fault planted, each of which the row
-    check must reject: the P·V of keys 64-127 (half of one of the wgmma
-    kernel's 128-key tiles) dropped, and q-heads 0-3 reading the wrong
-    kv-head."""
+def _planted(k, v, drop):
+    """The wrong operands ``planted_flash`` and ``planted_decode`` run:
+    keys or slots 64-127 (half of one of the wgmma kernel's 128-key
+    tiles, one of the decode kernel's chunks; the upper half of the
+    first min(128, T) where T is shorter) dropped from P·V, and, with two
+    kv-heads or more, q-heads of kv-heads 0 and 1 reading each other's."""
+    hi = min(128, k.shape[1])
+    v_tile = v.clone()
+    v_tile[:, hi // 2:hi] = 0
+    wrong = {drop: (k, v_tile)}
+    if k.shape[2] > 1:
+        wrong["wrong kv-head"] = (_swap_heads(k, 2), _swap_heads(v, 2))
+    return wrong
+
+
+def planted_flash(label, q, k, v, window, want, causal=True) -> dict:
+    """The plain version with one fault planted (``_planted``), each of
+    which the row check must reject."""
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
-    v_tile = v.clone()
-    v_tile[:, 64:128] = 0
-    wrong = {"kv tile dropped": (k, v_tile),
-             "wrong kv-head": (_swap_heads(k, 2), _swap_heads(v, 2))}
     return {name: must_reject(f"{label} planted {name}", flash_attention_ref(
-                q, kk, vv, causal=True, window=window), want)
-            for name, (kk, vv) in wrong.items()}
+                q, kk, vv, causal=causal, window=window), want)
+            for name, (kk, vv) in _planted(k, v, "kv tile dropped").items()}
 
 
 def planted_decode(label, q, k, v, valid, want_ctx) -> dict:
-    """As ``planted_flash`` for the decode context: cache slots 64-127
-    (one of the kernel's chunks) dropped from P·V, and q-heads of
-    kv-heads 0 and 1 reading each other's caches."""
+    """As ``planted_flash`` for the decode context."""
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
-    v_chunk = v.clone()
-    v_chunk[:, 64:128] = 0
-    wrong = {"chunk dropped": (k, v_chunk),
-             "wrong kv-head": (_swap_heads(k, 2), _swap_heads(v, 2))}
     return {name: must_reject(f"{label} planted {name}", decode_attention_ref(
                 q, kk, vv, valid)[0], want_ctx)
-            for name, (kk, vv) in wrong.items()}
+            for name, (kk, vv) in _planted(k, v, "chunk dropped").items()}
 
 
 def attention_phase(device, seed=6) -> tuple:
@@ -2692,6 +2745,843 @@ def attention_phase(device, seed=6) -> tuple:
     return entries, dict(case_max_abs_err=worst, case_row_share=case_shares,
                          case_paths=case_paths, path_wall_ms=path_ms,
                          runs=runs)
+
+
+# ---------------------------------------------------------------------------
+# The model phase: the model stack and model serving on kernels 5 and 6
+# ---------------------------------------------------------------------------
+
+# The main serving run: Gemma3-27B (src/repro_torch/configs/gemma3_27b.py
+# FULL) at full width, depth cut to one period (5 local + 1 global layers),
+# random bf16 weights from a seed; B = 2 requests of 8,192-token prompts,
+# 32 greedy tokens each, at a 131,072-token context, where the global
+# layer's cache is the SS± heavy-hitter cache of 8,192 slots (the prompt
+# fills it, so every step evicts) and the counts halve every 16 steps
+MODEL_MAIN = dict(arch="gemma3_27b", batch=2, prompt=8192, new_tokens=32,
+                  context=131_072, decay_period=16, seed=23, heavy=16)
+# the reference's serving invariant (tests/test_serve.py:24) at the same
+# width: a 1,024-token prompt, context 4,096 (dense caches)
+MODEL_STEPWISE = dict(batch=2, prompt=1024, context=4096, seed=24)
+# the other nine configs, one period each at full width: prompt tokens
+# (a multiple of the SSD chunk of 256 for the SSM families; LLaVA's 320
+# text tokens follow its 2,880 vision tokens, 3,200 <= its window) and
+# the context (Zamba2 past HH_ENGAGE_CTX: its shared block's SS± cache)
+MODEL_OTHERS = {
+    "mixtral_8x7b": (512, 1024), "olmoe_1b_7b": (512, 1024),
+    "zamba2_7b": (512, 131_072), "whisper_medium": (256, 1024),
+    "mamba2_780m": (512, 1024), "llava_next_mistral_7b": (320, 4096),
+    "nemotron_4_15b": (512, 1024), "qwen2_7b": (512, 1024),
+    "qwen3_0_6b": (512, 1024)}
+MODEL_OTHER_TOKENS = 4
+# Logits of the kernel run are held row by row (a row: one request's
+# vocabulary at one step) to its plain twin: |got - want| <=
+# LOGIT_ROUNDING·|want| + LOGIT_SHARE·RMS(row). Both runs keep a bf16
+# residual stream; the kernels' bf16 P in P·V moves an attention output by
+# ~2^-9 of its RMS, which the bf16 residual rounds into whole ulps of some
+# elements, layer after layer; the share allows that and stays below what
+# the other request's row gives (``must_reject``, swapped rows).
+LOGIT_ROUNDING = 2.0**-7
+LOGIT_SHARE = 2.0**-4
+# the SS± caches of the kernel run and its twin: ids in common per row
+# (a tie broken the other way by a rounding of the mass evicts another
+# slot), and counts on common ids within one quantum a step
+HH_OVERLAP = 0.99
+
+
+def sync(device) -> None:
+    """Wait for the card (nothing to wait for on the CPU)."""
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def one_period(cfg):
+    """``cfg`` cut to one period of its layer pattern (Whisper: one
+    encoder and one decoder layer): the depth cut of the model phase."""
+    import dataclasses
+
+    pattern, _, _ = cfg.layer_pattern()
+    return dataclasses.replace(cfg, num_layers=len(pattern),
+                               encoder_layers=min(cfg.encoder_layers, 1))
+
+
+def expected_masks(cfg) -> dict:
+    """Kernel-5 calls of one prefill of ``cfg`` by mask: windowed for the
+    swa/local layers, causal for the others' self-attention, unmasked for
+    the encoder and Whisper's cross-attention."""
+    from repro_torch.models.transformer import _kinds
+
+    _, n, _ = cfg.layer_pattern()
+    kinds, rem_kinds = _kinds(cfg)
+    out = dict(windowed=0, causal=0, unmasked=cfg.encoder_layers)
+    for k in kinds * n + rem_kinds:
+        if k in ("swa", "local"):
+            out["windowed"] += 1
+        elif k != "mamba":
+            out["causal"] += 1
+            out["unmasked"] += k == "decoder_x"
+    return out
+
+
+def attention_calls(cfg) -> tuple:
+    """(kernel-5 launches a prefill, kernel-6 launches a decode step) of
+    ``cfg``: a prefill's calls by mask (``expected_masks``), of which all
+    but the encoder's recur in every decode step."""
+    n = sum(expected_masks(cfg).values())
+    return n, n - cfg.encoder_layers
+
+
+class AttentionSpy:
+    """While open: counts the model's prefill attention calls by mask
+    (``layers._attend``: windowed, causal, unmasked) and the plain
+    versions' calls, and keeps the first operands of each kind (flash by
+    mask and shape, decode by cache length) for ``hold_kept`` and the
+    timings at serving shapes."""
+
+    def __init__(self, keep=False):
+        self.keep = keep
+
+    def __enter__(self):
+        from repro_torch.models import layers as L
+
+        self.L = L
+        self.saved = (L._attend, L.decode_attend, L.flash_attention_ref,
+                      L.decode_attention_ref)
+        attend, decode_attend, fref, dref = self.saved
+        self.masks = dict(windowed=0, causal=0, unmasked=0)
+        self.plain = dict(flash=0, decode=0)
+        self.operands = {}
+
+        def spy_attend(q, k, v, causal, window, attention):
+            mask = "windowed" if window else "causal" if causal else "unmasked"
+            self.masks[mask] += 1
+            key = f"{mask} S={q.shape[1]} T={k.shape[1]}"
+            if self.keep and key not in self.operands:
+                self.operands[key] = (q, k, v, causal, window)
+            return attend(q, k, v, causal, window, attention)
+
+        def spy_decode(q, k, v, valid, attention="kernel"):
+            key = f"decode C={k.shape[1]}"
+            if self.keep and key not in self.operands:
+                self.operands[key] = (q, k, v, valid)
+            return decode_attend(q, k, v, valid, attention)
+
+        def count(name, fn):
+            def run(*a, **kw):
+                self.plain[name] += 1
+                return fn(*a, **kw)
+            return run
+
+        L._attend, L.decode_attend = spy_attend, spy_decode
+        L.flash_attention_ref = count("flash", fref)
+        L.decode_attention_ref = count("decode", dref)
+        return self
+
+    def __exit__(self, *exc):
+        L = self.L
+        (L._attend, L.decode_attend, L.flash_attention_ref,
+         L.decode_attention_ref) = self.saved
+
+
+def check_model_launches(label, counts, flash, decode, spy, plain=False):
+    """``flash`` launches of kernel 5 and ``decode`` of kernel 6 (by the
+    counters) and no other kernel, no plain version; or, for a plain
+    twin, no kernel at all and the plain versions instead. Returns
+    kernel 5's launches by path."""
+    fl = {k.split("[")[1][:-1]: n for k, n in counts.items()
+          if k.startswith(FLASH) and n}
+    others = {k: n for k, n in counts.items()
+              if n and not k.startswith(FLASH) and k != DECODE}
+    if plain:
+        if any(counts.values()) or spy.plain != dict(flash=flash,
+                                                     decode=decode):
+            raise SystemExit(f"{label}: the plain twin launched {counts}; "
+                             f"plain calls {spy.plain}, expected {flash} "
+                             f"flash and {decode} decode")
+        return fl
+    if sum(fl.values()) != flash or counts[DECODE] != decode or others \
+            or any(spy.plain.values()):
+        raise SystemExit(f"{label}: launches {counts}, plain calls "
+                         f"{spy.plain}; expected {flash} of {FLASH}, "
+                         f"{decode} of {DECODE}, no other kernel, no plain "
+                         f"version")
+    return fl
+
+
+def hold_kept(label, operands) -> dict:
+    """Kernels 5 and 6 against their plain versions on the operands a run
+    gave them (``AttentionSpy(keep=True)``), through the layers' dispatch
+    (``_attend``, ``decode_attend``) under "kernel" and "plain": flash
+    output and decode ctx row by row (``check_rows``; flash one request
+    at a time, the plain version's (S, T) f32 scores), the decode mass
+    within atol 2e-5, rtol 2e-4 and its sums (``check_mass``), and one
+    fault per shape planted in the plain version that the row check must
+    reject (``planted_flash``, ``planted_decode``, on request 0). The
+    serving run's own logits see few of these rows: a prefill's last
+    token only, and a decode cache's K/V are projections, not attention
+    output. Returns the record of each kept key."""
+    import torch
+    from repro_torch.models import layers as L
+
+    out = {}
+    for key, ops in operands.items():
+        name = f"{label} {key} kernel vs plain"
+        if key.startswith("decode"):
+            q, k, v, valid = ops
+            dt = torch.promote_types(torch.promote_types(q.dtype, k.dtype),
+                                     v.dtype)
+            q, k, v = (t.to(dt) for t in (q, k, v))
+            ctx, mass = L.decode_attend(q, k, v, valid, "kernel")
+            want_ctx, want_mass = L.decode_attend(q, k, v, valid, "plain")
+            err, share = check_rows(name + " ctx", ctx, want_ctx)
+            rec = dict(max_abs_err=err, row_share=share,
+                       mass_max_abs_err=close(name + " mass", mass, want_mass,
+                                              2e-5, 2e-4))
+            check_mass(name, mass, valid, q.shape[1] * q.shape[2])
+            rec["planted_row_shares"] = planted_decode(name, q, k, v, valid,
+                                                       want_ctx)
+            del ctx, mass, want_ctx, want_mass
+        else:
+            q, k, v, causal, window = ops
+            got = L._attend(q, k, v, causal, window, "kernel")
+            errs, shares = [], []
+            for b in range(q.shape[0]):
+                one = (t[b:b + 1] for t in (q, k, v))
+                want = L._attend(*one, causal, window, "plain")
+                err, share = check_rows(f"{name} request {b}", got[b:b + 1],
+                                        want)
+                errs.append(err)
+                shares.append(share)
+                if b == 0:
+                    planted = planted_flash(name, q[:1], k[:1], v[:1], window,
+                                            want, causal)
+                del want
+            rec = dict(max_abs_err=max(errs), row_share=max(shares),
+                       planted_row_shares=planted)
+            del got
+        rec["row_share_limit"] = ROW_SHARE
+        out[key] = rec
+        log(f"{name}: {json.dumps(rec)}")
+    return out
+
+
+def logit_share(got, want) -> tuple:
+    """(max abs error, the largest share of its row's RMS an element's
+    error takes beyond LOGIT_ROUNDING·|want|), rows on the last axis."""
+    import torch
+
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    excess = (err - LOGIT_ROUNDING * want.abs()).clamp_min(0)
+    rms = want.pow(2).mean(dim=-1, keepdim=True).sqrt()
+    if not bool(torch.isfinite(got).all()):
+        return math.inf, math.inf
+    return float(err.max()), float((excess / rms).max())
+
+
+def model_inputs(cfg, batch, prompt, device, seed):
+    """Prompt tokens (and Whisper's frames, LLaVA's patch embeddings,
+    standard normal bf16) from ``seed``."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab_size, (batch, prompt), generator=gen,
+                         device=device, dtype=torch.int32)
+    kw = {}
+    if cfg.vision_tokens:
+        kw["vision"] = randn((batch, cfg.vision_tokens, cfg.d_model),
+                             torch.bfloat16, gen, device)
+    if cfg.family == "encdec":
+        kw["frames"] = randn((batch, cfg.encoder_frames, cfg.d_model),
+                             torch.bfloat16, gen, device)
+    return toks, kw
+
+
+def twin_logits(cfg, params, context, decay_period, toks, kw, generated,
+                rows, device):
+    """The plain twin on the card, teacher-forced: the prompt rows
+    ``rows`` through ``attention="plain"`` prefill, then the kernel run's
+    ``generated`` tokens (B, T) one step at a time, the tokens the
+    engine fed its steps. Returns (logits (T+1) x (len(rows), V), the
+    final cache)."""
+    from repro_torch.serve import build_prefill_step, build_serve_step
+
+    prefill = build_prefill_step(cfg, context, attention="plain",
+                                 device=device)
+    step = build_serve_step(cfg, context, decay_period, attention="plain",
+                            device=device)
+    batch = {"tokens": toks[rows]}
+    batch.update({k: v[rows] for k, v in kw.items()})
+    logits, cache = prefill(params, batch)
+    out = [logits[:, -1]]
+    for t in range(generated.shape[1]):
+        logits, cache, _ = step(params, cache, generated[rows, t:t + 1])
+        out.append(logits[:, -1])
+    return out, cache
+
+
+def hh_entry_of(cache, cfg):
+    """The SS± entry of the model's first hh layer (period 0)."""
+    for pos, entry in cache["periods"].items():
+        entry = entry.get("attn", entry)
+        if "ids" in entry:
+            return {k: v[0] for k, v in entry.items()}
+    raise SystemExit(f"{cfg.name}: no SS± cache in the decode cache")
+
+
+def check_hh(label, entry, pos, prompt, twin, steps, heavy) -> dict:
+    """The SS± invariants of the kernel run's heavy-hitter cache: ids
+    unique per row and EMPTY or a position < pos; counts >= 0; 0 <= errors
+    <= counts; and against the plain twin's cache (``twin``, rows in
+    order): at least HH_OVERLAP of the ids in common per row, counts on
+    common ids within ``steps`` (a quantum a step), and at least one of
+    the twin's ``heavy`` heaviest prompt positions resident."""
+    import torch
+    from repro_torch.serve import h2o
+
+    ids, counts, errors = entry["ids"], entry["counts"], entry["errors"]
+    B, C = ids.shape
+    live = ids != h2o.EMPTY
+    srt = torch.sort(torch.where(live, ids, -1 - torch.arange(
+        C, device=ids.device)), dim=1).values
+    if bool((srt[:, 1:] == srt[:, :-1]).any()):
+        raise SystemExit(f"{label}: an id is resident twice in a row")
+    if bool(((ids < -1) | (ids >= pos[:, None])).any()):
+        raise SystemExit(f"{label}: an id is neither EMPTY nor a position "
+                         f"before {pos.tolist()}")
+    if bool((counts < 0).any()) or bool((errors < 0).any()) \
+            or bool((errors > counts).any()):
+        raise SystemExit(f"{label}: a count below 0 or an error outside "
+                         f"[0, count]")
+    overlap, worst, heavy_hit = [], 0, []
+    for b in range(B):
+        mine = dict(zip(ids[b].tolist(), counts[b].tolist()))
+        theirs = dict(zip(twin["ids"][b].tolist(), twin["counts"][b].tolist()))
+        common = (set(mine) & set(theirs)) - {h2o.EMPTY}
+        overlap.append(len(common) / max(int(live[b].sum()), 1))
+        worst = max([worst] + [abs(mine[i] - theirs[i]) for i in common])
+        top, _ = h2o.hh_heavy_positions(
+            {k: v[b:b + 1] for k, v in twin.items()}, C)
+        top = [i for i in top[0].tolist() if 0 <= i < prompt][:heavy]
+        heavy_hit.append(sum(i in mine for i in top))
+    if min(overlap) < HH_OVERLAP or worst > steps or min(heavy_hit) < 1:
+        raise SystemExit(f"{label}: overlap {overlap} (limit {HH_OVERLAP}), "
+                         f"worst count difference {worst} (limit {steps}), "
+                         f"heavy prompt positions resident {heavy_hit}")
+    return dict(slots=C, live=int(live.sum()), overlap=overlap,
+                worst_count_diff=worst, count_diff_limit=steps,
+                heavy_resident=heavy_hit, heavy_of=heavy,
+                decode_positions_resident=int((ids >= prompt).sum()),
+                max_count=int(counts.max()), max_error=int(errors.max()))
+
+
+# The SS± cache at the main run's size with a planted heavy hitter: at
+# random init every slot of the 8,192 receives about 1/8,192 of a step's
+# mass, which rounds to 0 counts (MASS_SCALE 1,024), so the main run's
+# counts stay flat; here one prompt position per row has a key aligned
+# with every query and takes most of each step's mass
+HH_PLANTED = dict(batch=2, slots=8192, kv=16, g=2, hd=128, steps=64,
+                  decay_period=16, heavy=(100, 5000), seed=31)
+
+
+def hh_planted(device, c=HH_PLANTED) -> dict:
+    """Full SS± caches (the prefill's cold start: positions 0..C-1,
+    count 1) with random keys but one aligned key per row at position
+    ``heavy[b]``; ``steps`` decode steps through the serving path's own
+    SS± step after the projection (``decode.hh_attend_step``: insert a
+    new token, attend, add the mass over the H q-heads, halve every
+    ``decay_period`` steps on row 0's position), once through kernel 6
+    and once through its plain version. Each: the heavy position
+    resident with its row's largest count after every step, the SS±
+    invariants (``check_hh``) against the other run's cache. Returns the
+    record and kernel 6's launches."""
+    import torch
+    from repro_torch.serve import h2o
+    from repro_torch.serve.decode import hh_attend_step
+
+    B, C, KV, G, hd = c["batch"], c["slots"], c["kv"], c["g"], c["hd"]
+    gen = torch.Generator(device=device).manual_seed(c["seed"])
+    bf16 = torch.bfloat16
+    u = torch.randn((B, KV, hd), generator=gen, device=device)
+    u = u / u.norm(dim=-1, keepdim=True) * math.sqrt(hd)
+    k = randn((B, C, KV, hd), bf16, gen, device)
+    heavy = torch.tensor(c["heavy"], device=device)
+    k[torch.arange(B, device=device), heavy] = u.to(bf16)
+    ids = torch.arange(C, device=device, dtype=torch.int32).expand(B, C)
+    start = dict(k=k, v=randn((B, C, KV, hd), bf16, gen, device),
+                 ids=ids.contiguous(), counts=torch.ones_like(ids),
+                 errors=torch.zeros_like(ids))
+    steps = [((u[:, :, None] + 0.3 * torch.randn(
+                  (B, KV, G, hd), generator=gen, device=device)).to(bf16),
+              randn((B, KV, hd), bf16, gen, device),
+              randn((B, KV, hd), bf16, gen, device))
+             for _ in range(c["steps"])]
+    out = {}
+    for attention in ("kernel", "plain"):
+        reset_counts()
+        entry = dict(start)
+        for t, (q, kn, vn) in enumerate(steps):
+            pos = torch.full((B,), C + t, dtype=torch.int32, device=device)
+            _, entry = hh_attend_step(entry, q, kn, vn, pos,
+                                      c["decay_period"], attention)
+            top, _ = h2o.hh_heavy_positions(entry, 1)
+            if not torch.equal(top[:, 0], heavy.to(torch.int32)):
+                raise SystemExit(f"hh planted ({attention}) step {t}: the "
+                                 f"heaviest resident is {top[:, 0].tolist()}"
+                                 f", not {heavy.tolist()}")
+        sync(device)
+        out[attention] = (entry, read_counts()[DECODE])
+    (entry, launches), (twin, _) = out["kernel"], out["plain"]
+    if launches != c["steps"]:
+        raise SystemExit(f"hh planted: {launches} launches of {DECODE} for "
+                         f"{c['steps']} steps")
+    rec = check_hh("hh planted", entry, torch.full(
+        (B,), C + c["steps"], device=device), C, twin, c["steps"], 1)
+    rec.update(steps=c["steps"], heavy=list(c["heavy"]),
+               heavy_count=entry["counts"][torch.arange(B), heavy].tolist(),
+               plain_heavy_count=twin["counts"][torch.arange(B),
+                                                heavy].tolist(),
+               launches=launches)
+    log(f"hh planted: {json.dumps(rec)}")
+    return rec
+
+
+def serve_run(label, cfg, params, prompt, context, new_tokens, decay_period,
+              device, seed, rows_at_a_time=None) -> tuple:
+    """One config served through ``ServeEngine`` on the kernels (B = 2),
+    then its plain twin teacher-forced on the kernel run's tokens (both
+    rows at once, or ``rows_at_a_time``), launch counts checked on both,
+    every step's logits held row by row (``logit_share``), and the check
+    shown to reject the two requests' rows swapped. Returns the record,
+    the engine's result and the twin's final caches."""
+    import torch
+    from repro_torch.serve import ServeEngine
+
+    toks, kw = model_inputs(cfg, 2, prompt, device, seed)
+    B = toks.shape[0]
+    flash_n, decode_n = attention_calls(cfg)
+    engine = ServeEngine(cfg, params, context, decay_period, device=device)
+    reset_counts()
+    sync(device)
+    t0 = time.perf_counter()
+    with AttentionSpy(keep=True) as spy:
+        res = engine.generate(toks, new_tokens, keep_logits=True, **kw)
+        sync(device)
+    wall = time.perf_counter() - t0
+    by_path = check_model_launches(label, read_counts(), flash_n,
+                                   decode_n * new_tokens, spy)
+    masks = dict(spy.masks)
+    generated = torch.as_tensor(res["tokens"][:, -new_tokens:],
+                                device=device)
+    if not all(bool(torch.isfinite(x.float()).all()) for x in res["logits"]) \
+            or res["logits"][-1].shape != (B, cfg.vocab_size):
+        raise SystemExit(f"{label}: logits not finite or not (B, V)")
+    per = rows_at_a_time or B
+    errs, shares, firsts, twin_caches = [], [], [], []
+    for lo in range(0, B, per):
+        rows = slice(lo, lo + per)
+        reset_counts()
+        with AttentionSpy() as twin_spy:
+            want, cache = twin_logits(cfg, params, context, decay_period,
+                                      toks, kw, generated, rows, device)
+            sync(device)
+        check_model_launches(label + " twin", read_counts(), flash_n,
+                             decode_n * new_tokens, twin_spy, plain=True)
+        twin_caches.append(cache)
+        firsts.append(want[0])
+        for t, w in enumerate(want):
+            err, share = logit_share(res["logits"][t][rows], w)
+            errs.append(err)
+            shares.append(share)
+            if not share <= LOGIT_SHARE:
+                raise SystemExit(f"{label} step {t} rows {rows}: a logit's "
+                                 f"error takes {share} of its row's RMS "
+                                 f"beyond {LOGIT_ROUNDING}·|want| (limit "
+                                 f"{LOGIT_SHARE}); max_abs_err {err}")
+        del want
+    # the limit must tell one request's logits from the other's
+    swapped = logit_share(res["logits"][0].flip(0), torch.cat(firsts))[1]
+    if swapped <= LOGIT_SHARE:
+        raise SystemExit(f"{label}: the logit check passes the requests' "
+                         f"rows swapped (share {swapped})")
+    held = hold_kept(label, spy.operands)
+    record = dict(
+        config=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
+        heads=cfg.num_heads, kv_heads=cfg.num_kv_heads,
+        head_dim=cfg.resolved_head_dim, vocab=cfg.vocab_size, batch=B,
+        prompt=prompt, context=context, new_tokens=new_tokens,
+        wall_s=wall, flash_launches=flash_n, flash_by_path=by_path,
+        flash_by_mask=masks, decode_launches=decode_n * new_tokens,
+        logit_max_abs_err=max(errs), logit_row_share=max(shares),
+        logit_row_share_limit=LOGIT_SHARE, swapped_row_share=swapped,
+        kernels_vs_plain=held,
+        reduced=f"depth {cfg.num_layers} layers (one period)")
+    log(f"{label}: {json.dumps(record)}")
+    return record, res, twin_caches, spy.operands
+
+
+def stepwise_invariant(cfg, params, device, c=MODEL_STEPWISE) -> dict:
+    """The reference's core serving invariant (tests/test_serve.py:24) at
+    full width: prefill then one step gives the next token of stepwise
+    decode of the same prompt (exact, as there), and the prefill's last
+    logits and those of the step after agree, through the kernels
+    (kernel 5 against kernel 6, token by token) and, as the witness of
+    what bf16 rounding alone gives at this width, through their plain
+    versions. The logits are held row by row by ``logit_share`` within
+    LOGIT_SHARE: the reference's rtol = atol = 0.05 was set at smoke width
+    (logits of RMS ~0.2), and at this width (RMS 1.47, a token's own logit
+    near 47, where a bf16 ulp is 0.25) the plain path exceeds it too; the
+    count of elements beyond it is recorded for both paths."""
+    import torch
+    from repro_torch.serve import (build_cache, build_prefill_step,
+                                   build_serve_step)
+
+    toks, _ = model_inputs(cfg, c["batch"], c["prompt"], device, c["seed"])
+    flash_n, decode_n = attention_calls(cfg)
+    out = dict(batch=c["batch"], prompt=c["prompt"], context=c["context"],
+               limit=dict(rounding=LOGIT_ROUNDING, share=LOGIT_SHARE))
+    for attention in ("kernel", "plain"):
+        prefill = build_prefill_step(cfg, c["context"], attention=attention,
+                                     device=device)
+        step = build_serve_step(cfg, c["context"], attention=attention,
+                                device=device)
+        reset_counts()
+        t0 = time.perf_counter()
+        with AttentionSpy(keep=attention == "kernel") as spy:
+            la0, cache_a = prefill(params, {"tokens": toks})
+            nxt = torch.argmax(la0[:, -1], -1).to(torch.int32)[:, None]
+            la, _, _ = step(params, cache_a, nxt)
+            del cache_a
+            cache_b = build_cache(cfg, c["batch"], c["context"],
+                                  device=device)
+            for t in range(c["prompt"]):
+                lb0, cache_b, _ = step(params, cache_b, toks[:, t:t + 1])
+            nxt_b = torch.argmax(lb0[:, -1], -1).to(torch.int32)[:, None]
+            lb, _, _ = step(params, cache_b, nxt_b)
+            del cache_b
+            sync(device)
+        secs = time.perf_counter() - t0
+        by_path = check_model_launches(
+            f"stepwise invariant ({attention})", read_counts(), flash_n,
+            decode_n * (c["prompt"] + 2), spy, plain=attention == "plain")
+        if not torch.equal(nxt, nxt_b):
+            raise SystemExit(f"stepwise invariant ({attention}): prefill's "
+                             f"next tokens {nxt.tolist()} differ from "
+                             f"stepwise decode's {nxt_b.tolist()}")
+        rec = dict(next_tokens=nxt[:, 0].tolist(), seconds=secs)
+        for name, (got, want) in (("prefill", (la0, lb0)),
+                                  ("step after", (la, lb))):
+            got, want = got[:, -1].float(), want[:, -1].float()
+            err, share = logit_share(got, want)
+            if not share <= LOGIT_SHARE:
+                raise SystemExit(
+                    f"stepwise invariant ({attention}), {name}: a logit's "
+                    f"error takes {share} of its row's RMS beyond "
+                    f"{LOGIT_ROUNDING}·|want| (limit {LOGIT_SHARE}); "
+                    f"max_abs_err {err}")
+            rec[name] = dict(
+                max_abs_err=err, row_share=share,
+                swapped_row_share=logit_share(got.flip(0), want)[1],
+                beyond_reference_tolerance=int(
+                    ((got - want).abs() > 0.05 + 0.05 * want.abs()).sum()),
+                max_abs_logit=float(want.abs().max()),
+                rms=want.pow(2).mean(-1).sqrt().tolist())
+            if rec[name]["swapped_row_share"] <= LOGIT_SHARE:
+                raise SystemExit(f"stepwise invariant ({attention}): the "
+                                 f"logit check passes the rows swapped")
+        if attention == "kernel":
+            rec.update(flash_by_path=by_path,
+                       decode_launches=decode_n * (c["prompt"] + 2),
+                       kernels_vs_plain=hold_kept("stepwise invariant",
+                                                  spy.operands))
+            out.update(flash_by_path=by_path,
+                       decode_launches=rec["decode_launches"])
+        out[attention] = rec
+    log(f"stepwise invariant: {json.dumps(out)}")
+    return out
+
+
+def serve_times(cfg, params, engine, toks, new_tokens, device) -> dict:
+    """Prefill ms (median of 3) and decode ms per step (each of
+    ``new_tokens`` steps timed with a sync, median and mean) on the main
+    run's inputs; decode tokens/s, every token generated over the whole
+    timed window of steps; the unembed's ms; one decode step profiled:
+    device busy ms and the shares of kernel 6, the matmuls and the rest,
+    and the host's wall ms of that step. Beside them the analytic bounds
+    of ``roofline_terms`` (flops: ``model_flops``, bytes:
+    ``analytic_hbm_bytes``) at these shapes."""
+    import statistics
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import InputShape
+    from repro_torch.models.transformer import _unembed
+    from repro_torch.roofline.model import (analytic_hbm_bytes, model_flops,
+                                            param_count, roofline_terms)
+
+    B, S = toks.shape
+    pre = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = engine._prefill(params, {"tokens": toks})
+        torch.cuda.synchronize()
+        pre.append((time.perf_counter() - t0) * 1e3)
+    cur = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+    steps = []
+    for _ in range(new_tokens):
+        t0 = time.perf_counter()
+        logits, cache, _ = engine._step(params, cache, cur)
+        cur = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter() - t0) * 1e3)
+    x = torch.randn((B, 1, cfg.d_model), device=device).to(torch.bfloat16)
+    unembed_ms = time_ms(lambda: _unembed(params, cfg, x), 20)
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        logits, cache, _ = engine._step(params, cache, cur)
+        torch.cuda.synchronize()
+        prof_wall = (time.perf_counter() - t0) * 1e3
+    kinds = dict(decode_attention=0.0, matmul=0.0, other=0.0)
+    device, host = [], []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            host.append((e.key[:60], e.self_cpu_time_total / 1e3, e.count))
+            continue
+        name = e.key.lower()
+        kind = ("decode_attention" if any(
+                    f"decode_{k}_kernel" in name
+                    for k in ("chunk", "combine", "mass"))
+                else "matmul" if any(s in name for s in
+                                     ("gemm", "gemv", "xmma", "cutlass",
+                                      "nvjet", "splitk"))
+                else "other")
+        kinds[kind] += _dev_us(e) / 1e3
+        device.append((e.key[:80], _dev_us(e) / 1e3, e.count, kind))
+    busy = sum(kinds.values())
+    device.sort(key=lambda r: -r[1])
+    host.sort(key=lambda r: -r[1])
+
+    pc = param_count(cfg)
+    shapes = dict(prefill=InputShape("serve prefill", S, B, "prefill"),
+                  decode=InputShape("serve decode", S + new_tokens, B,
+                                    "decode"))
+    bounds = {}
+    for name, shape in shapes.items():
+        terms = roofline_terms(
+            hlo_flops_global=model_flops(cfg, shape),
+            hlo_bytes_global=analytic_hbm_bytes(cfg, shape),
+            collective_bytes_global=0.0, chips=1, cfg=cfg, shape=shape)
+        bounds[name] = dict(terms.to_dict(), bound_ms=terms.bound_time_s * 1e3,
+                            analytic_memory_ms=terms.memory_s_analytic * 1e3)
+    # the prefill unembeds only each request's last token: the matrix work
+    # without the unembed of every position
+    emb = cfg.vocab_size * cfg.d_model
+    pre_flops = model_flops(cfg, shapes["prefill"]) - 2.0 * emb * B * (S - 1)
+    bounds["prefill"]["last_token_logits_flops"] = pre_flops
+    bounds["prefill"]["last_token_logits_bound_ms"] = (
+        pre_flops / BF16_FLOPS_PER_S * 1e3)
+    out = dict(
+        prefill_ms=statistics.median(pre), prefill_ms_runs=pre,
+        prefill_tokens_per_s=B * S / (statistics.median(pre) / 1e3),
+        decode_ms_per_step=statistics.median(steps),
+        decode_ms_mean=statistics.mean(steps), decode_ms_steps=steps,
+        decode_tokens_per_s=B * len(steps) / (sum(steps) / 1e3),
+        unembed_ms=unembed_ms, params=pc["total"],
+        profiled_step=dict(wall_ms=prof_wall, device_busy_ms=busy,
+                           device_ms_by_kind=kinds,
+                           device_launches=sum(r[2] for r in device),
+                           top_device=device[:12], top_host=host[:12],
+                           kernel6_share=kinds["decode_attention"] / busy
+                           if busy else None),
+        bounds=bounds)
+    log(f"serving times: {json.dumps(out)}")
+    return out
+
+
+def serving_kernel_times(operands, held) -> dict:
+    """Kernels 5 and 6 at the serving shapes the main run gave them (the
+    first operands of each kind, kept by ``AttentionSpy``): kernel ms
+    (CUDA events), plain ms, one SDPA call, and the bound, beside
+    ``held``, what ``hold_kept`` found on the same operands."""
+    import torch
+    from repro_torch.kernels.decode_attention.kernel import \
+        decode_attention_kernel
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_kernel
+    from repro_torch.kernels.flash_attention.ref import (allowed_pairs,
+                                                         flash_attention_ref)
+
+    out = {}
+    for key, ops in operands.items():
+        if key.startswith("decode"):
+            q, k, v, valid = (t.contiguous() for t in ops)
+            B, KV, G, hd = q.shape
+            lib = sdpa(q.reshape(B, KV * G, 1, hd),
+                       *(t.transpose(1, 2).contiguous() for t in (k, v)),
+                       attn_mask=valid[:, None, None, :])
+            out[key] = dict(
+                shape=dict(B=B, C=k.shape[1], KV=KV, G=G, hd=hd),
+                ms=time_ms(lambda: decode_attention_kernel(q, k, v, valid),
+                           20),
+                plain_ms=time_ms(lambda: decode_attention_ref(q, k, v, valid),
+                                 3),
+                library_ms=time_ms(lib, 20), **decode_bound(q, k, valid))
+            del lib
+        else:
+            q, k, v, causal, window = ops
+            q, k, v = (t.contiguous() for t in (q, k, v))
+            B, S, H, hd = q.shape
+            qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            if window:
+                lib = sdpa(qh, kh, vh, attn_mask=allowed_pairs(
+                    S, k.shape[1], causal, window, q.device))
+            else:
+                lib = sdpa(qh, kh, vh, is_causal=causal)
+            entry = dict(
+                shape=dict(B=B, S=S, T=k.shape[1], H=H, KV=k.shape[2], hd=hd,
+                           causal=causal, window=window),
+                ms=time_ms(lambda: flash_attention_kernel(
+                    q, k, v, causal=causal, window=window), 10),
+                library_ms=time_ms(lib, 10), **flash_bound(q, k, causal,
+                                                           window))
+            del qh, kh, vh, lib
+            torch.cuda.empty_cache()
+            # the plain version's (S, T) f32 scores: one request at a time
+            entry["plain_ms"] = B * time_ms(lambda: flash_attention_ref(
+                q[:1], k[:1], v[:1], causal=causal, window=window), 2, 1)
+            entry["plain_ms_note"] = "per request, times B"
+            out[key] = entry
+        out[key].update(held[key])
+        torch.cuda.empty_cache()
+        log(f"{key} at the serving shapes: {json.dumps(out[key])}")
+    return out
+
+
+def model_phase(device, get=None, main=MODEL_MAIN, stepwise=MODEL_STEPWISE,
+                others=MODEL_OTHERS, other_tokens=MODEL_OTHER_TOKENS,
+                planted=HH_PLANTED, timed=True) -> tuple:
+    """The model stack and model serving (see MODEL_MAIN): Gemma3-27B's
+    main serving run with its launch counts, plain twin and SS±
+    invariants; its times (``timed``); the stepwise invariant; the other
+    nine configs each with its twin. ``get`` picks the configs (the full
+    ones, cut to one period, by default; the CPU rehearsal passes the
+    smoke ones with its own sizes). Returns (launches of kernel 5 by path
+    and of kernel 6 by run, the phase's summary)."""
+    import gc
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import build_model
+    from repro_torch.serve import ServeEngine, kv_cache
+
+    get = get or (lambda arch: one_period(configs.get(arch)))
+    t_phase = time.perf_counter()
+    c = main
+    cfg = get(c["arch"])
+    t0 = time.perf_counter()
+    params, _ = build_model(cfg).init(c["seed"], device=device)
+    sync(device)
+    init_s = time.perf_counter() - t0
+    launches = {"flash": {}, "decode": {}}
+
+    def add(run, rec):
+        for path, n in rec["flash_by_path"].items():
+            launches["flash"][path] = launches["flash"].get(path, 0) + n
+        launches["decode"][run] = rec["decode_launches"]
+
+    def free():
+        gc.collect()
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+
+    rec, res, twins, operands = serve_run(
+        f"model {c['arch']} main", cfg, params, c["prompt"], c["context"],
+        c["new_tokens"], c["decay_period"], device, c["seed"],
+        rows_at_a_time=1)
+    if rec["flash_by_mask"] != expected_masks(cfg):
+        raise SystemExit(f"{c['arch']} main: prefill masks "
+                         f"{rec['flash_by_mask']}, expected "
+                         f"{expected_masks(cfg)}")
+    add(f"{c['arch']} main", rec)
+    entry = hh_entry_of(res["cache"], cfg)
+    twin = {k: torch.cat([hh_entry_of(t, cfg)[k] for t in twins])
+            for k in ("ids", "counts", "errors")}
+    rec["hh"] = check_hh(f"{c['arch']} main hh", entry, res["cache"]["pos"],
+                         c["prompt"], twin, c["new_tokens"], c["heavy"])
+    if rec["hh"]["live"] != c["batch"] * cfg.hh_kv_budget:
+        raise SystemExit(f"the SS± cache is not full: {rec['hh']}")
+    log(f"{c['arch']} main hh: {json.dumps(rec['hh'])}")
+    del res, twins, entry, twin
+    if timed:
+        engine = ServeEngine(cfg, params, c["context"], c["decay_period"],
+                             device=device)
+        toks, _ = model_inputs(cfg, c["batch"], c["prompt"], device,
+                               c["seed"])
+        rec["times"] = serve_times(cfg, params, engine, toks,
+                                   c["new_tokens"], device)
+        del engine, toks
+    free()
+    reset_counts()
+    step_rec = stepwise_invariant(cfg, params, device, stepwise)
+    add("stepwise invariant", step_rec)
+    del params
+    free()
+    kernel_times = (serving_kernel_times(operands, rec["kernels_vs_plain"])
+                    if timed else {})
+    del operands
+    free()
+    rec["hh_planted"] = hh_planted(device, planted)
+    launches["decode"]["hh planted"] = rec["hh_planted"]["launches"]
+    free()
+
+    other_recs = {}
+    for i, (arch, (prompt, context)) in enumerate(others.items()):
+        ocfg = get(arch)
+        t0 = time.perf_counter()
+        oparams, _ = build_model(ocfg).init(100 + i, device=device)
+        orec, res, twins, _ = serve_run(
+            f"model {arch}", ocfg, oparams, prompt, context, other_tokens,
+            8192, device, 100 + i)
+        if orec["flash_by_mask"] != expected_masks(ocfg):
+            raise SystemExit(f"{arch}: prefill masks {orec['flash_by_mask']}"
+                             f", expected {expected_masks(ocfg)}")
+        if ocfg.hh_kv_budget and context > kv_cache.HH_ENGAGE_CTX:
+            orec["hh"] = check_hh(
+                f"{arch} hh", hh_entry_of(res["cache"], ocfg),
+                res["cache"]["pos"], prompt + ocfg.vision_tokens,
+                hh_entry_of(twins[0], ocfg), other_tokens, 16)
+        orec["seconds"] = time.perf_counter() - t0
+        other_recs[arch] = orec
+        add(arch, orec)
+        del oparams, res, twins
+        free()
+    # every shape the phase's kernel runs gave kernels 5 and 6, held
+    held = dict(shapes=dict(flash=0, decode=0),
+                max_abs_err=dict(flash=0.0, decode=0.0),
+                row_share=dict(flash=0.0, decode=0.0))
+    for run in (rec, step_rec["kernel"], *other_recs.values()):
+        for key, r in run["kernels_vs_plain"].items():
+            kind = "decode" if key.startswith("decode") else "flash"
+            held["shapes"][kind] += 1
+            held["max_abs_err"][kind] = max(held["max_abs_err"][kind],
+                                            r["max_abs_err"],
+                                            r.get("mass_max_abs_err", 0.0))
+            held["row_share"][kind] = max(held["row_share"][kind],
+                                          r["row_share"])
+    summary = dict(main=rec, init_s=init_s, stepwise=step_rec,
+                   serving_kernel_times=kernel_times, others=other_recs,
+                   launches=launches, kernels_vs_plain=held,
+                   seconds=time.perf_counter() - t_phase)
+    log(f"model phase: {summary['seconds']:.1f} s, launches "
+        f"{json.dumps(launches)}, kernels vs plain at the runs' shapes "
+        f"{json.dumps(held)}")
+    return launches, summary
 
 
 # ---------------------------------------------------------------------------
@@ -4766,6 +5656,31 @@ def main() -> int:
     phase_done("profiles")
     attention_entries, attention = attention_phase(device)
     phase_done("attention")
+    model_launches, model = model_phase(device)
+    phase_done("model")
+    # kernels 5 and 6 on the model phase's paths too: flash by path, decode
+    # by run; their times at the serving shapes beside the attention
+    # phase's
+    flash_entry, decode_entry = attention_entries
+    for path, n in model_launches["flash"].items():
+        flash_entry["launches"] += n
+        flash_entry["launches_by_path"][path] += n
+    decode_entry["launches_by_run"] = {"attention phase": decode_entry[
+        "launches"], **{f"model {run}": n for run, n in
+                        model_launches["decode"].items()}}
+    decode_entry["launches"] = sum(decode_entry["launches_by_run"].values())
+    for entry, kind in ((flash_entry, "flash"), (decode_entry, "decode")):
+        entry["max_abs_err"] = max(entry["max_abs_err"], model[
+            "kernels_vs_plain"]["max_abs_err"][kind])
+        entry["model_shapes_held"] = model["kernels_vs_plain"]["shapes"][kind]
+    for entry, prefix in ((flash_entry, ("windowed", "causal")),
+                          (decode_entry, ("decode",))):
+        entry["serving"] = {
+            key: {k: t[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
+                                    "bound_by", "library_ms", "max_abs_err",
+                                    "row_share", "row_share_limit")}
+            for key, t in model["serving_kernel_times"].items()
+            if key.startswith(prefix)}
     service_profiles(tenant_later, tenant_runs)
     phase_done("service profiles")
 
@@ -4833,7 +5748,7 @@ def main() -> int:
         quantile_kernel_times=q_times,
         tenant=tenant_runs, tenant_kernel_times=tenant_kernel_times,
         family=family_runs, faults=fault_runs,
-        profile=prof, attention=attention,
+        profile=prof, attention=attention, model=model,
         kernels=kernels), indent=1))
     print(json.dumps({"kernels": kernels}))
     print(card)

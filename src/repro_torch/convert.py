@@ -10,6 +10,14 @@ its ``tenants``/``shards``/``item_bits``), the quantile kind (with its
 (S, k) rows of composite keys, read as an S-shard bank). Both packages
 save and restore those layouts, so a checkpoint written by either loads
 in the other and both compute the same thing from it.
+
+The model side carries trees: ``params_from_reference`` takes the
+reference's param tree (nested dicts of numpy arrays, as
+``jax.tree.map(np.asarray, params)`` gives them) and returns the port's,
+the same leaves bit for bit; ``cache_from_reference`` does the same for
+a decode cache tree (with its ``pos``). A bf16 leaf arrives as numpy's
+``bfloat16`` extension dtype, which ``torch.from_numpy`` refuses: it is
+carried as its 16-bit pattern.
 """
 from __future__ import annotations
 
@@ -88,4 +96,56 @@ def to_reference(spec: SketchSpec, state) -> Dict[str, Any]:
     return api.save(spec, state)
 
 
-__all__ = ["spec_for", "to_port", "to_reference"]
+def _leaf_to_port(a, device) -> "torch.Tensor":
+    """One numpy leaf as a tensor on ``device``, bit for bit (bf16 through
+    its 16-bit pattern)."""
+    import torch
+
+    a = np.array(a)            # a writable copy: jax's arrays are read-only
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(
+            device)
+    return torch.from_numpy(a).to(device)
+
+
+def _tree_to_port(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to_port(v, device) for k, v in tree.items()}
+    return _leaf_to_port(tree, device)
+
+
+def params_from_reference(params: Dict[str, Any], cfg,
+                          device=DEFAULT_DEVICE) -> Dict[str, Any]:
+    """The port's param tree from the reference's (numpy leaves), on
+    ``device``. Raises where the tree's paths or shapes are not the ones
+    ``models.transformer.init_params`` gives ``cfg``."""
+    from .models.transformer import init_params
+    from .platform import resolve_device
+
+    dev = resolve_device(device)
+    want, _ = init_params(None, cfg, device="meta")
+    got = _tree_to_port(params, dev)
+
+    def paths(tree, prefix=""):
+        if isinstance(tree, dict):
+            return {p: s for k, v in tree.items()
+                    for p, s in paths(v, f"{prefix}/{k}").items()}
+        return {prefix: tuple(tree.shape)}
+
+    if paths(got) != paths(want):
+        raise ValueError(f"the param tree does not fit {cfg.name}: "
+                         f"{sorted(set(paths(got).items()) ^ set(paths(want).items()))[:8]}")
+    return got
+
+
+def cache_from_reference(cache: Dict[str, Any],
+                         device=DEFAULT_DEVICE) -> Dict[str, Any]:
+    """The port's decode cache tree from the reference's (numpy leaves,
+    with ``pos``), on ``device``, bit for bit."""
+    from .platform import resolve_device
+
+    return _tree_to_port(cache, resolve_device(device))
+
+
+__all__ = ["spec_for", "to_port", "to_reference", "params_from_reference",
+           "cache_from_reference"]

@@ -626,3 +626,165 @@ def test_fault_phase_rehearsal(monkeypatch):
                             rows=(), replayed_blocks=0, seconds=0.0))
     with pytest.raises(SystemExit, match="recovery"):
         cs.fault_phase(cpu, stream, BLOCK, q_spec)
+
+
+# -- the model phase, rehearsed on the CPU at smoke width -----------------
+
+# the smoke configs at sizes their layers take: Gemma3's smoke model (7
+# layers: 5 local of window 16, 2 global, a 32-slot SS± budget) serves
+# 32-token prompts, which fill its SS± cache; the others serve 32 tokens
+# (multiples of their windows and SSD chunks)
+SMOKE_MAIN = dict(arch="gemma3_27b", batch=2, prompt=32, new_tokens=6,
+                  context=128, decay_period=4, seed=3, heavy=4)
+SMOKE_STEPWISE = dict(batch=2, prompt=16, context=64, seed=4)
+SMOKE_PLANTED = dict(batch=2, slots=256, kv=2, g=2, hd=16, steps=20,
+                     decay_period=4, heavy=(3, 200), seed=5)
+
+
+def _smoke_others():
+    from repro_torch import configs
+
+    return {arch: (32 - configs.get_smoke(arch).vision_tokens,
+                   128 if arch == "zamba2_7b" else 64)
+            for arch in configs.ARCH_IDS if arch != "gemma3_27b"}
+
+
+def _kernels_as_plain(monkeypatch, flash_fault=None, decode_fault=None):
+    """The model layers' attention dispatch on CPU tensors with the kernel
+    wrappers' counters: under ``attention="kernel"`` each call counts one
+    launch of its kernel (flash on the wgmma path) and runs the kernel's
+    plain version, with ``flash_fault`` (``decode_fault``: on (ctx,
+    mass)) applied to its output where given; ``"plain"`` calls the plain
+    versions through the layers' names, as on the card."""
+    from repro_torch.kernels.decode_attention import kernel as da
+    from repro_torch.kernels.decode_attention import ref as dref
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.flash_attention import ref as fref
+    from repro_torch.models import layers as L
+
+    def attend(q, k, v, causal, window, attention):
+        if attention == "kernel":
+            fa.flash_attention_kernel.launches["wgmma"] += 1
+            out = fref.flash_attention_ref(q, k, v, causal=causal,
+                                           window=window)
+            return flash_fault(out) if flash_fault else out
+        return L.flash_attention_ref(q, k, v, causal=causal, window=window)
+
+    def decode_attend(q, k, v, valid, attention="kernel"):
+        if attention == "kernel":
+            da.decode_attention_kernel.launches += 1
+            out = dref.decode_attention_ref(q, k, v, valid)
+            return decode_fault(*out) if decode_fault else out
+        return L.decode_attention_ref(q, k, v, valid)
+
+    monkeypatch.setattr(L, "_attend", attend)
+    monkeypatch.setattr(L, "decode_attend", decode_attend)
+
+
+def test_model_phase_rehearsal(monkeypatch):
+    """The model phase end to end at smoke width: the main run's launch
+    counts by mask (5 windowed, 2 causal prefill calls; 7 decode calls a
+    step), its twin, the SS± invariants of a full cache, the stepwise
+    invariant and the nine other configs with their twins."""
+    from repro_torch import configs
+    from repro_torch.serve import kv_cache
+
+    cs = _chip_smoke()
+    monkeypatch.setattr(kv_cache, "HH_ENGAGE_CTX", 32)  # SS± at smoke size
+    _kernels_as_plain(monkeypatch)
+    launches, summary = cs.model_phase(
+        torch.device("cpu"), get=configs.get_smoke, main=SMOKE_MAIN,
+        stepwise=SMOKE_STEPWISE, others=_smoke_others(), other_tokens=2,
+        planted=SMOKE_PLANTED, timed=False)
+    main = summary["main"]
+    assert main["flash_by_mask"] == dict(windowed=5, causal=2, unmasked=0)
+    assert main["decode_launches"] == 7 * SMOKE_MAIN["new_tokens"]
+    assert main["logit_row_share"] == 0.0      # the same plain version
+    assert main["hh"]["live"] == 2 * 32 and main["hh"]["overlap"] == [1.0, 1.0]
+    assert main["hh"]["decode_positions_resident"] >= 1
+    assert summary["stepwise"]["decode_launches"] == 7 * (16 + 2)
+    assert summary["stepwise"]["plain"]["next_tokens"] == \
+        summary["stepwise"]["kernel"]["next_tokens"]
+    planted = main["hh_planted"]
+    assert planted["launches"] == 20 and min(planted["heavy_count"]) > 0
+    others = summary["others"]
+    assert set(others) == set(_smoke_others())
+    assert others["mamba2_780m"]["flash_launches"] == 0
+    assert others["whisper_medium"]["flash_by_mask"] == dict(
+        windowed=0, causal=2, unmasked=4)
+    assert "hh" in others["zamba2_7b"]
+    assert launches["flash"]["wgmma"] == sum(
+        r["flash_launches"] for r in [main, *others.values()]) + 7
+    assert launches["decode"]["hh planted"] == 20
+    # kernels 5 and 6 held to the plain versions at every kept shape
+    assert set(main["kernels_vs_plain"]) == {
+        "windowed S=32 T=32", "causal S=32 T=32", "decode C=16",
+        "decode C=32"}
+    assert set(summary["stepwise"]["kernel"]["kernels_vs_plain"]) == {
+        "windowed S=16 T=16", "causal S=16 T=16", "decode C=16",
+        "decode C=32"}
+    assert "unmasked S=32 T=32" in others["whisper_medium"]["kernels_vs_plain"]
+    held = summary["kernels_vs_plain"]
+    assert held["shapes"]["flash"] >= 4 and held["shapes"]["decode"] >= 4
+    assert held["row_share"] == dict(flash=0.0, decode=0.0)
+
+
+def test_model_phase_rejects_a_planted_fault(monkeypatch):
+    """A kernel-5 stand-in whose output has two heads swapped fails the
+    logit check against the plain twin."""
+    from repro_torch import configs
+    from repro_torch.serve import kv_cache
+
+    cs = _chip_smoke()
+    monkeypatch.setattr(kv_cache, "HH_ENGAGE_CTX", 32)
+    _kernels_as_plain(monkeypatch,
+                      flash_fault=lambda out: out[:, :, [1, 0, 2, 3]])
+    with pytest.raises(SystemExit, match="logit"):
+        cs.model_phase(torch.device("cpu"), get=configs.get_smoke,
+                       main=SMOKE_MAIN, stepwise=SMOKE_STEPWISE, others={},
+                       planted=SMOKE_PLANTED, timed=False)
+
+
+def _one_row(t, b, row):
+    """``t`` with request ``b``'s row ``row`` (a query or a cache slot)
+    negated: a fault in one row, which a run's own logits need not see."""
+    t = t.clone()
+    t[b, row] = -t[b, row]
+    return t
+
+
+@pytest.mark.parametrize("fault", [None, "flash", "decode ctx",
+                                   "decode mass"])
+def test_hold_kept_rejects_a_fault_in_one_row(monkeypatch, fault):
+    """``hold_kept`` holds each kept kernel-5 and kernel-6 operand set to
+    the plain versions: a stand-in kernel right everywhere but in one row
+    of request 1 (a query row of flash, a kv-head's ctx or one slot's
+    mass of decode) is rejected, and the right one passes with every
+    planted fault rejected."""
+    cs = _chip_smoke()
+    _kernels_as_plain(
+        monkeypatch,
+        flash_fault=(lambda out: _one_row(out, 1, 3)) if fault == "flash"
+        else None,
+        decode_fault={"decode ctx": lambda ctx, m: (_one_row(ctx, 1, 1), m),
+                      "decode mass": lambda ctx, m: (ctx, _one_row(m, 1, 5)),
+                      }.get(fault))
+    gen = torch.Generator().manual_seed(9)
+    bf16 = torch.bfloat16
+    r = lambda *shape: torch.randn(shape, generator=gen).to(bf16)
+    q, k, v = r(2, 32, 4, 16), r(2, 32, 2, 16), r(2, 32, 2, 16)
+    valid = torch.rand((2, 64), generator=gen) < 0.8
+    operands = {"causal S=32 T=32": (q, k, v, True, 0),
+                "windowed S=32 T=32": (q, k, v, True, 8),
+                "decode C=64": (r(2, 2, 2, 16), r(2, 64, 2, 16),
+                                r(2, 64, 2, 16), valid)}
+    if fault is None:
+        held = cs.hold_kept("smoke", operands)
+        assert set(held) == set(operands)
+        for rec in held.values():
+            assert rec["row_share"] == 0.0
+            assert set(rec["planted_row_shares"]) >= {"wrong kv-head"}
+            assert min(rec["planted_row_shares"].values()) > cs.ROW_SHARE
+        return
+    with pytest.raises(SystemExit, match="kernel vs plain"):
+        cs.hold_kept("smoke", operands)

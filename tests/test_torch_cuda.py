@@ -1174,3 +1174,85 @@ def test_recovery_on_the_card_keeps_the_rows_it_does_not_splice(cuda,
         x.ingest(s[24576:, 0], s[24576:, 1])
     for a, b in zip(sess[cuda].state.bank, sess["cpu"].state.bank):
         assert torch.equal(a.cpu(), b)
+
+
+# -- the model stack and model serving on kernels 5 and 6 (smoke width) ---
+
+def test_model_layers_launch_the_kernels_for_cuda_tensors(cuda):
+    """``attention`` and the decode step's attention launch kernels 5 and
+    6 on CUDA tensors under ``attention="kernel"`` and neither under
+    ``"plain"``, with the same result within bf16 rounding."""
+    from repro_torch import configs
+    from repro_torch.kernels.decode_attention.kernel import \
+        decode_attention_kernel
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_kernel
+    from repro_torch.models import build_model
+    from repro_torch.serve import ServeEngine
+
+    cfg = configs.get_smoke("gemma3_27b")
+    params, _ = build_model(cfg).init(0, device=cuda)
+    toks = torch.randint(0, cfg.vocab_size, (2, 32), device=cuda,
+                         dtype=torch.int32)
+    out = {}
+    for attention in ("kernel", "plain"):
+        flash_attention_kernel.launches = dict.fromkeys(
+            flash_attention_kernel.launches, 0)
+        decode_attention_kernel.launches = 0
+        eng = ServeEngine(cfg, params, 64, attention=attention, device=cuda)
+        out[attention] = eng.generate(toks, 3, keep_logits=True)
+        torch.cuda.synchronize()
+        launched = (sum(flash_attention_kernel.launches.values()),
+                    decode_attention_kernel.launches)
+        assert launched == ((7, 21) if attention == "kernel" else (0, 0))
+    for a, b in zip(out["kernel"]["logits"], out["plain"]["logits"]):
+        np.testing.assert_allclose(a.float().cpu().numpy(),
+                                   b.float().cpu().numpy(), rtol=0.05,
+                                   atol=0.05)
+
+
+def test_f32_params_over_a_bf16_cache_upcast_for_the_kernel(cuda):
+    """f32 params over ``build_cache``'s bf16 cache: the decode kernel
+    takes the cache upcast to f32, the context comes back in bf16, as the
+    plain version's does."""
+    from repro_torch.models import layers as L
+
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    q = torch.randn((2, 2, 2, 16), generator=gen, device=cuda)
+    k, v = (torch.randn((2, 40, 2, 16), generator=gen, device=cuda).bfloat16()
+            for _ in range(2))
+    valid = torch.rand((2, 40), generator=gen, device=cuda) < 0.7
+    ctx, mass = L.decode_attend(q, k, v, valid)
+    pctx, pmass = L.decode_attend(q, k, v, valid, attention="plain")
+    assert ctx.dtype == pctx.dtype == torch.bfloat16
+    np.testing.assert_allclose(ctx.float().cpu().numpy(),
+                               pctx.float().cpu().numpy(), rtol=2e-2,
+                               atol=2e-2)
+    np.testing.assert_allclose(mass.cpu().numpy(), pmass.cpu().numpy(),
+                               rtol=2e-4, atol=2e-5)
+
+
+def test_model_phase_at_smoke_width(cuda, monkeypatch):
+    """chip_smoke's model phase with the kernels at smoke width: launch
+    counts, the plain twins, the SS± invariants of a full cache, the
+    stepwise invariant and the nine other configs."""
+    from repro_torch import configs
+    from repro_torch.serve import kv_cache
+
+    cs = _chip_smoke()
+    monkeypatch.setattr(kv_cache, "HH_ENGAGE_CTX", 32)
+    others = {arch: (32 - configs.get_smoke(arch).vision_tokens,
+                     128 if arch == "zamba2_7b" else 64)
+              for arch in configs.ARCH_IDS if arch != "gemma3_27b"}
+    launches, summary = cs.model_phase(
+        cuda, get=configs.get_smoke,
+        main=dict(arch="gemma3_27b", batch=2, prompt=32, new_tokens=6,
+                  context=128, decay_period=4, seed=3, heavy=4),
+        stepwise=dict(batch=2, prompt=16, context=64, seed=4),
+        others=others, other_tokens=2,
+        planted=dict(batch=2, slots=256, kv=2, g=2, hd=16, steps=20,
+                     decay_period=4, heavy=(3, 200), seed=5), timed=False)
+    assert summary["main"]["hh"]["live"] == 64
+    assert sum(launches["flash"].values()) > 0
+    held = summary["kernels_vs_plain"]
+    assert held["shapes"]["flash"] >= 4 and held["shapes"]["decode"] >= 4
