@@ -297,6 +297,7 @@ from __future__ import annotations
 import json
 import math
 import pathlib
+import statistics
 import subprocess
 import sys
 import time
@@ -2301,7 +2302,9 @@ FLASH_CASES = [
 ]
 # B, KV, G, hd, C, row 0 empty: the reference's grid
 # (tests/test_kernel_decode_attention.py:10) at 70 % valid slots, hd = 30
-# (the scalar loads), then a row with no valid slot
+# (rows staged element by element), a row with no valid slot, then the
+# layouts the other configs give kernel 6: C = 1,500 at G = 1 (Whisper),
+# hd 112 at KV = 32 (Zamba2) and G = 7 (Qwen2)
 DECODE_CASES = [
     (2, 2, 4, 64, 256, False),
     (1, 4, 2, 128, 512, False),
@@ -2309,6 +2312,9 @@ DECODE_CASES = [
     (3, 2, 1, 64, 64, False),
     (2, 2, 2, 30, 100, False),
     (2, 2, 2, 64, 128, True),
+    (2, 16, 1, 64, 1500, False),
+    (2, 32, 1, 112, 512, False),
+    (2, 4, 7, 128, 700, True),
 ]
 
 
@@ -2497,6 +2503,84 @@ def device_kernels(fn, calls: int = 4) -> list:
               if e.device_type == torch.autograd.DeviceType.CUDA]
     return [(e.key[:100], _dev_us(e) / 1e3 / max(e.count, 1), e.count)
             for e in sorted(events, key=_dev_us, reverse=True)[:4]]
+
+
+def host_ms(fn, reps: int = 20) -> float:
+    """The host's ms per call of ``fn``: ``reps`` calls back to back, the
+    device not awaited (a wrapper's checks, allocations and launches)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    out = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    return out
+
+
+L2_FLUSH_BYTES = 64 << 20   # more than the H100's 50 MB L2
+SLEEP_CYCLES = 2_000_000     # ~1 ms of device time, more than a call's host time
+
+
+def l2_evict():
+    """A function that reads 64 MB, evicting the L2 with clean lines."""
+    import torch
+
+    flush = torch.zeros(L2_FLUSH_BYTES // 4, device="cuda")
+    return lambda: flush.sum()
+
+
+def device_span_ms(fn, calls: int = 10, cold: bool = False) -> list:
+    """Device ms of each of ``calls`` calls of ``fn``, from its first
+    launch's start to its last one's end: CUDA events recorded around
+    the call behind a sleep kernel, so the host has enqueued the whole
+    call before the device reaches it and its host time is not in the
+    span. With ``cold``, ``l2_evict`` before each call."""
+    import torch
+
+    evict = l2_evict() if cold else (lambda: None)
+    fn()
+    torch.cuda.synchronize()
+    spans = []
+    for _ in range(calls):
+        evict()
+        torch.cuda._sleep(SLEEP_CYCLES)
+        ev = (torch.cuda.Event(True), torch.cuda.Event(True))
+        ev[0].record()
+        fn()
+        ev[1].record()
+        spans.append(ev)
+    torch.cuda.synchronize()
+    return [a.elapsed_time(b) for a, b in spans]
+
+
+def decode_device_ms(fn, calls: int = 10, cold: bool = False) -> dict:
+    """Kernel 6's device time over ``calls`` calls of ``fn``: per call the
+    median of ``device_span_ms``; per launch, ms of each of its kernels
+    (names with ``decode_``) from the profiler. With ``cold``, the L2 is evicted before each call (a read,
+    so no dirty line is written back during the call), as a decode step
+    does between layers: each reads its own cache."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    spans = device_span_ms(fn, calls, cold)
+    evict = l2_evict() if cold else (lambda: None)
+    for _ in range(3):   # a window the profiler saw no kernel in, again
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                evict()
+                fn()
+            torch.cuda.synchronize()
+        seen = {e.key[:100]: (_dev_us(e) / 1e3 / e.count, e.count)
+                for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and e.count and "decode_" in e.key}
+        if seen:
+            return dict(per_call_ms=statistics.median(spans),
+                        per_call_spans=spans, per_launch=seen, cold_l2=cold)
+    raise SystemExit("the profiler saw no decode kernel on the card")
 
 
 def sdpa(q, k, v, **kw):
@@ -2716,6 +2800,12 @@ def attention_phase(device, seed=6) -> tuple:
         planted_row_shares=planted, mass_bit_equal_across_launches=True,
         ms=time_ms(lambda: decode_attention_kernel(dq, dk, dv, valid), 20),
         kernel_device_ms=device_kernels(
+            lambda: decode_attention_kernel(dq, dk, dv, valid)),
+        device_ms=decode_device_ms(
+            lambda: decode_attention_kernel(dq, dk, dv, valid)),
+        device_ms_cold=decode_device_ms(
+            lambda: decode_attention_kernel(dq, dk, dv, valid), cold=True),
+        host_ms_per_call=host_ms(
             lambda: decode_attention_kernel(dq, dk, dv, valid)),
         plain_ms=time_ms(lambda: decode_attention_ref(dq, dk, dv, valid), 3),
         library_ms=time_ms(lib, 20), library_kernels=device_kernels(lib),
@@ -3354,8 +3444,7 @@ def serve_times(cfg, params, engine, toks, new_tokens, device) -> dict:
             continue
         name = e.key.lower()
         kind = ("decode_attention" if any(
-                    f"decode_{k}_kernel" in name
-                    for k in ("chunk", "combine", "mass"))
+                    f"decode_{k}_kernel" in name for k in ("split", "combine"))
                 else "matmul" if any(s in name for s in
                                      ("gemm", "gemv", "xmma", "cutlass",
                                       "nvjet", "splitk"))
@@ -3407,7 +3496,11 @@ def serving_kernel_times(operands, held) -> dict:
     """Kernels 5 and 6 at the serving shapes the main run gave them (the
     first operands of each kind, kept by ``AttentionSpy``): kernel ms
     (CUDA events), plain ms, one SDPA call, and the bound, beside
-    ``held``, what ``hold_kept`` found on the same operands."""
+    ``held``, what ``hold_kept`` found on the same operands. Kernel 6
+    also by the profiler: device ms per launch and per call, with the L2
+    warm from the call before and cold (``decode_device_ms``), and the
+    wrapper's host ms per call (``host_ms``): back-to-back calls timed
+    with events run at the slower of the two."""
     import torch
     from repro_torch.kernels.decode_attention.kernel import \
         decode_attention_kernel
@@ -3425,10 +3518,17 @@ def serving_kernel_times(operands, held) -> dict:
             lib = sdpa(q.reshape(B, KV * G, 1, hd),
                        *(t.transpose(1, 2).contiguous() for t in (k, v)),
                        attn_mask=valid[:, None, None, :])
+            kern = lambda: decode_attention_kernel(q, k, v, valid)
+            warm, cold = decode_device_ms(kern), decode_device_ms(kern,
+                                                                  cold=True)
             out[key] = dict(
                 shape=dict(B=B, C=k.shape[1], KV=KV, G=G, hd=hd),
-                ms=time_ms(lambda: decode_attention_kernel(q, k, v, valid),
-                           20),
+                ms=time_ms(kern, 20), kernel_device_ms=device_kernels(kern),
+                device_ms_per_call=warm["per_call_ms"],
+                device_ms_per_launch=warm["per_launch"],
+                device_ms_per_call_cold=cold["per_call_ms"],
+                device_ms_per_launch_cold=cold["per_launch"],
+                host_ms_per_call=host_ms(kern),
                 plain_ms=time_ms(lambda: decode_attention_ref(q, k, v, valid),
                                  3),
                 library_ms=time_ms(lib, 20), **decode_bound(q, k, valid))
@@ -5678,7 +5778,10 @@ def main() -> int:
         entry["serving"] = {
             key: {k: t[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
                                     "bound_by", "library_ms", "max_abs_err",
-                                    "row_share", "row_share_limit")}
+                                    "row_share", "row_share_limit",
+                                    "device_ms_per_call",
+                                    "device_ms_per_call_cold",
+                                    "host_ms_per_call") if k in t}
             for key, t in model["serving_kernel_times"].items()
             if key.startswith(prefix)}
     service_profiles(tenant_later, tenant_runs)

@@ -134,9 +134,11 @@ def launch(fn, args: Sequence, device: torch.device, what: str) -> None:
     """``fn(*args, stream)`` on ``device``'s current stream; raises if the
     launch was refused (it would never run, and no synchronise reports
     it)."""
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(*args, stream)
+    if device.index is None or device.index == torch.cuda.current_device():
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    else:   # make the device current for the launch
+        with torch.cuda.device(device):
+            err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
 

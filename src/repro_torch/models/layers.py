@@ -167,15 +167,19 @@ def decode_attend(q, cache_k, cache_v, valid, attention: str = "kernel"):
     the q-heads; 0 on a row with no valid slot). Kernel 6 for CUDA
     tensors under ``attention="kernel"``, its plain version otherwise.
 
-    The kernel takes one dtype: where q is f32 and the cache bf16 (f32
-    params over ``build_cache``'s bf16 cache), the cache is upcast to f32
-    for the call, which is the reference's f32 score product, and ctx is
-    cast back to the cache's dtype, as the reference's is."""
+    Where q is f32 and the cache bf16 (f32 params over ``build_cache``'s
+    bf16 cache), both the kernel and its plain version take the cache as
+    it is and compute in f32, the reference's f32 score product, with ctx
+    in the cache's dtype: bit for bit the call on the cache upcast to f32
+    with ctx cast back, without the upcast copy. Other mixes are promoted
+    to one dtype first."""
     out_dtype = cache_v.dtype
-    dt = torch.promote_types(torch.promote_types(q.dtype, cache_k.dtype),
-                             cache_v.dtype)
-    q, cache_k, cache_v = (t.to(dt).contiguous()
-                           for t in (q, cache_k, cache_v))
+    if not (q.dtype == torch.float32 and cache_k.dtype == torch.bfloat16
+            and cache_v.dtype == torch.bfloat16):
+        dt = torch.promote_types(torch.promote_types(q.dtype, cache_k.dtype),
+                                 cache_v.dtype)
+        q, cache_k, cache_v = (t.to(dt) for t in (q, cache_k, cache_v))
+    q, cache_k, cache_v = (t.contiguous() for t in (q, cache_k, cache_v))
     valid = valid.contiguous()
     if check_attention(attention) == "kernel" and q.is_cuda:
         ctx, mass = decode_attention_kernel(q, cache_k, cache_v, valid)

@@ -782,8 +782,13 @@ FLASH_CARD_CASES = [
     (1, 130, 300, 2, 2, 256, False, 0),
 ]
 # B, KV, G, hd, C, row 0 empty: the reference's decode grid, a C that is
-# not a multiple of the kernel's chunk, hd = 80, 20 and 30 (rows not
-# 16-byte multiples in bf16, and in f32 at 30), and rows with no valid slot
+# not a multiple of the kernel's chunk, hd = 80, 20 and 30 (20 and 30 are
+# not whole 8-element units: staged element by element), rows with no
+# valid slot; then the two Gemma3-27B serving shapes (the SS± cache and a
+# ring cache), C = 1,500 at G = 1 (Whisper's cross-attention), hd 112 at
+# KV = 32 (Zamba2: 512 consumer threads), G = 7 (Qwen2: two lane groups
+# a kv-head, merged in order), G = 16 at hd 256 (four head groups) and
+# KV = 1,100 (three head groups; the combine's pairs in two tiles)
 DECODE_CARD_CASES = [
     (2, 2, 4, 64, 256, False),
     (1, 4, 2, 128, 512, False),
@@ -794,6 +799,13 @@ DECODE_CARD_CASES = [
     (2, 2, 2, 30, 100, False),
     (2, 2, 2, 64, 128, True),
     (3, 1, 2, 80, 200, True),
+    (2, 16, 2, 128, 8192, False),
+    (2, 16, 2, 128, 1024, False),
+    (2, 16, 1, 64, 1500, False),
+    (2, 32, 1, 112, 512, False),
+    (2, 4, 7, 128, 700, True),
+    (1, 16, 16, 256, 100, False),
+    (1, 1100, 1, 8, 40, False),
 ]
 
 
@@ -910,6 +922,48 @@ def test_decode_attention_mass_is_the_same_from_launch_to_launch(cuda):
     assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
 
 
+@pytest.mark.parametrize("case", [(2, 4, 2, 64, 300, False),
+                                  (2, 16, 2, 128, 1024, False),
+                                  (1, 2, 3, 20, 100, True)], ids=str)
+def test_decode_attention_f32_query_over_a_bf16_cache(cuda, case):
+    """An f32 q over a bf16 cache reads the bf16 rows as they are: ctx (in
+    bf16) and mass equal, bit for bit, the call on the cache upcast to f32
+    with ctx cast to bf16 (bf16 to f32 is exact, and the layout does not
+    depend on the dtype)."""
+    from repro_torch.kernels.decode_attention.kernel import \
+        decode_attention_kernel
+
+    B, KV, G, hd, C, empty_row = case
+    gen = torch.Generator(device=cuda).manual_seed(C + hd + 24)
+    q = _rand(gen, (B, KV, G, hd), torch.float32, cuda)
+    k = _rand(gen, (B, C, KV, hd), torch.bfloat16, cuda)
+    v = _rand(gen, (B, C, KV, hd), torch.bfloat16, cuda)
+    valid = torch.rand((B, C), generator=gen, device=cuda) < 0.7
+    if empty_row:
+        valid[0] = False
+    ctx, mass = decode_attention_kernel(q, k, v, valid)
+    up_ctx, up_mass = decode_attention_kernel(q, k.float(), v.float(), valid)
+    torch.cuda.synchronize()
+    assert ctx.dtype == torch.bfloat16 and up_ctx.dtype == torch.float32
+    assert torch.equal(ctx, up_ctx.to(torch.bfloat16))
+    assert torch.equal(mass, up_mass)
+
+
+def test_decode_layout_is_the_built_sources(cuda):
+    """``decode_layout`` against the layout the built source computes, on
+    every shape of the card cases, the serving shapes and the edges of
+    the thread budget."""
+    from repro_torch.kernels.decode_attention import kernel
+
+    shapes = [(B, C, KV, G, hd) for B, KV, G, hd, C, _ in DECODE_CARD_CASES]
+    shapes += [(8, 8192, 16, 2, 128), (1, 131072, 8, 4, 128),
+               (1, 40, 64, 16, 256), (300, 10, 1, 1, 8), (2, 77, 3, 9, 250),
+               (4, 5000, 1024, 1, 8), (1, 3, 2, 70, 30)]
+    for shape in shapes:
+        assert kernel.source_layout(*shape) == kernel.decode_layout(*shape), \
+            shape
+
+
 def test_attention_ops_launch_the_kernels_for_cuda_tensors(cuda):
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.decode_attention.kernel import \
@@ -936,8 +990,8 @@ def test_attention_ops_launch_the_kernels_for_cuda_tensors(cuda):
 # names it, the text replaced, its replacement), at the full-width shapes
 # of chip_smoke.py: in the wgmma flash kernel, the first of the eight
 # wgmmas of one kv tile's P·V (16 keys) dropped in the heaviest work item
-# (the last q tile of head 0); one chunk dropped from decode's combine for
-# (b 0, kv-head 0). chip_smoke.py's row check must pass the kernel as it
+# (the last q tile of head 0); one chunk (the middle one) dropped from
+# decode's combine for (b 0, kv-head 0), every q-head of it. chip_smoke.py's row check must pass the kernel as it
 # is and reject the mutant, which the old tolerance alone lets through.
 MUTANTS = {
     "flash_attention": (
@@ -957,9 +1011,9 @@ MUTANTS = {
         "        }"),
     "decode_attention": (
         "SOURCE",
-        "        acc = fmaf(part[(size_t)j * G * p.hd], weight[j], acc);",
-        "        if (!(b == 0 && kvh == 0 && j == nc / 2))\n"
-        "          acc = fmaf(part[(size_t)j * G * p.hd], weight[j], acc);"),
+        "            acc = fmaf(cb[x], w, acc);",
+        "            if (!(b == 0 && pair / G == 0 && j0 + x * JS == nc / 2))\n"
+        "              acc = fmaf(cb[x], w, acc);"),
 }
 
 
@@ -1213,8 +1267,9 @@ def test_model_layers_launch_the_kernels_for_cuda_tensors(cuda):
 
 def test_f32_params_over_a_bf16_cache_upcast_for_the_kernel(cuda):
     """f32 params over ``build_cache``'s bf16 cache: the decode kernel
-    takes the cache upcast to f32, the context comes back in bf16, as the
-    plain version's does."""
+    reads the bf16 cache with the f32 query (the same result as the cache
+    upcast to f32, without the copy), the context comes back in bf16, as
+    the plain version's does."""
     from repro_torch.models import layers as L
 
     gen = torch.Generator(device=cuda).manual_seed(1)

@@ -1,9 +1,10 @@
-"""The layout rules of the sketch kernels with layouts (1, 2 and 3): the
-wrappers' limits are the CUDA sources' own, each size names the layout the
-sources choose for it, and each layout counts its own launches. (On the
-card, each C entry point refuses a launch whose layout disagrees with
-its rule: ``tests/test_torch_cuda.py`` and ``chip_smoke.py`` run both
-sides of every limit.)"""
+"""The layout rules of the kernels with layouts (sketch kernels 1, 2 and
+3, and decode attention, kernel 6): the wrappers' limits are the CUDA
+sources' own, each size names the layout the sources choose for it, and
+each layout counts its own launches. (On the card, each C entry point
+refuses a launch whose layout disagrees with its rule:
+``tests/test_torch_cuda.py`` and ``chip_smoke.py`` run both sides of
+every limit, and hold ``decode_layout`` to the built source's.)"""
 from __future__ import annotations
 
 import re
@@ -12,10 +13,11 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels.decode_attention import kernel as decode
 from repro_torch.kernels.sketch_update import kernel
 
 
-def _constants(source: str) -> dict:
+def _constants(source) -> dict:
     text = (kernel.CSRC / source).read_text()
     return {name: int(v) for name, v in
             re.findall(r"constexpr int (k\w+) = (\d+);", text)}
@@ -76,3 +78,28 @@ def test_unbiased_layout_limit_is_the_source():
     (16385, "global"), (400000, "global")])
 def test_unbiased_layout_by_slots(K, want):
     assert kernel.unbiased_layout(K) == want
+
+
+def test_decode_layout_constants_are_the_sources():
+    got = _constants(decode.SOURCE)
+    assert (decode.G_MAX, decode.THREADS_MAX, decode.THREADS_MAX_WIDE,
+            decode.MIN_THREADS, decode.STAGE_F32_BYTES, decode.SUB_MAX,
+            decode.SCORE_FLOATS, decode.CHUNK_MAX, decode.TARGET_CTAS,
+            decode.COMBINE_CTAS, decode.COMBINE_SLOTS) == (
+        got["kGMax"], got["kThreadsMax"], got["kThreadsMaxWide"],
+        got["kMinThreads"], got["kStageF32Bytes"], got["kSubMax"],
+        got["kScoreFloats"], got["kChunkMax"], got["kTargetCtas"],
+        got["kCombineCtas"], got["kCombineSlots"])
+
+
+# B, C: the Gemma3-27B serving shapes (KV = 16, G = 2, hd = 128): the SS±
+# heavy-hitter cache, a ring cache, and the attention phase's decode step
+@pytest.mark.parametrize("B,C,chunk", [(2, 8192, 64), (2, 1024, 8),
+                                       (8, 8192, 256)])
+def test_decode_chunks_cover_the_card_at_the_serving_shapes(B, C, chunk):
+    """One CTA holds every kv-head of its slots, and both launches have at
+    least one CTA for each of the H100's 132 SMs."""
+    lay = decode.decode_layout(B, C, 16, 2, 128)
+    assert lay.chunk == chunk and lay.kv_groups == lay.g_groups == 1
+    assert lay.split_ctas * B >= 132 and lay.combine * B >= 132
+    assert (lay.threads, lay.rep, lay.sub) == (256, 1, 8)
