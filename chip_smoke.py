@@ -281,6 +281,38 @@ result):
      launch counts checked, and its kernels on their operands
      (``hold_kept``).
 
+8. the train phase (``train_phase``): training through ``Trainer`` on
+   kernel 5 (the forward of every attention layer; ``FlashAttentionFn``
+   gives its backward, the plain attention's gradient) and kernel 1 (the
+   SS± token and expert trackers), random bf16 weights from a seed:
+   - main: Qwen3-0.6B at full width and depth (28 layers), B = 4 x 2,048
+     tokens of ``TokenPipeline``'s Zipf stream a step, remat on, 16
+     steps. One step against its plain twin (``attention="plain"``, the
+     same state and batch: loss within 2^-8, gradient norm within 2^-5,
+     each master leaf within 2 lr and at most 2^-3 of its weights a sign
+     flip apart, ``TWIN_*``); every counter reset before the run and read
+     after: kernel 5 twice a layer a step (remat's recompute the second),
+     kernel 1 once a step, no other kernel and no plain version; every
+     loss and gradient norm finite, the mean loss of the last 4 steps
+     below step 1's, every master leaf moved and each param its cast;
+     the token tracker bit for bit a CPU twin fed the same tokens;
+     kernel 5 held to its plain version on the run's own operands
+     (``hold_kept``) and ``FlashAttentionFn``'s input gradients equal to
+     autograd's of the plain attention (``hold_grads``); times: ms a step
+     after 2 warm-up steps, tokens/s, peak memory, kernel 5 and the
+     attention backward at the training shape beside their bounds (and
+     one SDPA call), one profiled step (device busy and idle, the device
+     ms of the matmuls, kernel 5, the attention backward, the optimizer
+     and the rest), beside ``roofline_terms``;
+   - moe: OLMoE-1B-7B at full width (64 experts, top-8, d 2,048) on 2
+     layers (depth cut), B = 4 x 1,024, 8 steps: the same checks but the
+     loss's fall and the times, the expert tracker fed every step's
+     counts (B·S·8·2 routed tokens) and bit for bit its CPU twin;
+   - the reference's trainer cases at its shape (smoke Qwen3, seq_len
+     32, B = 4): 8 straight steps against 4, save, resume, 4 more (the
+     last loss within rtol 1e-5, bit-equality recorded); a stop after 3
+     steps saves at step 3; the token sketch survives a resume.
+
 The line before the last two is ``{"kernels": [...]}`` (the six ported
 kernels and the port's own unbiased kernel, which replaces the
 reference's plain-JAX scan; the entries of flash and of kernels 1-3
@@ -288,7 +320,10 @@ give their launches by path, kernels 1-4 and the unbiased kernel also
 ``stream_ms``; flash's and decode's launches include the model phase's,
 decode's by run in ``launches_by_run``, their ``max_abs_err`` the
 model phase's shapes too, and both give their times and row shares at
-the serving shapes under ``serving``);
+the serving shapes under ``serving``; flash's launches include the
+train phase's, ``training_launches`` of them, its ``max_abs_err`` the
+training shapes' rows and gradients, its times at the training shape
+under ``training``; kernel 1's include the trainers' trackers);
 the last line is ``{"ok": true, "device": {...}}``. A summary also goes to
 ``chiprun_out/chip_smoke.json``.
 """
@@ -3573,8 +3608,6 @@ def model_phase(device, get=None, main=MODEL_MAIN, stepwise=MODEL_STEPWISE,
     ones, cut to one period, by default; the CPU rehearsal passes the
     smoke ones with its own sizes). Returns (launches of kernel 5 by path
     and of kernel 6 by run, the phase's summary)."""
-    import gc
-
     import torch
     from repro_torch import configs
     from repro_torch.models import build_model
@@ -3594,11 +3627,6 @@ def model_phase(device, get=None, main=MODEL_MAIN, stepwise=MODEL_STEPWISE,
         for path, n in rec["flash_by_path"].items():
             launches["flash"][path] = launches["flash"].get(path, 0) + n
         launches["decode"][run] = rec["decode_launches"]
-
-    def free():
-        gc.collect()
-        if torch.device(device).type == "cuda":
-            torch.cuda.empty_cache()
 
     rec, res, twins, operands = serve_run(
         f"model {c['arch']} main", cfg, params, c["prompt"], c["context"],
@@ -3626,19 +3654,19 @@ def model_phase(device, get=None, main=MODEL_MAIN, stepwise=MODEL_STEPWISE,
         rec["times"] = serve_times(cfg, params, engine, toks,
                                    c["new_tokens"], device)
         del engine, toks
-    free()
+    gc_free(device)
     reset_counts()
     step_rec = stepwise_invariant(cfg, params, device, stepwise)
     add("stepwise invariant", step_rec)
     del params
-    free()
+    gc_free(device)
     kernel_times = (serving_kernel_times(operands, rec["kernels_vs_plain"])
                     if timed else {})
     del operands
-    free()
+    gc_free(device)
     rec["hh_planted"] = hh_planted(device, planted)
     launches["decode"]["hh planted"] = rec["hh_planted"]["launches"]
-    free()
+    gc_free(device)
 
     other_recs = {}
     for i, (arch, (prompt, context)) in enumerate(others.items()):
@@ -3660,7 +3688,7 @@ def model_phase(device, get=None, main=MODEL_MAIN, stepwise=MODEL_STEPWISE,
         other_recs[arch] = orec
         add(arch, orec)
         del oparams, res, twins
-        free()
+        gc_free(device)
     # every shape the phase's kernel runs gave kernels 5 and 6, held
     held = dict(shapes=dict(flash=0, decode=0),
                 max_abs_err=dict(flash=0.0, decode=0.0),
@@ -3682,6 +3710,534 @@ def model_phase(device, get=None, main=MODEL_MAIN, stepwise=MODEL_STEPWISE,
         f"{json.dumps(launches)}, kernels vs plain at the runs' shapes "
         f"{json.dumps(held)}")
     return launches, summary
+
+
+# ---------------------------------------------------------------------------
+# Training: the Trainer on kernel 5 (the forward of every attention layer,
+# FlashAttentionFn's backward) and kernel 1 (its SS± trackers)
+# ---------------------------------------------------------------------------
+
+# Qwen3-0.6B at full width and depth (28 layers, d 1,024, 16 q-heads over
+# 8 kv-heads, hd 128, vocab 151,936, tied embeddings), random bf16 init
+# from the seed, remat on: 4 x 2,048 tokens a step, 16 steps, the first 2
+# warm-up for the times
+TRAIN_MAIN = dict(arch="qwen3_0_6b", seq_len=2048, batch=4, steps=16,
+                  warmup=2, seed=25, loss_falls=True)
+# OLMoE-1B-7B at full width (64 experts, top-8, d 2,048), depth cut to 2
+TRAIN_MOE = dict(arch="olmoe_1b_7b", layers=2, seq_len=1024, batch=4,
+                 steps=8, seed=26)
+# the reference's trainer cases (tests/test_fault_tolerance.py:74-81):
+# smoke Qwen3, seq_len 32, global_batch 4, token stats of 64 counters
+# over a window of 4
+TRAIN_RESUME = dict(arch="qwen3_0_6b", seq_len=32, batch=4, straight=8,
+                    stop_after=3, sketch_steps=6)
+# the reference test's own tolerance on the resumed loss; the card's
+# float scatters (the embedding's gradient) need not add in one order
+RESUME_RTOL = 1e-5
+# One step with kernel 5 against its plain twin (attention="plain", the
+# same state and batch). Both keep a bf16 model, whose roundings the
+# kernel's bf16 P in P·V moves (the model phase's logit rows); limits set
+# before the first run from bf16's precision: the loss within one bf16
+# ulp (2^-8), the gradient's norm within 2^-5. A weight moves by about
+# lr at step 1 whatever its gradient's size (mh / sqrt(vh) = sign(g)):
+# where a gradient lies within the two runs' difference of 0 its sign,
+# and so the weight's move, may differ by 2 lr. So each master leaf is
+# held within 2 lr (+1 %) everywhere, and at most TWIN_FLIP_SHARE of its
+# weights may be more than lr / 2 apart. A dropped attention gradient
+# would move every weight of wq, wk and wv by lr against the twin.
+TWIN_LOSS_RTOL = 2.0**-8
+TWIN_GRAD_NORM_RTOL = 2.0**-5
+TWIN_FLIP_SHARE = 2.0**-3
+# the profiled step's spans (``profile_train_step``)
+TRAIN_SPANS = ("attention backward", "optimizer")
+
+
+def flat_tree(tree, prefix=""):
+    """{path: leaf} of nested dicts, paths joined by "/"."""
+    if isinstance(tree, dict):
+        return {p: v for k, v in tree.items()
+                for p, v in flat_tree(v, f"{prefix}/{k}").items()}
+    return {prefix: tree}
+
+
+def check_train_launches(label, counts, flash, fused, spy) -> tuple:
+    """``flash`` launches of kernel 5 and ``fused`` of kernel 1 (by the
+    counters), no other kernel, no plain version through the layers.
+    Returns (kernel 5's by path, kernel 1's by layout)."""
+    def part(name):
+        return {k.split("[")[1][:-1]: n for k, n in counts.items()
+                if k.startswith(name + "[") and n}
+
+    fl, fu = part(FLASH), part(FUSED)
+    others = {k: n for k, n in counts.items()
+              if n and not k.startswith((FLASH + "[", FUSED + "["))}
+    if sum(fl.values()) != flash or sum(fu.values()) != fused or others \
+            or any(spy.plain.values()):
+        raise SystemExit(f"{label}: launches {counts}, plain calls "
+                         f"{spy.plain}; expected {flash} of {FLASH}, {fused} "
+                         f"of {FUSED}, no other kernel, no plain version")
+    return fl, fu
+
+
+def train_twin(label, tr, cfg, batch) -> dict:
+    """One step of the trainer's step function (kernel 5) and of its plain
+    twin from the trainer's state on ``batch``: loss, gradient norm and
+    master weights held as TWIN_* say; the twin launches no kernel."""
+    import torch
+    from repro_torch.train import build_train_step
+
+    got, gm = tr._step(tr.state, batch)
+    reset_counts()
+    with AttentionSpy() as spy:
+        want, wm = build_train_step(cfg, attention="plain")(tr.state, batch)
+        sync(batch["tokens"].device)
+    if any(read_counts().values()) or not spy.plain["flash"]:
+        raise SystemExit(f"{label} twin: launches {read_counts()}, plain "
+                         f"calls {spy.plain}")
+    lr = float(wm["lr"])
+    rec = dict(loss=float(gm["loss"]), twin_loss=float(wm["loss"]),
+               grad_norm=float(gm["grad_norm"]),
+               twin_grad_norm=float(wm["grad_norm"]), lr=lr,
+               loss_rtol=TWIN_LOSS_RTOL, grad_norm_rtol=TWIN_GRAD_NORM_RTOL,
+               flip_share_limit=TWIN_FLIP_SHARE)
+    rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)  # noqa: E731
+    if not rel(rec["loss"], rec["twin_loss"]) <= TWIN_LOSS_RTOL or \
+            not rel(rec["grad_norm"], rec["twin_grad_norm"]) \
+            <= TWIN_GRAD_NORM_RTOL:
+        raise SystemExit(f"{label}: the kernel step's loss or gradient norm "
+                         f"is not its plain twin's: {rec}")
+    worst, flips = 0.0, {}
+    got_m, want_m = flat_tree(got.opt.master), flat_tree(want.opt.master)
+    for path, w in want_m.items():
+        err = (got_m[path] - w).abs()
+        worst = max(worst, float(err.max()))
+        flips[path] = float((err > lr / 2).float().mean())
+        if float(err.max()) > 2.02 * lr or flips[path] > TWIN_FLIP_SHARE:
+            raise SystemExit(f"{label}: master {path} moved otherwise than "
+                             f"its plain twin's: max {float(err.max())}, "
+                             f"share past lr / 2 {flips[path]}")
+    rec.update(master_max_abs_err=worst, master_flip_share=max(
+        flips.values()), master_flip_share_by_leaf=flips)
+    log(f"{label} against its plain twin: {json.dumps(rec)}")
+    del got, want
+    return rec
+
+
+def hold_grads(label, operands, seed=27) -> dict:
+    """``FlashAttentionFn``'s input gradients against autograd of the
+    plain attention on each kept flash shape, one seeded bf16 cotangent:
+    equal, bit for bit (its backward is that plain VJP)."""
+    import torch
+    from repro_torch.kernels.flash_attention.ops import FlashAttentionFn
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    out = {}
+    for key, (q, k, v, causal, window) in operands.items():
+        if key.startswith("decode"):
+            continue
+        gen = torch.Generator(device=q.device).manual_seed(seed)
+        dout = randn(tuple(q.shape), q.dtype, gen, q.device)
+        grads = []
+        for fn in (lambda *t: FlashAttentionFn.apply(*t, causal, window),
+                   lambda *t: flash_attention_ref(*t, causal=causal,
+                                                  window=window)):
+            leaves = [t.detach().contiguous().requires_grad_(True)
+                      for t in (q, k, v)]
+            grads.append(torch.autograd.grad(fn(*leaves), leaves, dout))
+        diff = [float((a.float() - b.float()).abs().max())
+                for a, b in zip(*grads)]
+        if not all(torch.equal(a, b) for a, b in zip(*grads)):
+            raise SystemExit(f"{label} {key}: FlashAttentionFn's gradients "
+                             f"differ from the plain attention's: {diff}")
+        out[key] = dict(max_abs_err=max(diff))
+        del grads, dout
+    log(f"{label} FlashAttentionFn against autograd of the plain "
+        f"attention: {json.dumps(out)}")
+    return out
+
+
+def attribute_step(prof) -> dict:
+    """Device ms of a profiled train step by kind: each kernel under one
+    of TRAIN_SPANS (the nearest enclosing span of the op that launched
+    it), else kernel 5 by name, else the matmuls by name, else the rest.
+    ``attributed_ms`` against ``busy_ms`` says how much of the device
+    time the op tree linked to a launching op."""
+    import torch
+
+    CUDA = torch.autograd.DeviceType.CUDA
+    kinds = dict.fromkeys(("matmul", "kernel 5", *TRAIN_SPANS, "other"), 0.0)
+    events = list(prof.events())
+    busy = sum(e.time_range.end - e.time_range.start for e in events
+               if e.device_type == CUDA and e.name not in TRAIN_SPANS)
+
+    def span_of(e):
+        while e is not None:
+            if e.name in TRAIN_SPANS:
+                return e.name
+            e = e.cpu_parent
+        return None
+
+    def by_name(name):
+        low = name.lower()
+        if "flash_" in low and "_kernel" in low:
+            return "kernel 5"
+        if any(s in low for s in ("gemm", "gemv", "xmma", "cutlass", "nvjet",
+                                  "splitk")):
+            return "matmul"
+        return "other"
+
+    seen = 0.0
+    for e in events:
+        if e.device_type == CUDA:
+            continue
+        span = span_of(e)
+        for k in getattr(e, "kernels", ()):
+            kinds[span or by_name(k.name)] += k.duration
+            seen += k.duration
+    return dict(busy_ms=busy / 1e3, attributed_ms=seen / 1e3,
+                device_ms_by_kind={k: v / 1e3 for k, v in kinds.items()})
+
+
+def profile_train_step(tr) -> dict:
+    """One more step of ``tr`` under the profiler, the attention backward
+    (``FlashAttentionFn.backward``) and the optimizer (``adamw_update``)
+    each in a span: wall ms, device busy ms and its kinds
+    (``attribute_step``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.kernels.flash_attention.ops import FlashAttentionFn
+    from repro_torch.train import step as tstep
+
+    backward, update = FlashAttentionFn.backward, tstep.adamw_update
+
+    def spanned(name, fn):
+        def run(*a, **kw):
+            with record_function(name):
+                return fn(*a, **kw)
+        return run
+
+    FlashAttentionFn.backward = staticmethod(spanned(TRAIN_SPANS[0],
+                                                     backward))
+    tstep.adamw_update = spanned(TRAIN_SPANS[1], update)
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            tr.run(1)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        FlashAttentionFn.backward = staticmethod(backward)
+        tstep.adamw_update = update
+    out = dict(wall_ms=wall, **attribute_step(prof))
+    top = sorted((e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA),
+                 key=_dev_us, reverse=True)[:12]
+    out["top_device"] = [(e.key[:80], _dev_us(e) / 1e3, e.count) for e in top]
+    out["idle_share"] = 1 - out["busy_ms"] / wall if wall else None
+    return out
+
+
+def train_step_bounds(cfg, seq_len, batch) -> dict:
+    """``roofline_terms`` of one train step at this shape, remat on (flops:
+    ``model_flops``, bytes: ``analytic_hbm_bytes``)."""
+    from repro_torch.configs import InputShape
+    from repro_torch.roofline.model import (analytic_hbm_bytes, model_flops,
+                                            roofline_terms)
+
+    shape = InputShape("train", seq_len, batch, "train")
+    terms = roofline_terms(
+        hlo_flops_global=model_flops(cfg, shape),
+        hlo_bytes_global=analytic_hbm_bytes(cfg, shape, remat=True),
+        collective_bytes_global=0.0, chips=1, cfg=cfg, shape=shape,
+        remat=True)
+    return dict(terms.to_dict(), bound_ms=terms.bound_time_s * 1e3,
+                analytic_memory_ms=terms.memory_s_analytic * 1e3)
+
+
+def backward_times(operands) -> dict:
+    """The attention backward at each kept training shape: ms of one
+    ``FlashAttentionFn`` backward (the plain VJP with its recompute of
+    the (S, T) f32 scores), beside its bound (q, k, v, dout read and dq,
+    dk, dv written once; 8·hd FLOPs per allowed pair and q-head: dP,
+    dV, dQ, dK)."""
+    import torch
+    from repro_torch.kernels.flash_attention.ref import (allowed_pairs,
+                                                         flash_attention_ref)
+
+    out = {}
+    for key, (q, k, v, causal, window) in operands.items():
+        if key.startswith("decode"):
+            continue
+        B, S, H, hd = q.shape
+        leaves = [t.detach().contiguous().requires_grad_(True)
+                  for t in (q, k, v)]
+        dout = torch.ones_like(q)
+        ms = time_ms(lambda: torch.autograd.grad(flash_attention_ref(
+            *leaves, causal=causal, window=window), leaves, dout), 3, 1)
+        pairs = int(allowed_pairs(S, k.shape[1], causal, window).sum())
+        nbytes = q.element_size() * (4 * q.numel() + 4 * k.numel())
+        out[key] = dict(ms=ms, **bound(nbytes, 8 * B * H * hd * pairs))
+        del leaves, dout
+    log(f"attention backward at the training shapes: {json.dumps(out)}")
+    return out
+
+
+def train_main(label, cfg, c, device, tmp, timed=True) -> dict:
+    """The Trainer on ``cfg`` for ``c["steps"]`` steps (see TRAIN_MAIN):
+    its plain twin on the first batch, then the counted run (kernel 5
+    twice a layer a step, remat's recompute the second; kernel 1 once a
+    step for the token tracker and once for the expert tracker of a MoE
+    model), every loss and gradient norm finite, the master weights
+    moved with the params their bf16 casts, the loss falling where
+    ``c["loss_falls"]`` (the mean of the last 4 below step 1's), the
+    trackers equal to CPU twins fed
+    the same tokens and expert counts, kernel 5 held to its plain
+    version and ``FlashAttentionFn`` to the plain gradient on the run's
+    own operands; then times, memory, a profiled step and the bounds."""
+    import numpy as np
+    import torch
+    from repro_torch.data import DataConfig
+    from repro_torch.sketch.stats import ExpertLoadStats, TokenStats
+    from repro_torch.train import Trainer, TrainerConfig
+
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=c["seq_len"],
+                    global_batch=c["batch"], seed=c["seed"])
+    tc = TrainerConfig(total_steps=c["steps"], ckpt_every=0, ckpt_dir=tmp,
+                       log_every=1, seed=c["seed"])
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, dc, tc, device=device)
+    sync(device)
+    init_s = time.perf_counter() - t0
+    twin = train_twin(label, tr, cfg, {
+        k: torch.from_numpy(v).to(device)
+        for k, v in tr.pipeline.batch_at(0).items()})
+    start = {p: t.clone() for p, t in flat_tree(tr.state.opt.master).items()}
+    fed = []
+    if tr.expert_stats is not None:
+        update = tr.expert_stats.update
+
+        def record(counts):
+            fed.append(np.array(counts))
+            update(counts)
+        tr.expert_stats.update = record
+    gc_free(device)
+    layers = sum(expected_masks(cfg).values())
+    reset_counts()
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    with AttentionSpy(keep=True) as spy:
+        out = tr.run()
+        sync(device)
+    peak = (torch.cuda.max_memory_allocated() if device.type == "cuda"
+            else None)
+    steps = c["steps"]
+    trackers = 1 + (tr.expert_stats is not None)
+    flash_by_path, fused_by_layout = check_train_launches(
+        label, read_counts(), 2 * layers * steps, trackers * steps, spy)
+    if spy.masks != dict(windowed=0, causal=2 * layers * steps, unmasked=0):
+        raise SystemExit(f"{label}: attention calls {spy.masks}")
+    log_ = tr.metrics_log
+    losses = [r["loss"] for r in log_]
+    norms = [r["grad_norm"] for r in log_]
+    if out["final_step"] != steps or len(losses) != steps or not all(
+            math.isfinite(x) for x in losses + norms):
+        raise SystemExit(f"{label}: {out}, losses {losses}, norms {norms}")
+    if c.get("loss_falls") and not statistics.mean(losses[-4:]) < losses[0]:
+        raise SystemExit(f"{label}: the loss did not fall: {losses}")
+    params, master = flat_tree(tr.state.params), flat_tree(
+        tr.state.opt.master)
+    for path, w in master.items():
+        if torch.equal(w, start[path]) or not torch.equal(
+                params[path], w.to(params[path].dtype)):
+            raise SystemExit(f"{label}: {path} did not move, or its param "
+                             f"is not its master weight's cast")
+    del start
+    # the trackers against CPU twins fed the same tokens and counts
+    tok = TokenStats(capacity=tc.token_stats_capacity,
+                     window=tc.token_stats_window, device="cpu")
+    for i in range(steps):
+        tok.update(tr.pipeline.batch_at(i)["tokens"])
+    twins = [("token", tr.token_stats, tok)]
+    if tr.expert_stats is not None:
+        exp = ExpertLoadStats(cfg.num_experts, device="cpu")
+        routed = c["batch"] * c["seq_len"] * cfg.experts_per_token * \
+            cfg.num_layers
+        if len(fed) != steps or any(int(f.sum()) != routed for f in fed):
+            raise SystemExit(f"{label}: the expert tracker was fed "
+                             f"{[int(f.sum()) for f in fed]}, expected "
+                             f"{steps} steps of {routed}")
+        for f in fed:
+            exp.update(f)
+        twins.append(("expert", tr.expert_stats, exp))
+    for name, got, want in twins:
+        g, w = got.state_dict(), want.state_dict()
+        if (got.insertions, got.deletions) != (want.insertions,
+                                               want.deletions) or not all(
+                np.array_equal(np.asarray(g[k]), np.asarray(w[k]))
+                for k in ("ids", "counts", "errors")):
+            raise SystemExit(f"{label}: the {name} tracker differs from its "
+                             f"CPU twin")
+    operands = {key: tuple(t.detach() if torch.is_tensor(t) else t
+                           for t in ops) for key, ops in spy.operands.items()}
+    held = hold_kept(label, operands)
+    grads = hold_grads(label, operands)
+    times = [r["step_time_s"] * 1e3 for r in log_]
+    timed_ms = times[c.get("warmup", 0):]
+    tokens = c["batch"] * c["seq_len"]
+    rec = dict(
+        config=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
+        heads=cfg.num_heads, kv_heads=cfg.num_kv_heads,
+        head_dim=cfg.resolved_head_dim, vocab=cfg.vocab_size,
+        experts=cfg.num_experts, batch=c["batch"], seq_len=c["seq_len"],
+        steps=steps, init_s=init_s, twin=twin, losses=losses,
+        grad_norms=norms, step_ms=times,
+        step_ms_median=statistics.median(timed_ms),
+        tokens_per_s=tokens / (statistics.median(timed_ms) / 1e3),
+        peak_memory_gb=peak / 1e9 if peak is not None else None,
+        flash_launches=2 * layers * steps, flash_by_path=flash_by_path,
+        fused_launches=trackers * steps, fused_by_layout=fused_by_layout,
+        kernels_vs_plain=held, flash_grads_vs_plain=grads,
+        trackers_vs_cpu=[name for name, _, _ in twins])
+    if timed:
+        rec["kernel_times"] = serving_kernel_times(operands, held)
+        rec["backward_times"] = backward_times(operands)
+        rec["profiled_step"] = profile_train_step(tr)
+        rec["bounds"] = train_step_bounds(cfg, c["seq_len"], c["batch"])
+    log(f"{label}: {json.dumps({k: v for k, v in rec.items() if k not in ('twin', 'kernels_vs_plain')})}")
+    del tr, operands, spy
+    gc_free(device)
+    return rec
+
+
+def gc_free(device) -> None:
+    import gc
+
+    import torch
+
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def train_resume(device, c, tmp) -> dict:
+    """The reference's three trainer cases at its shape (TRAIN_RESUME) on
+    ``device``: 8 straight steps against 4, save, a new Trainer, resume
+    and 4 more (the last loss within RESUME_RTOL; whether every resumed
+    loss is bit for bit the straight run's is recorded); a stop after 3
+    steps saves at the final step; the token sketch survives a resume."""
+    import pathlib
+
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.data import DataConfig
+    from repro_torch.train import Trainer, TrainerConfig
+    from repro_torch.train import checkpoint as ckpt
+
+    cfg = configs.get_smoke(c["arch"])
+    tmp = pathlib.Path(tmp)
+
+    def make(d, steps, ckpt_every=100):
+        return Trainer(cfg, DataConfig(vocab_size=cfg.vocab_size,
+                                       seq_len=c["seq_len"],
+                                       global_batch=c["batch"]),
+                       TrainerConfig(total_steps=steps,
+                                     ckpt_every=ckpt_every,
+                                     ckpt_dir=str(tmp / d), log_every=1,
+                                     token_stats_capacity=64,
+                                     token_stats_window=4), device=device)
+
+    n = c["straight"]
+    a = make("a", n)
+    a.run()
+    first = make("b", n // 2)
+    first.run()
+    first.save()
+    b = make("b", n)
+    if not b.try_resume() or (b.step_num, b.pipeline.cursor) != (n // 2,
+                                                                n // 2):
+        raise SystemExit(f"train resume: resumed at {b.step_num}")
+    b.run(n // 2)
+    straight = [r["loss"] for r in a.metrics_log[n // 2:]]
+    resumed = [r["loss"] for r in b.metrics_log]
+    if not abs(resumed[-1] - straight[-1]) <= RESUME_RTOL * abs(straight[-1]):
+        raise SystemExit(f"train resume: {resumed} against the straight "
+                         f"run's {straight}")
+    p = make("p", 100, ckpt_every=1000)
+    observe, seen = p.monitor.observe, [0]
+
+    def stop_after(host, t):
+        seen[0] += 1
+        if seen[0] == c["stop_after"]:
+            p._stop = True   # what the signal handler does
+        return observe(host, t)
+
+    p.monitor.observe = stop_after
+    out = p.run()
+    if not out["preempted"] or out["final_step"] != c["stop_after"] or \
+            ckpt.latest_step(tmp / "p") != c["stop_after"]:
+        raise SystemExit(f"train preemption: {out}, saved at "
+                         f"{ckpt.latest_step(tmp / 'p')}")
+    s = make("s", c["sketch_steps"], ckpt_every=c["sketch_steps"] // 2)
+    s.run()
+    before = s.token_stats.topk(8)
+    s2 = make("s", c["sketch_steps"])
+    if not s2.try_resume():
+        raise SystemExit("train sketch: no checkpoint to resume")
+    after = s2.token_stats.topk(8)
+    if not (np.array_equal(before.items, after.items)
+            and np.array_equal(before.counts, after.counts)
+            and s2.token_stats.insertions == s.token_stats.insertions):
+        raise SystemExit("train sketch: the token sketch did not survive "
+                         "the resume")
+    rec = dict(straight=straight, resumed=resumed,
+               bit_for_bit=resumed == straight, rtol=RESUME_RTOL,
+               preempted_at=out["final_step"],
+               sketch_top=before.items.tolist())
+    log(f"train resume and preemption: {json.dumps(rec)}")
+    return rec
+
+
+def train_phase(device, get=None, main=TRAIN_MAIN, moe=TRAIN_MOE,
+                resume=TRAIN_RESUME, timed=True) -> tuple:
+    """Training on the card (see TRAIN_MAIN, TRAIN_MOE, TRAIN_RESUME):
+    Qwen3-0.6B at full width and depth through ``Trainer`` (``train_main``
+    with its times), OLMoE at full width on 2 layers with its expert
+    tracker, then the resume and preemption cases. ``get`` picks the
+    configs (the full ones by default; the CPU rehearsal passes the smoke
+    ones). Returns (launches of kernel 5 by path and of kernel 1 by
+    layout, the phase's summary)."""
+    import dataclasses
+    import tempfile
+
+    import torch
+    from repro_torch import configs
+
+    get = get or configs.get
+    device = torch.device(device)
+    t_phase = time.perf_counter()
+    launches = {"flash": {}, "fused": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        recs = {}
+        for name, c, cfg in (
+                ("main", main, get(main["arch"])),
+                ("moe", moe, dataclasses.replace(get(moe["arch"]),
+                                                 num_layers=moe["layers"]))):
+            recs[name] = train_main(f"train {name} {cfg.name}", cfg, c,
+                                    device, tmp,
+                                    timed=timed and name == "main")
+            for kind, key in (("flash", "flash_by_path"),
+                              ("fused", "fused_by_layout")):
+                for part, n in recs[name][key].items():
+                    launches[kind][part] = launches[kind].get(part, 0) + n
+        recs["moe"]["reduced"] = f"depth {moe['layers']} layers"
+        recs["resume"] = train_resume(device, resume, tmp)
+    recs["launches"] = launches
+    recs["seconds"] = time.perf_counter() - t_phase
+    log(f"train phase: {recs['seconds']:.1f} s, launches "
+        f"{json.dumps(launches)}")
+    return launches, recs
 
 
 # ---------------------------------------------------------------------------
@@ -5758,6 +6314,8 @@ def main() -> int:
     phase_done("attention")
     model_launches, model = model_phase(device)
     phase_done("model")
+    train_launches, train = train_phase(device)
+    phase_done("train")
     # kernels 5 and 6 on the model phase's paths too: flash by path, decode
     # by run; their times at the serving shapes beside the attention
     # phase's
@@ -5784,6 +6342,27 @@ def main() -> int:
                                     "host_ms_per_call") if k in t}
             for key, t in model["serving_kernel_times"].items()
             if key.startswith(prefix)}
+    # kernel 5 on the training path: its launches (the forward and remat's
+    # recompute of every attention layer), the rows and gradients held at
+    # the training shapes, its times at the main run's shape; kernel 1's
+    # launches by the trainers' trackers
+    for path, n in train_launches["flash"].items():
+        flash_entry["launches"] += n
+        flash_entry["launches_by_path"][path] += n
+    flash_entry["training_launches"] = sum(train_launches["flash"].values())
+    for run in ("main", "moe"):
+        for r in (*train[run]["kernels_vs_plain"].values(),
+                  *train[run]["flash_grads_vs_plain"].values()):
+            flash_entry["max_abs_err"] = max(flash_entry["max_abs_err"],
+                                             r["max_abs_err"])
+        for layout, n in train[run]["fused_by_layout"].items():
+            runs[f"train {run} trackers {layout}"] = dict(
+                kernel=fused, launches=n, layout=layout)
+    flash_entry["training"] = {
+        key: {k: t[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
+                                "bound_by", "library_ms", "max_abs_err",
+                                "row_share", "row_share_limit") if k in t}
+        for key, t in train["main"]["kernel_times"].items()}
     service_profiles(tenant_later, tenant_runs)
     phase_done("service profiles")
 
@@ -5851,7 +6430,7 @@ def main() -> int:
         quantile_kernel_times=q_times,
         tenant=tenant_runs, tenant_kernel_times=tenant_kernel_times,
         family=family_runs, faults=fault_runs,
-        profile=prof, attention=attention, model=model,
+        profile=prof, attention=attention, model=model, train=train,
         kernels=kernels), indent=1))
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -8,8 +8,9 @@ source's bytes, the bytes of every ``#include "..."`` file it pulls in
 flags: a change to any of them builds a new library. ``build`` compiles
 several sources at once, one nvcc process each, all started together.
 ``entry_point`` binds one C entry point of a library and ``launch`` calls
-it on the current stream, raising on a refused launch. ``check_operands``
-and ``aligned16`` are the operand checks every wrapper shares.
+it on the current stream, raising on a refused launch. ``refuse_grad``,
+``check_operands`` and ``aligned16`` are the operand checks every
+wrapper shares.
 """
 from __future__ import annotations
 
@@ -110,6 +111,23 @@ def entry_point(source: pathlib.Path, name: str, argtypes: tuple):
     return fn
 
 
+def refuse_grad(what: str, named: dict) -> None:
+    """Raise when grad mode is on and an operand requires grad: a kernel
+    fills its outputs through ctypes, so its result would be cut from the
+    autograd graph and a backward would drop its share of the gradient
+    without a word. Every wrapper checks this first, before the device.
+    Kernel 5 takes part in autograd through ``FlashAttentionFn``."""
+    if not torch.is_grad_enabled():
+        return
+    for name, t in named.items():
+        if isinstance(t, torch.Tensor) and t.requires_grad:
+            raise RuntimeError(
+                f"{what}: {name} requires grad and grad mode is on; the "
+                f"kernel has no backward and its result would be detached "
+                f"from the graph. Call it under torch.no_grad() on detached "
+                f"operands (flash attention: use FlashAttentionFn)")
+
+
 def check_operands(what: str, named: dict, device: torch.device) -> None:
     """Every operand a contiguous CUDA tensor on ``device`` whose elements
     an int indexes."""
@@ -144,4 +162,5 @@ def launch(fn, args: Sequence, device: torch.device, what: str) -> None:
 
 
 __all__ = ["NVCC_FLAGS", "includes", "library_path", "build", "load",
-           "entry_point", "check_operands", "aligned16", "launch"]
+           "entry_point", "refuse_grad", "check_operands", "aligned16",
+           "launch"]

@@ -144,8 +144,9 @@ def _fwd():
 
 def _check(q, k_cache, v_cache, valid):
     what = "decode_attention_kernel"
-    _build.check_operands(what, dict(q=q, k_cache=k_cache,
-                                     v_cache=v_cache, valid=valid), q.device)
+    named = dict(q=q, k_cache=k_cache, v_cache=v_cache, valid=valid)
+    _build.refuse_grad(what, named)
+    _build.check_operands(what, named, q.device)
     if q.dim() != 4 or k_cache.dim() != 4 or v_cache.shape != k_cache.shape:
         raise ValueError(f"{what}: q (B, KV, G, hd) and caches (B, C, KV, hd)"
                          f" expected, got {tuple(q.shape)}, "

@@ -1,5 +1,5 @@
 """Flash attention (GQA, causal and sliding window): CUDA kernel, plain
-version, ops."""
-from .ops import flash_attention
+version, ops, and ``FlashAttentionFn``: the kernel under autograd."""
+from .ops import FlashAttentionFn, flash_attention
 
-__all__ = ["flash_attention"]
+__all__ = ["FlashAttentionFn", "flash_attention"]

@@ -15,11 +15,12 @@ hd): the kernels fold heads into their grid and find each q-head's
 kv-head as ``h // G``, so nothing is transposed, expanded or padded in
 device memory.
 
-The wrapper checks its operands (CUDA, f32 or bf16, one dtype,
-contiguous), launches on the current stream, raises on a refused launch
-(never retrying on another path) and counts its launches per path in
-``flash_attention_kernel.launches``. CPU tensors take ``ref.py`` in
-``ops.py``.
+The wrapper checks its operands (none requiring grad while grad mode is
+on, CUDA, f32 or bf16, one dtype, contiguous), launches on the current
+stream, raises on a refused launch (never retrying on another path) and
+counts its launches per path in ``flash_attention_kernel.launches``.
+CPU tensors take ``ref.py`` in ``ops.py``; a gradient goes through
+``ops.FlashAttentionFn``.
 """
 from __future__ import annotations
 
@@ -82,6 +83,7 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     one dtype (f32 or bf16), hd <= 256. Returns (B, S, H, hd) in q's
     dtype."""
     what = "flash_attention_kernel"
+    _build.refuse_grad(what, dict(q=q, k=k, v=v))
     _build.check_operands(what, dict(q=q, k=k, v=v), q.device)
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"{what}: q (B, S, H, hd) and k, v (B, T, KV, hd) "

@@ -115,6 +115,7 @@ def _scratch(n: int, device):
 
 
 def _check(what, named, shapes, device) -> None:
+    _build.refuse_grad(what, named)
     _build.check_operands(what, named, device)
     for name, t in named.items():
         if t.dtype != torch.int32:
@@ -305,6 +306,7 @@ def sketch_unbiased_kernel(ids_i, cnt_i, err_i, ids_d, cnt_d, err_d, items,
     shapes = dict(ids_i=(R, Ki), cnt_i=(R, Ki), err_i=(R, Ki),
                   ids_d=(R, Kd), cnt_d=(R, Kd), err_d=(R, Kd), items=(B,),
                   weights=(B,), perm=(B,), roff=(2 * R + 1,))
+    _build.refuse_grad("sketch_unbiased_kernel", dict(u=u))
     _check("sketch_unbiased_kernel", named, shapes, ids_i.device)
     _build.check_operands("sketch_unbiased_kernel", dict(u=u), ids_i.device)
     if u.dtype != torch.float32 or tuple(u.shape) != (2, B):

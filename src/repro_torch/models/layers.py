@@ -11,7 +11,10 @@ plain JAX: prefill and training (``_causal_full``, ``_banded_local``)
 through kernel 5 (``kernels/flash_attention``), one token against a
 cache through kernel 6 (``kernels/decode_attention``). CUDA tensors
 launch the kernel; CPU tensors, and ``attention="plain"``, take its
-plain version (``ref.py``). The kernels keep the scores in f32 where the
+plain version (``ref.py``). Training differentiates kernel 5 through
+``FlashAttentionFn`` (its backward: the plain version's gradient, the
+reference's); kernel 6 serves decode only and refuses inputs that
+require grad. The kernels keep the scores in f32 where the
 reference keeps bf16 models' (S, S) scores and P in bf16, so a bf16
 model agrees with the reference within bf16 rounding, not bit for bit.
 
@@ -31,6 +34,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.decode_attention.kernel import decode_attention_kernel
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_attention.kernel import flash_attention_kernel
+from repro_torch.kernels.flash_attention.ops import FlashAttentionFn
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 F32 = torch.float32
@@ -102,12 +106,17 @@ def _project_qkv(x, p, cfg: ModelConfig):
 def _attend(q, k, v, causal: bool, window: int, attention: str):
     """GQA attention in the model layout, q (B, S, H, hd) and k, v (B, T,
     KV, hd), sequence ends aligned: kernel 5 for CUDA tensors under
-    ``attention="kernel"``, its plain version otherwise. No tile rule
-    (the reference model has none: Whisper's cross-attention has T =
-    1,500), unlike ``ops.flash_attention``'s Pallas API parity."""
+    ``attention="kernel"`` (through ``FlashAttentionFn`` when grad mode
+    is on and an input requires grad), its plain version otherwise. No
+    tile rule (the reference model has none: Whisper's cross-attention
+    has T = 1,500), unlike ``ops.flash_attention``'s Pallas API
+    parity."""
     dt = torch.promote_types(torch.promote_types(q.dtype, k.dtype), v.dtype)
     q, k, v = (t.to(dt).contiguous() for t in (q, k, v))
     if check_attention(attention) == "kernel" and q.is_cuda:
+        if torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (q, k, v)):
+            return FlashAttentionFn.apply(q, k, v, causal, window)
         return flash_attention_kernel(q, k, v, causal=causal, window=window)
     return flash_attention_ref(q, k, v, causal=causal, window=window)
 

@@ -8,10 +8,14 @@ block); each period position's params are stacked with a leading
 (num_periods,) dim under ``periods/pos{i}``, remainder layers sit
 unstacked under ``rem{i}``, Zamba2's shared block under
 ``shared_attn`` and Whisper's encoder under ``encoder``. The reference
-``lax.scan``s over periods; here a Python loop indexes them
-(``maybe_scan``). Remat (``jax.checkpoint``) is a no-op: this module
-computes the forward value; its gradient through the attention kernels
-is ROADMAP item 18.
+``lax.scan``s over periods; here a Python loop walks them
+(``maybe_scan``), each stacked leaf unbound once per forward. Remat
+(the reference's ``jax.checkpoint`` of each period's body) is
+``torch.utils.checkpoint``: the period's activations are recomputed in
+the backward. Gradients flow through everything, kernel 5 included
+(``layers._attend`` takes ``FlashAttentionFn`` when an input requires
+grad); the sharded forms (the reference's ``shard`` calls) wait for the
+mesh, ROADMAP item 19.
 
 Every function that attends takes ``attention="kernel" | "plain"``
 (see ``layers.attention``).
@@ -22,6 +26,7 @@ import math
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
@@ -40,11 +45,12 @@ I32 = torch.int32
 
 def tree_map(fn, tree, *rest):
     """``fn`` over the leaves of nested dicts and tuples of the same
-    structure."""
+    structure (a NamedTuple, such as a train state, keeps its type)."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
     if isinstance(tree, tuple):
-        return tuple(tree_map(fn, *ts) for ts in zip(tree, *rest))
+        out = [tree_map(fn, *ts) for ts in zip(tree, *rest)]
+        return type(tree)(*out) if hasattr(tree, "_fields") else tuple(out)
     return fn(tree, *rest)
 
 
@@ -159,14 +165,25 @@ def init_params(gen, cfg: ModelConfig, dtype=BF16, device=DEFAULT_DEVICE):
 # Forward
 # ---------------------------------------------------------------------------
 
+def _unstack(xs, n: int) -> list:
+    """The ``n`` per-step trees of ``xs``: each leaf unbound once (the same
+    values, as views). Under autograd ``unbind``'s backward is one stack
+    of the steps' gradients, where indexing ``p[i]`` step by step would
+    back each step with a zero tensor of the whole stacked leaf."""
+    if isinstance(xs, dict):
+        per = {k: _unstack(v, n) for k, v in xs.items()}
+        return [{k: per[k][i] for k in xs} for i in range(n)]
+    return list(torch.unbind(xs, 0))
+
+
 def maybe_scan(cfg: ModelConfig, body, carry, xs):
     """The reference's ``lax.scan`` over the leading dim of ``xs`` (or its
     unrolled loop under ``cfg.unroll_scan``; here both are the loop).
     Returns (carry, the per-step outputs stacked)."""
     n = tree_leaves(xs)[0].shape[0]
     ys = []
-    for i in range(n):
-        carry, y = body(carry, tree_map(lambda p: p[i], xs))
+    for step in _unstack(xs, n):
+        carry, y = body(carry, step)
         ys.append(y)
     if ys and tree_leaves(ys[0]):
         return carry, tree_stack(ys)
@@ -291,7 +308,12 @@ def _run_stack(x, params, cfg: ModelConfig, positions, cross_states,
                 entries[f"pos{pos}"] = e
         return x, (counts, entries)
 
-    x, (counts, period_entries) = maybe_scan(cfg, period_body, x,
+    body = period_body
+    if remat:   # the reference's jax.checkpoint(period_body)
+        def body(x, period_params):
+            return checkpoint(period_body, x, period_params,
+                              use_reentrant=False)
+    x, (counts, period_entries) = maybe_scan(cfg, body, x,
                                              params["periods"])
     expert_counts = counts.sum(dim=0, dtype=I32)
     cache = None
@@ -398,8 +420,9 @@ def prefill_forward(
 
 def loss_fn(params, cfg: ModelConfig, batch: dict, remat: bool = True,
             attention: str = "kernel"):
-    """Masked next-token cross-entropy; returns (loss, aux). The forward
-    value only: its gradient through the kernels is ROADMAP item 18."""
+    """Masked next-token cross-entropy; returns (loss, aux). Differentiable
+    in the params, kernel 5 included (``FlashAttentionFn``): the train
+    step (``train/step.py``) takes its gradient."""
     logits, expert_counts = forward(
         params, cfg, batch["tokens"], vision=batch.get("vision"),
         frames=batch.get("frames"), remat=remat, attention=attention)

@@ -788,3 +788,78 @@ def test_hold_kept_rejects_a_fault_in_one_row(monkeypatch, fault):
         return
     with pytest.raises(SystemExit, match="kernel vs plain"):
         cs.hold_kept("smoke", operands)
+
+
+SMOKE_TRAIN = dict(arch="qwen3_0_6b", seq_len=32, batch=4, steps=8,
+                   warmup=2, seed=25, loss_falls=True)
+SMOKE_TRAIN_MOE = dict(arch="olmoe_1b_7b", layers=2, seq_len=32, batch=4,
+                       steps=3, seed=26)
+
+
+def _train_on_the_cpu(monkeypatch, cs, flash_fault=None):
+    """The train phase's card-only parts on the CPU: kernel 5 as its plain
+    version with the wrapper's counter (``_kernels_as_plain``; under
+    ``FlashAttentionFn`` too), and the launch check recorded instead of
+    made for kernel 1, whose plain version counts nothing here."""
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention import ref as fref
+
+    _kernels_as_plain(monkeypatch, flash_fault=flash_fault)
+    monkeypatch.setattr(fops, "flash_attention_kernel",
+                        lambda q, k, v, causal, window:
+                        fref.flash_attention_ref(q, k, v, causal=causal,
+                                                 window=window))
+    checked = []
+
+    def check(label, counts, flash, fused, spy):
+        got = sum(n for k, n in counts.items()
+                  if k.startswith(cs.FLASH + "["))
+        checked.append((label, flash, fused, got, dict(spy.plain)))
+        return {"wgmma": got}, {"staged": fused}
+
+    monkeypatch.setattr(cs, "check_train_launches", check)
+    return checked
+
+
+def test_train_phase_rehearsal(monkeypatch):
+    """The train phase end to end at smoke width on the CPU: the main run
+    (the twin step, the counted run: two kernel-5 calls a layer a step
+    with remat, the loss falling, the trackers against their CPU twins,
+    kernel 5 and FlashAttentionFn held on the run's operands), the MoE
+    run with its expert tracker, and the resume and preemption cases."""
+    from repro_torch import configs
+
+    cs = _chip_smoke()
+    checked = _train_on_the_cpu(monkeypatch, cs)
+    launches, summary = cs.train_phase(
+        torch.device("cpu"), get=configs.get_smoke, main=SMOKE_TRAIN,
+        moe=SMOKE_TRAIN_MOE, timed=False)
+    main, moe = summary["main"], summary["moe"]
+    assert [c[1:] for c in checked] == [
+        (2 * 2 * 8, 8, 2 * 2 * 8, dict(flash=0, decode=0)),
+        (2 * 2 * 3, 2 * 3, 2 * 2 * 3, dict(flash=0, decode=0))]
+    assert launches == {"flash": {"wgmma": 32 + 12},
+                        "fused": {"staged": 8 + 6}}
+    assert main["twin"]["loss"] == main["twin"]["twin_loss"]
+    assert main["twin"]["master_max_abs_err"] == 0.0
+    assert set(main["kernels_vs_plain"]) == {"causal S=32 T=32"}
+    assert main["flash_grads_vs_plain"]["causal S=32 T=32"][
+        "max_abs_err"] == 0.0
+    assert main["trackers_vs_cpu"] == ["token"]
+    assert moe["trackers_vs_cpu"] == ["token", "expert"]
+    assert moe["reduced"] == "depth 2 layers"
+    assert summary["resume"]["bit_for_bit"]
+    assert summary["resume"]["preempted_at"] == 3
+
+
+def test_train_phase_rejects_a_dropped_attention_gradient(monkeypatch):
+    """A kernel-5 stand-in cut from the graph (the fault a ctypes wrapper
+    without FlashAttentionFn gave: no attention gradient) fails the twin
+    check."""
+    from repro_torch import configs
+
+    cs = _chip_smoke()
+    _train_on_the_cpu(monkeypatch, cs, flash_fault=lambda out: out.detach())
+    with pytest.raises(SystemExit, match="plain twin"):
+        cs.train_phase(torch.device("cpu"), get=configs.get_smoke,
+                       main=SMOKE_TRAIN, moe=SMOKE_TRAIN_MOE, timed=False)

@@ -1311,3 +1311,123 @@ def test_model_phase_at_smoke_width(cuda, monkeypatch):
     assert sum(launches["flash"].values()) > 0
     held = summary["kernels_vs_plain"]
     assert held["shapes"]["flash"] >= 4 and held["shapes"]["decode"] >= 4
+
+
+@pytest.mark.parametrize("window", [0, 48])
+@pytest.mark.parametrize("G", [2, 4])
+@pytest.mark.parametrize("hd", [64, 128, 256])
+def test_flash_attention_fn_gradients_are_the_plain_gradients(cuda, hd, G,
+                                                              window):
+    """``FlashAttentionFn`` at bf16, causal or windowed, GQA 2 and 4: its
+    forward is kernel 5 (one launch, within the bf16 tolerance of the
+    plain version), its input gradients are autograd's of the plain
+    attention on the same operands and cotangent, bit for bit."""
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_kernel
+    from repro_torch.kernels.flash_attention.ops import FlashAttentionFn
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    gen = torch.Generator(device=cuda).manual_seed(hd + G + window)
+    B, S, KV = 2, 160, 2
+    q = torch.randn((B, S, KV * G, hd), generator=gen, device=cuda)
+    k, v = (torch.randn((B, S, KV, hd), generator=gen, device=cuda)
+            for _ in range(2))
+    dout = torch.randn((B, S, KV * G, hd), generator=gen,
+                       device=cuda).bfloat16()
+    ops = [t.bfloat16() for t in (q, k, v)]
+    before = sum(flash_attention_kernel.launches.values())
+    outs, grads = [], []
+    for fn in (lambda *t: FlashAttentionFn.apply(*t, True, window),
+               lambda *t: flash_attention_ref(*t, causal=True,
+                                              window=window)):
+        leaves = [t.clone().requires_grad_(True) for t in ops]
+        out = fn(*leaves)
+        outs.append(out.detach())
+        grads.append(torch.autograd.grad(out, leaves, dout))
+    torch.cuda.synchronize()
+    assert sum(flash_attention_kernel.launches.values()) == before + 1
+    np.testing.assert_allclose(outs[0].float().cpu().numpy(),
+                               outs[1].float().cpu().numpy(), rtol=2e-2,
+                               atol=2e-2)
+    for a, b in zip(*grads):
+        assert a.dtype == torch.bfloat16 and torch.equal(a, b)
+
+
+def test_qwen3_smoke_train_step_on_the_card_equals_the_cpu(cuda):
+    """One train step of smoke Qwen3 (f32 params, remat) on the card,
+    kernel 5 under ``FlashAttentionFn``, against the same step on the
+    CPU (the plain attention): loss and gradient norm at rtol 1e-4, each
+    master leaf within 2 lr (+1 %) of the CPU's, at most 2^-5 of its
+    weights more than lr / 2 apart (a gradient near 0 whose sign the two
+    devices' roundings set differently moves its weight the other way;
+    see chip_smoke's TWIN_FLIP_SHARE)."""
+    from repro_torch import configs
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_kernel
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import tree_map
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import TrainState, build_train_step
+
+    cfg = configs.get_smoke("qwen3_0_6b")
+    params, _ = build_model(cfg).init(0, dtype=torch.float32, device="cpu")
+    cpu_state = TrainState(params=params, opt=adamw_init(params))
+    card_state = tree_map(lambda t: t.to(cuda), cpu_state)
+    batch = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=32,
+                                     global_batch=4)).batch_at(0)
+    step = build_train_step(cfg)
+    before = sum(flash_attention_kernel.launches.values())
+    got, gm = step(card_state, {k: torch.from_numpy(v).to(cuda)
+                                for k, v in batch.items()})
+    torch.cuda.synchronize()
+    # two attention layers, each forward and remat's recompute
+    assert sum(flash_attention_kernel.launches.values()) == before + 4
+    want, wm = step(cpu_state, {k: torch.from_numpy(v)
+                                for k, v in batch.items()})
+    for k in ("loss", "grad_norm"):
+        np.testing.assert_allclose(float(gm[k]), float(wm[k]), rtol=1e-4)
+    lr = float(wm["lr"])
+
+    def flat(tree, prefix=""):
+        if isinstance(tree, dict):
+            return {p: v for k, v in tree.items()
+                    for p, v in flat(v, f"{prefix}/{k}").items()}
+        return {prefix: tree}
+
+    got_m, want_m = flat(got.opt.master), flat(want.opt.master)
+    for path, w in want_m.items():
+        err = (got_m[path].cpu() - w).abs()
+        assert float(err.max()) <= 2.02 * lr, path
+        assert float((err > lr / 2).float().mean()) <= 2.0**-5, path
+
+
+def test_grad_guard_of_kernels_5_and_6_on_the_card(cuda):
+    """Kernels 5 and 6 refuse CUDA operands that require grad while grad
+    mode is on; ``layers._attend`` takes such operands through
+    ``FlashAttentionFn`` (a result in the graph, one launch)."""
+    from repro_torch.kernels.decode_attention.kernel import \
+        decode_attention_kernel
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_kernel
+    from repro_torch.models import layers as L
+
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q = torch.randn((1, 64, 4, 64), generator=gen, device=cuda).bfloat16()
+    k, v = (torch.randn((1, 64, 2, 64), generator=gen,
+                        device=cuda).bfloat16() for _ in range(2))
+    qg = q.clone().requires_grad_(True)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        flash_attention_kernel(qg, k, v)
+    cache = torch.randn((1, 32, 2, 64), generator=gen, device=cuda,
+                        requires_grad=True)
+    qd = torch.randn((1, 2, 2, 64), generator=gen, device=cuda)
+    valid = torch.ones((1, 32), dtype=torch.bool, device=cuda)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        decode_attention_kernel(qd, cache, cache, valid)
+    before = sum(flash_attention_kernel.launches.values())
+    out = L._attend(qg, k, v, True, 0, "kernel")
+    assert out.grad_fn is not None
+    assert sum(flash_attention_kernel.launches.values()) == before + 1
+    (g,) = torch.autograd.grad(out.float().sum(), [qg])
+    assert bool(torch.isfinite(g.float()).all())
