@@ -182,6 +182,27 @@ result):
      counter and equal to ``consolidated()``; ``reshard_dyadic`` of an
      8-shard quantile bank to 4 within eps·|F|₁ plus 24 times the slack
      in rank;
+   - the mesh phase (``mesh_phase``): (a) a process group of one rank
+     over a ``FileStore`` (NCCL for the card's tensors, gloo for CPU
+     copies) and ``launch.mesh.make_smoke_mesh(1)``: the main spec's
+     sharded bank takes 16 blocks of the main stream through
+     ``sharded.update_block(path="shard_map")`` (kernel 3 on the rank's
+     rows, one launch a block), equal bit for bit to ``"vmap"`` and
+     ``"block"`` and, over its first 2 blocks, to ``"block"`` on the CPU;
+     the 8-shard quantile bank takes 8 blocks through
+     ``dyadic_sharded.update_block(path="shard_map")`` (kernel 2), equal
+     to ``"bank"``; ``train.dp_exchange.build_compressed_allreduce`` on
+     that mesh over f32 gradients of Qwen3-0.6B's parameter shapes
+     (``k_frac`` 0.01, 3 steps carrying the residual), equal leaf for
+     leaf to the same exchange on CPU copies. (b) two child processes
+     on the same card in a gloo group (``mesh_child``): a
+     ``StreamSession`` of the main spec on ``"bank"`` under ``use_mesh``
+     of a ("data",) mesh of 2 takes the shard_map path, kernel 3 on each
+     rank's 64 rows; each rank's gathered bank (staged through host
+     memory: DTensor's own all-gather crashes on gloo with CUDA tensors,
+     ``parallel.sharding.full``) equals (a)'s. A child that exits other
+     than 0 fails the run. The ms a block of each path,
+     the exchange's ms and the gathers' ms are logged with the card;
 5. times: per-block ms and updates/s of each run; each kernel's device
    ms at its run's shapes (the kernels the profiler sees, per call; and
    the time per call from the host, which holds the wrapper's host time,
@@ -317,9 +338,10 @@ The line before the last two is ``{"kernels": [...]}`` (the six ported
 kernels and the port's own unbiased kernel, which replaces the
 reference's plain-JAX scan; the entries of flash and of kernels 1-3
 give their launches by path, kernels 1-4 and the unbiased kernel also
-``stream_ms``; flash's and decode's launches include the model phase's,
-decode's by run in ``launches_by_run``, their ``max_abs_err`` the
-model phase's shapes too, and both give their times and row shares at
+``stream_ms``; kernels 2 and 3 give their launches by run in
+``launches_by_run``, the mesh phase's runs among them; flash's and
+decode's launches include the model phase's, decode's by run in
+``launches_by_run``, their ``max_abs_err`` the model phase's shapes too, and both give their times and row shares at
 the serving shapes under ``serving``; flash's launches include the
 train phase's, ``training_launches`` of them, its ``max_abs_err`` the
 training shapes' rows and gradients, its times at the training shape
@@ -6101,6 +6123,358 @@ def fault_phase(device, stream, block, q_spec) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The mesh phase: the shard_map paths on a 1-rank NCCL mesh and on two
+# ranks sharing the card over gloo
+# ---------------------------------------------------------------------------
+
+# (a): 16 blocks of the main stream through the sharded bank's shard_map
+# path (kernel 3), the first 2 also on the CPU; 8 through the dyadic
+# sharded bank's (kernel 2); the compressed exchange over Qwen3-0.6B's
+# parameter shapes, 3 steps. (b): 2 ranks, the session on the same blocks
+MESH = dict(blocks=16, cpu_blocks=2, q_blocks=8, arch="qwen3_0_6b",
+            smoke_arch=False, k_frac=0.01, steps=3, seed=31, ranks=2,
+            child_timeout=900)
+
+
+def _ms_per(fn, n, device) -> tuple:
+    """(host ms per item of ``fn()``'s ``n`` items, the card drained;
+    its result)."""
+    sync(device)
+    t0 = time.perf_counter()
+    out = fn()
+    sync(device)
+    return (time.perf_counter() - t0) * 1e3 / n, out
+
+
+def _full_bank(bank):
+    """A (mesh-sharded or whole) bank's leaves, gathered whole."""
+    from repro_torch.parallel import sharding as psh
+
+    return [psh.full(t) for t in bank]
+
+
+def _first_and_rest(step, items, device) -> tuple:
+    """``step(x)`` over ``items``: (host ms of the first, which carries
+    the first call's costs, ms an item of the rest, the card drained
+    after each part, the last result)."""
+    sync(device)
+    t0 = time.perf_counter()
+    out = step(items[0])
+    sync(device)
+    t1 = time.perf_counter()
+    for x in items[1:]:
+        out = step(x)
+    sync(device)
+    t2 = time.perf_counter()
+    return ((t1 - t0) * 1e3, (t2 - t1) * 1e3 / max(len(items) - 1, 1),
+            out)
+
+
+def mesh_runs(label, spec, blocks, device, update, name, layout) -> tuple:
+    """``update(state, items, weights)`` over ``blocks`` from the spec's
+    empty state, every counter 0 before and read after: one launch of
+    kernel ``name`` on ``layout`` a block and no other kernel. Returns
+    (state, run record, ms a block after the first)."""
+    import torch
+
+    from repro_torch.sketch import api
+
+    dev_blocks = [(torch.as_tensor(i, device=device),
+                   torch.as_tensor(w, device=device)) for i, w in blocks]
+    box = [api.make(spec, device)]
+
+    def step(block):
+        box[0] = update(box[0], *block)
+        return box[0]
+
+    reset_counts()
+    first, ms, out = _first_and_rest(step, dev_blocks, device)
+    counts = read_counts()
+    n = check_launches(label, counts, name, len(blocks), layout)
+    return out, dict(kernel=name, layout=layout, launches=n,
+                     first_block_ms=first, ms_per_block=ms), ms
+
+
+def exchange_phase(mesh, c, device) -> dict:
+    """``build_compressed_allreduce(mesh)`` over f32 gradient trees of
+    the model's parameter shapes (random, from ``c["seed"]``), ``steps``
+    steps carrying the residual, on ``device`` and on CPU copies of the
+    same gradients, held leaf for leaf. With one rank the sum is the
+    top-k scatter of unique indices, so both are exact: ``torch.equal``.
+    Returns the times and sizes."""
+    import torch
+
+    from repro_torch.configs import get, get_smoke
+    from repro_torch.models.model import build_model
+    from repro_torch.models.transformer import tree_leaves, tree_map
+    from repro_torch.train.dp_exchange import build_compressed_allreduce
+
+    cpu = torch.device("cpu")
+    cfg = (get_smoke if c["smoke_arch"] else get)(c["arch"])
+    params, _ = build_model(cfg).init(None, device="meta")
+    allreduce = build_compressed_allreduce(mesh, k_frac=c["k_frac"])
+    gen = torch.Generator(device).manual_seed(c["seed"])
+    res = tree_map(lambda p: torch.zeros(p.shape, device=device), params)
+    res_h = tree_map(lambda p: torch.zeros(p.shape), params)
+    ms, ms_h = [], []
+    for step in range(c["steps"]):
+        g = tree_map(lambda p: torch.randn(p.shape, generator=gen,
+                                           device=device), params)
+        t, (s, res) = _ms_per(lambda: allreduce(g, res), 1, device)
+        ms.append(t)
+        g = tree_map(lambda x: x.to(cpu), g)
+        t, (s_h, res_h) = _ms_per(lambda: allreduce(g, res_h), 1, cpu)
+        ms_h.append(t)
+        for a, b in zip(tree_leaves(s) + tree_leaves(res),
+                        tree_leaves(s_h) + tree_leaves(res_h)):
+            if not torch.equal(a.to(cpu), b):
+                raise SystemExit(f"mesh (a): the exchange's step {step} "
+                                 f"differs from the CPU's")
+        del g, s, s_h
+    leaves = tree_leaves(params)
+    return dict(arch=cfg.name, leaves=len(leaves),
+                elements=sum(p.numel() for p in leaves), steps=c["steps"],
+                k_frac=c["k_frac"], ms_per_exchange=ms,
+                cpu_ms_per_exchange=ms_h)
+
+
+def mesh_phase(device, stream, block, spec, q_spec, c=MESH) -> dict:
+    """The mesh paths (fatal). (a) one rank: a process group of one rank
+    over a ``FileStore`` (NCCL for the card's tensors, gloo for the CPU
+    twin's) and ``make_smoke_mesh(1)``: the sharded bank (``spec``)
+    through ``update_block(path="shard_map")`` (kernel 3 on the rank's
+    S rows), equal bit for bit to ``"vmap"`` and ``"block"`` and, over
+    the first blocks, to ``"block"`` on the CPU; the dyadic sharded bank
+    (``q_spec``) through its shard_map path (kernel 2), equal to
+    ``"bank"``; the compressed exchange over the model's parameter
+    shapes, equal to the same exchange on the CPU leaf for leaf (one
+    rank: the top-k scatter of unique indices, exact). (b) ``c["ranks"]``
+    child processes sharing the card in a gloo group: a ``StreamSession``
+    of ``spec`` on ``"bank"`` under ``use_mesh`` of a ("data",) mesh
+    takes the shard_map path (kernel 3 on S / ranks rows a rank); the
+    gathered bank (through host memory on gloo) equals (a)'s. Returns
+    runs, times and launches."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels.sketch_update import kernel
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.parallel import sharding as psh
+    from repro_torch.sketch import api
+    from repro_torch.sketch import dyadic_sharded as ds
+    from repro_torch.sketch import sharded as shd
+
+    split, banked = "sketch_residual_kernel", "sketch_residual_kernel_banked"
+    fused = "sketch_update_kernel_fused"
+    out = {"runs": {}, "times": {}}
+    blocks = _blocks(stream, block)[:c["blocks"]]
+    cuda = torch.device(device).type == "cuda"
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        if cuda:
+            # the device NCCL and the mesh take for this rank
+            torch.cuda.set_device(torch.cuda.current_device())
+        dist.init_process_group(
+            "cpu:gloo,cuda:nccl" if cuda else "gloo",
+            store=dist.FileStore(str(tmp / "store_a"), 1), rank=0,
+            world_size=1)
+        try:
+            mesh = make_smoke_mesh(1, device=torch.device(device).type)
+            v, ub, qv = spec.variant_id, spec.bits, q_spec.variant_id
+            # kernel 3's layout by a shard's rows of 128 slots, kernel 2's
+            # by the widest layer's slots
+            k = -(-spec.capacity // spec.shards)
+            k3 = kernel.residual_layout(-(-k // 128))
+            k2 = kernel.banked_layout(max(q_spec.layer_capacities()))
+            with psh.use_mesh(mesh):
+                got, run, ms = mesh_runs(
+                    "mesh (a) sharded shard_map", spec, blocks, device,
+                    lambda s, i, w: shd.update_block(
+                        s, i, w, v, universe_bits=ub, path="shard_map"),
+                    split, k3)
+            if not psh.is_dtensor(got.bank.ids):
+                raise SystemExit("mesh (a): the shard_map path returned no "
+                                 "mesh-sharded bank")
+            out["runs"]["mesh (a) sharded shard_map"] = run
+            out["times"]["a_shard_map_ms_per_block"] = ms
+            t0 = time.perf_counter()
+            bank = _full_bank(got.bank)
+            sync(device)
+            out["times"]["a_gather_ms"] = (time.perf_counter() - t0) * 1e3
+            for path, name, layout in (
+                    ("vmap", split, k3),
+                    ("block", fused, kernel.fused_layout(k))):
+                twin, _, ms = mesh_runs(
+                    f"mesh (a) sharded {path}", spec, blocks, device,
+                    lambda s, i, w, p=path: shd.update_block(
+                        s, i, w, v, universe_bits=ub, path=p),
+                    name, layout)
+                out["times"][f"a_{path}_ms_per_block"] = ms
+                if not _same(bank, twin.bank):
+                    raise SystemExit(f"mesh (a): the shard_map bank differs "
+                                     f"from the {path} path's")
+            # the first blocks on the CPU (the plain partition core)
+            first = blocks[:c["cpu_blocks"]]
+            with psh.use_mesh(mesh):
+                head, _, _ = mesh_runs(
+                    "mesh (a) sharded shard_map head", spec, first, device,
+                    lambda s, i, w: shd.update_block(
+                        s, i, w, v, universe_bits=ub, path="shard_map"),
+                    split, k3)
+            plain = api.make(spec, torch.device("cpu"))
+            for i, w in first:
+                plain = shd.update_block(plain, torch.as_tensor(i),
+                                         torch.as_tensor(w), v,
+                                         universe_bits=ub, path="block")
+            if not _same([t.cpu() for t in _full_bank(head.bank)],
+                         plain.bank):
+                raise SystemExit("mesh (a): the shard_map bank differs from "
+                                 "the CPU's over the first blocks")
+            # the dyadic sharded bank (kernel 2)
+            q_blocks = blocks[:c["q_blocks"]]
+            with psh.use_mesh(mesh):
+                qgot, run, ms = mesh_runs(
+                    "mesh (a) dyadic shard_map", q_spec, q_blocks, device,
+                    lambda s, i, w: ds.update_block(s, i, w, qv,
+                                                    path="shard_map"),
+                    banked, k2)
+            out["runs"]["mesh (a) dyadic shard_map"] = run
+            out["times"]["a_dyadic_shard_map_ms_per_block"] = ms
+            qtwin, _, ms = mesh_runs(
+                "mesh (a) dyadic bank", q_spec, q_blocks, device,
+                lambda s, i, w: ds.update_block(s, i, w, qv, path="bank"),
+                banked, k2)
+            out["times"]["a_dyadic_bank_ms_per_block"] = ms
+            if not (_same(_full_bank(qgot.bank), qtwin.bank)
+                    and int(qgot.mass) == int(qtwin.mass)):
+                raise SystemExit("mesh (a): the dyadic shard_map bank "
+                                 "differs from the bank path's")
+            del qgot, qtwin
+            # the compressed exchange over the model's parameter shapes
+            out["exchange"] = exchange_phase(mesh, c, device)
+        finally:
+            dist.destroy_process_group()
+        # (b): ranks sharing the card over gloo
+        blocks_b = np.stack([np.stack(b) for b in blocks])
+        np.save(tmp / "blocks.npy", blocks_b)
+        (tmp / "spec.json").write_text(json.dumps(dict(
+            fields={f: getattr(spec, f) for f in (
+                "kind", "eps", "alpha", "variant", "shards", "bits")},
+            block=block, device=str(device))))
+        procs = [subprocess.Popen(
+            [sys.executable, "-X", "faulthandler",
+             str(pathlib.Path(__file__).resolve()),
+             "--mesh-rank", str(r), str(c["ranks"]), str(tmp)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(c["ranks"])]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=c["child_timeout"])[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (p, text) in enumerate(zip(procs, logs)):
+            if p.returncode != 0:
+                raise SystemExit(f"mesh (b): rank {r} exited "
+                                 f"{p.returncode}:\n{text[-4000:]}")
+        for r in range(c["ranks"]):
+            res = json.loads((tmp / f"rank{r}.json").read_text())
+            got_b = np.load(tmp / f"rank{r}.npz")
+            if not all(np.array_equal(got_b[name], t.cpu().numpy())
+                       for name, t in zip(("ids", "counts", "errors"),
+                                          bank)):
+                raise SystemExit(f"mesh (b): rank {r}'s gathered bank "
+                                 f"differs from (a)'s")
+            label = f"mesh (b) rank {r} session"
+            n = check_launches(label, res.pop("counts"), split, len(blocks),
+                               k3)
+            out["runs"][label] = dict(
+                kernel=split, layout=k3, launches=n,
+                ms_per_block=res["session_ms_per_block"])
+            out["times"][f"b_rank{r}"] = res
+    return out
+
+
+def mesh_child(rank: int, world: int, tmp: str) -> int:
+    """One rank of the mesh phase's (b): a gloo group of ``world`` ranks
+    over the FileStore in ``tmp``, every rank on the same device; the
+    session under ``use_mesh`` of a ("data",) mesh, its launches, its
+    gathered bank and its times beside ``"block"`` and ``"vmap"`` on the
+    whole bank, written to ``tmp`` for the parent, which checks the
+    launches."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.sketch_update import kernel
+    from repro_torch.parallel import sharding as psh
+    from repro_torch.sketch import api, sharded as shd
+    from repro_torch.sketch.session import StreamSession
+
+    tmp = pathlib.Path(tmp)
+    conf = json.loads((tmp / "spec.json").read_text())
+    spec = api.SketchSpec(**conf["fields"])
+    device = torch.device(conf["device"])
+    blocks = np.load(tmp / "blocks.npy")
+    if device.type == "cuda":
+        _build.build(kernel.SOURCES)
+        torch.cuda.set_device(0)     # every rank on the one card
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp / "store_b"), world), rank=rank, world_size=world)
+    try:
+        mesh = psh.host_device_mesh(world, axis="data", device=device.type)
+        res = {}
+        with psh.use_mesh(mesh):
+            sess = StreamSession(spec, block=conf["block"], device=device)
+            reset_counts()
+            first, ms, _ = _first_and_rest(
+                lambda b: sess.ingest_block(*b), list(blocks), device)
+            res["counts"] = read_counts()
+            res["session_first_block_ms"] = first
+            res["session_ms_per_block"] = ms
+            if not psh.is_dtensor(sess.state.bank.ids):
+                raise SystemExit(f"mesh (b) rank {rank}: the session did "
+                                 f"not take the shard_map path")
+            res["local_rows"] = sess.state.bank.ids.to_local().shape[0]
+            dist.barrier()
+            sync(device)
+            t0 = time.perf_counter()
+            saved = api.save(spec, sess.state)
+            res["gather_ms"] = (time.perf_counter() - t0) * 1e3
+        # the single-device paths on the whole bank, timed beside it
+        dev = [(torch.as_tensor(i, device=device),
+                torch.as_tensor(w, device=device)) for i, w in blocks]
+        for path in ("block", "vmap"):
+            box = [api.make(spec, device)]
+
+            def step(b, path=path):
+                box[0] = shd.update_block(box[0], *b, spec.variant_id,
+                                          universe_bits=spec.bits, path=path)
+                return box[0]
+
+            _, ms, st = _first_and_rest(step, dev, device)
+            res[f"{path}_ms_per_block"] = ms
+            if not all(np.array_equal(saved[n], t.cpu().numpy()) for n, t in
+                       zip(("ids", "counts", "errors"), st.bank)):
+                raise SystemExit(f"mesh (b) rank {rank}: the session's bank "
+                                 f"differs from the {path} path's")
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    np.savez(tmp / f"rank{rank}.npz", **{n: saved[n] for n in (
+        "ids", "counts", "errors")})
+    (tmp / f"rank{rank}.json").write_text(json.dumps(res))
+    return 0
+
+
 def gpu_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -6242,6 +6616,12 @@ def main() -> int:
     phase_done("family")
     fault_runs = fault_phase(device, main_stream, B, q_specs["sharded"])
     phase_done("faults")
+    mesh = mesh_phase(device, main_stream, B, fault_spec(),
+                      q_specs["sharded"])
+    runs.update(mesh["runs"])
+    log(f"mesh phase ({card}): {json.dumps(mesh['times'])}")
+    log(f"mesh phase exchange ({card}): {json.dumps(mesh['exchange'])}")
+    phase_done("mesh")
 
     times = {
         fused: time_kernel(kernel.sketch_update_kernel_fused,
@@ -6412,6 +6792,11 @@ def main() -> int:
         name: {key: t[key] for key in ("rows", "ms", "bound_ms", "bound_by",
                                        "plain_ms", "pad_bank_ms")}
         for name, t in tenant_kernel_times.items()}
+    for entry in kernels[1:3]:
+        # kernels 2 and 3 by run, the mesh phase's runs among them
+        entry["launches_by_run"] = {
+            label: r["launches"] for label, r in runs.items()
+            if r["kernel"] == entry["name"]}
     for entry in kernels[:3]:
         entry["launches_by_path"] = {
             r["layout"]: sum(q["launches"] for q in runs.values()
@@ -6429,7 +6814,7 @@ def main() -> int:
         serial_paths=serial_by_path, quantile=q_extra, elapsed_s=elapsed,
         quantile_kernel_times=q_times,
         tenant=tenant_runs, tenant_kernel_times=tenant_kernel_times,
-        family=family_runs, faults=fault_runs,
+        family=family_runs, faults=fault_runs, mesh=mesh,
         profile=prof, attention=attention, model=model, train=train,
         kernels=kernels), indent=1))
     print(json.dumps({"kernels": kernels}))
@@ -6441,4 +6826,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        sys.exit(mesh_child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     sys.exit(main())

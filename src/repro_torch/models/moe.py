@@ -6,12 +6,13 @@ buffer, run through a batched expert matmul and combined back weighted
 by the router gates. FLOPs scale with tokens x top_k x capacity_factor.
 
 The reference's dispatch groups follow the active mesh's data-parallel
-axis; the port has no mesh yet (ROADMAP item 19), so there is one group,
-which is what the reference computes without a mesh. Ties keep the
-reference's order: ``top_k`` prefers the lower expert index, the expert
-sort is stable, the run starts are left-side ``searchsorted``. The
-per-expert counts are bit-exact; the combine is a scatter-add in x's
-dtype (``index_add_``), whose bf16 rounding order may differ.
+axis; the port's model does not read the mesh yet (ROADMAP item 19b),
+so there is one group, which is what the reference computes without a
+mesh. Ties keep the reference's order: ``top_k`` prefers the lower
+expert index, the expert sort is stable, the run starts are left-side
+``searchsorted``. The per-expert counts are bit-exact; the combine is a
+scatter-add in x's dtype (``index_add_``), whose bf16 rounding order may
+differ.
 """
 from __future__ import annotations
 
@@ -47,7 +48,8 @@ def init_moe(gen, cfg: ModelConfig, dtype=torch.bfloat16, device=None):
 
 def _num_dispatch_groups(T: int) -> int:
     """Dispatch groups: the mesh's data-parallel shard count in the
-    reference; 1 without a mesh, which is the port's case until item 19."""
+    reference; 1 without a mesh, the port's model's case until item
+    19b."""
     return 1
 
 

@@ -14,8 +14,8 @@ unstacked under ``rem{i}``, Zamba2's shared block under
 ``torch.utils.checkpoint``: the period's activations are recomputed in
 the backward. Gradients flow through everything, kernel 5 included
 (``layers._attend`` takes ``FlashAttentionFn`` when an input requires
-grad); the sharded forms (the reference's ``shard`` calls) wait for the
-mesh, ROADMAP item 19.
+grad); the sharded forms (the reference's ``shard`` calls) are ROADMAP
+item 19b.
 
 Every function that attends takes ``attention="kernel" | "plain"``
 (see ``layers.attention``).

@@ -5,8 +5,7 @@ PyTorch with the reference's math and order of operations:
                 weight decay, global-norm clipping
   schedules  -- warmup + cosine / linear decay
   compress   -- top-k gradient compression with error feedback (the DP
-                exchange that uses it, ``train/dp_exchange.py``, waits
-                for the mesh: ROADMAP item 19)
+                exchange that uses it: ``train/dp_exchange.py``)
 """
 from .adamw import (AdamWConfig, AdamWState, adamw_init, adamw_update,
                     clip_by_global_norm, global_norm)

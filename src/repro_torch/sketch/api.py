@@ -463,7 +463,7 @@ class _ShardedFrequencyAdapter:
         return shd.consolidate(state)
 
     def save(self, spec, state) -> Dict[str, Any]:
-        return _tagged(LAYOUT_FREQUENCY, state.bank,
+        return _tagged(LAYOUT_FREQUENCY, shd.gathered(state).bank,
                        shards=np.int32(spec.shards))
 
     def restore(self, spec, d, device) -> shd.ShardedSketch:
@@ -529,12 +529,14 @@ class _DyadicShardedAdapter:
     def query_many(self, spec, state, items):
         # leaf-layer reads from each id's owner (shard, level 0) row
         items = items.to(torch.int32)
+        state = dysh.gathered(state)
         leaf = SketchState(*(t[:, 0] for t in state.bank))
         return bk.query_rows(leaf, bk.shard_of(items, state.num_shards),
                              items)
 
     def topk(self, spec, state, m):
-        return bk.topk_bank(SketchState(*(t[:, 0] for t in state.bank)), m)
+        return bk.topk_bank(SketchState(
+            *(t[:, 0] for t in dysh.gathered(state).bank)), m)
 
     def rank_many(self, spec, state, xs):
         return dysh.rank_many(state, xs)
@@ -549,7 +551,7 @@ class _DyadicShardedAdapter:
         return dysh.consolidate(state)
 
     def save(self, spec, state) -> Dict[str, Any]:
-        return _tagged(LAYOUT_QUANTILE, state.bank,
+        return _tagged(LAYOUT_QUANTILE, dysh.gathered(state).bank,
                        mass=np.int32(int(state.mass)),
                        shards=np.int32(spec.shards))
 

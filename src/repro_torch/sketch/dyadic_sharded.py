@@ -10,8 +10,12 @@ node's whole mass lands on one shard. Queries read each node's owner
 row, with no merge error; ``merge`` pairs two banks row by row;
 ``consolidate`` folds the shards into one ``dyadic.DyadicState``.
 
-The reference's ``shard_map`` path over a device mesh waits for the
-port's mesh (ROADMAP.md Queue 1 item 19).
+On a mesh whose "shards" axes divide S, ``path="shard_map"`` (what
+``"auto"`` takes for an axis of 2 or more) routes the levels replicated
+and each rank updates its own shards' rows, ``bank.update_rows`` on the
+``to_local()`` (S/n · bits, k) bank (kernel 2 on the card): the bank is
+a DTensor, ``Shard(0)`` over those axes, and ``mass`` stays a plain
+tensor, the same on every rank. The reads gather first (``gathered``).
 
 Items must lie in [0, 2^bits); weight > 0 inserts, < 0 deletes, 0 pads.
 """
@@ -24,10 +28,12 @@ import torch
 
 from ..core.quantiles import dyadic_layer_capacities
 from ..platform import DEFAULT_DEVICE, resolve_device
+from ..parallel import sharding as psh
 from . import bank as bk
-from .bank import ShardLevelRouter, shard_of
+from .bank import DyadicLevelRouter, ShardLevelRouter, shard_of
 from .dyadic import (DyadicState, _add_mass, _layer_index, _node_counts,
                      _rank_terms, feed_blocks, lockstep_quantile_search)
+from .sharded import _mesh_local, _on_mesh, _shard_mesh_axes
 from .state import I32, VARIANT_SSPM, SketchState, wrap_add
 
 
@@ -74,9 +80,19 @@ def init(bits: int, num_shards: int, total_counters: Optional[int] = None,
         mass=torch.zeros((), dtype=I32, device=dev))
 
 
+def gathered(state: DyadicShardedState) -> DyadicShardedState:
+    """``state`` with its bank whole on every rank (a mesh-sharded bank's
+    leaves gathered), any other state as it is."""
+    if not psh.is_dtensor(state.bank.ids):
+        return state
+    return DyadicShardedState(
+        bank=SketchState(*(psh.full(t) for t in state.bank)), mass=state.mass)
+
+
 def layer_capacities(state: DyadicShardedState) -> list:
     """Per-shard live counters per layer (the same on every shard)."""
-    return bk.row_capacities(SketchState(*(t[0] for t in state.bank)))
+    return bk.row_capacities(
+        SketchState(*(t[0] for t in gathered(state).bank)))
 
 
 def space_counters(state: DyadicShardedState) -> int:
@@ -85,26 +101,64 @@ def space_counters(state: DyadicShardedState) -> int:
 
 
 # ---------------------------------------------------------------------------
-# Update: one composed-router bank update
+# Update: one composed-router bank update, or shard_map over the mesh
 # ---------------------------------------------------------------------------
+
+def _update_block_shard_map(state: DyadicShardedState, items: torch.Tensor,
+                            weights: torch.Tensor, variant: int,
+                            axes) -> DyadicShardedState:
+    """shard_map ingest: each mesh slice updates its own shards' rows.
+
+    Level routing (the one shared sort and shift broadcast) happens
+    replicated; the per-shard weight masks are (S, bits, B), of which
+    each rank takes its shards' rows, so the update moves no bytes
+    across ranks: each rank runs the dense core on its local
+    (S_loc * bits, k) rows.
+    """
+    S, bits, k = state.bank.ids.shape
+    B = items.shape[0]
+    mesh, place, lo, hi, local = _mesh_local(state.bank, axes)
+    nodes, w_l = DyadicLevelRouter(bits).route_dense(items, weights)
+    w_routed = ShardLevelRouter(bits, S).mask_shards(nodes, w_l)
+    s_loc = hi - lo
+    row_items = nodes[None].expand(s_loc, bits, B).reshape(s_loc * bits, B)
+    flat = SketchState(*(t.reshape(s_loc * bits, k) for t in local))
+    out = bk.update_rows(flat, row_items,
+                         w_routed[lo:hi].reshape(s_loc * bits, B), variant)
+    return DyadicShardedState(
+        bank=_on_mesh(SketchState(*(t.reshape(s_loc, bits, k) for t in out)),
+                      mesh, place),
+        mass=_add_mass(state.mass, weights))
+
 
 def update_block(state: DyadicShardedState, items: torch.Tensor,
                  weights: torch.Tensor, variant: int = VARIANT_SSPM, *,
                  path: str = "auto") -> DyadicShardedState:
     """Apply one block of signed weighted updates to the whole bank.
 
-    ``path``: ``"bank"`` (the composed router on the (S * bits, k) bank)
-    or ``"auto"``, which is ``"bank"`` here: no device mesh is active in
-    the port.
+    ``path``: ``"auto"``, the ``"shard_map"`` path when a mesh is active
+    whose "shards" axes have size 2 or more and divide S, else
+    ``"bank"``; ``"bank"``, the composed router on the (S * bits, k)
+    bank, one fused update; ``"shard_map"``, the mesh path (a size-1 mesh
+    too). All give the same bank, bit for bit.
     """
-    if path == "shard_map":
-        raise NotImplementedError(
-            "path='shard_map' is not ported to repro_torch yet; ROADMAP.md "
-            "Queue 1 item 19 (parallel/sharding.py) ports it")
-    if path not in ("auto", "bank"):
-        raise ValueError(f"unknown path {path!r}")
     items = items.to(I32)
     weights = weights.to(I32)
+    if path == "auto":
+        axes = _shard_mesh_axes(state.num_shards)
+        path = "shard_map" if axes else "bank"
+    elif path == "shard_map":
+        axes = _shard_mesh_axes(state.num_shards, min_size=1)
+        if not axes:
+            raise ValueError(
+                "path='shard_map' needs an active mesh whose 'shards' "
+                "logical axes divide num_shards "
+                "(repro_torch.parallel.sharding.use_mesh)")
+    if path == "shard_map":
+        return _update_block_shard_map(state, items, weights, variant, axes)
+    if path != "bank":
+        raise ValueError(f"unknown path {path!r}")
+    state = gathered(state)
     S, bits, k = state.bank.ids.shape
     flat = bk.update_block_fused(state.flat_bank, items, weights,
                                  ShardLevelRouter(bits, S), variant)
@@ -148,6 +202,7 @@ def _owner_rank(index, state: DyadicShardedState,
 def rank_many(state: DyadicShardedState, xs: torch.Tensor) -> torch.Tensor:
     """Estimated rank(x) = |{v <= x}| per query, each node read from its
     owner (shard_of(node), level) row."""
+    state = gathered(state)
     return _owner_rank(_layer_index(state.flat_bank), state, xs)
 
 
@@ -160,6 +215,7 @@ def quantile_many(state: DyadicShardedState, qs: torch.Tensor
                   ) -> torch.Tensor:
     """Per-query quantiles by the shared lockstep search on owner-shard
     ranks."""
+    state = gathered(state)
     index = _layer_index(state.flat_bank)
     return lockstep_quantile_search(
         lambda xs: _owner_rank(index, state, xs), state.mass, state.bits, qs)
@@ -177,6 +233,7 @@ def quantile(state: DyadicShardedState, q: float) -> int:
 def merge(a: DyadicShardedState, b: DyadicShardedState) -> DyadicShardedState:
     """Row-wise merge of two same-shape banks (same S, same hash); the
     masses add. Merged rows carry no BLOCKED slots."""
+    a, b = gathered(a), gathered(b)
     merged = bk.merge_banks(a.flat_bank, b.flat_bank)
     return DyadicShardedState(
         bank=SketchState(*(t.reshape(a.bank.ids.shape) for t in merged)),
@@ -187,6 +244,7 @@ def consolidate(state: DyadicShardedState) -> DyadicState:
     """The S shards of every level folded into ONE ``DyadicState`` by
     ``bank.consolidate``'s tree, the merge batched over the levels (the
     compact checkpoint view, with the merged-summary error bounds)."""
+    state = gathered(state)
     return DyadicState(bank=bk.consolidate(state.bank), mass=state.mass)
 
 
@@ -205,6 +263,6 @@ def __getattr__(name):
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
-__all__ = ["DyadicShardedState", "init", "layer_capacities",
+__all__ = ["DyadicShardedState", "init", "gathered", "layer_capacities",
            "space_counters", "update_block", "process_stream", "rank",
            "rank_many", "quantile", "quantile_many", "merge", "consolidate"]

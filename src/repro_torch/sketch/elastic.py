@@ -20,10 +20,10 @@ Counterpart of ``repro/sketch/elastic.py`` on one device:
   log through the session's compiled ingest, into a state of its own,
   and splices only the dead rows into the live state.
 
-The reference's ``reshard_session`` asks the mesh (``repro.parallel.
-sharding.mesh_resize``) whether the new shard count still divides its
-axes; without a mesh that call answers nothing, and the port has no
-mesh yet (ROADMAP.md Queue 1 item 19), so it makes no such check.
+A mesh-sharded state (``parallel.sharding.use_mesh``) is gathered
+before a resize; ``reshard_session`` asks the mesh
+(``parallel.sharding.mesh_resize``) whether the new shard count still
+divides the "shards" axes, and warns when a resize leaves them.
 """
 from __future__ import annotations
 
@@ -34,7 +34,10 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..parallel import sharding as psh
 from . import bank as bk
+from . import dyadic_sharded as dysh
+from . import sharded as shd
 from . import state as st
 from .dyadic_sharded import DyadicShardedState
 from .sharded import ShardedSketch
@@ -63,7 +66,8 @@ class ResizeReport:
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
-    return t.detach().cpu().numpy().astype(np.int64)
+    """An int64 host copy of a leaf (a mesh-sharded one gathered)."""
+    return psh.full(t).detach().cpu().numpy().astype(np.int64)
 
 
 def _owners(ids: np.ndarray, num_shards: int) -> np.ndarray:
@@ -130,6 +134,7 @@ def reshard(state: ShardedSketch, new_shards: int, *,
     ``new_shards=1`` that holds every counter (a lossless consolidate)."""
     if new_shards < 1:
         raise ValueError(f"new_shards must be >= 1, got {new_shards}")
+    state = shd.gathered(state)
     S, k = state.bank.ids.shape
     k_new = per_shard_capacity or -(-(S * k) // new_shards)
     ids, cnt, err = _live_entries(state.bank)
@@ -150,6 +155,7 @@ def reshard_dyadic(state: DyadicShardedState, new_shards: int
     over."""
     if new_shards < 1:
         raise ValueError(f"new_shards must be >= 1, got {new_shards}")
+    state = dysh.gathered(state)
     S, bits, k = state.bank.ids.shape
     caps = bk.row_capacities(SketchState(*(t[0] for t in state.bank)))
     ids, cnt, err = (_host(t) for t in state.flat_bank)
@@ -362,9 +368,13 @@ def reshard_session(session, new_shards: int) -> ResizeReport:
     """Resize a live session's backend S -> S' in place: flush, reshard
     the state (frequency or dyadic bank by kind), set the spec's
     ``shards``, take the compiled ingest of the new spec's cell and add
-    the resize's ``error_slack`` to ``session.error_slack``. The
-    reference also re-checks the mesh's "shards" axes here; the port has
-    no mesh (ROADMAP.md Queue 1 item 19)."""
+    the resize's ``error_slack`` to ``session.error_slack``. Under a mesh
+    the "shards" logical rule is re-checked for the new count
+    (``parallel.sharding.mesh_resize``): leaving the shard_map path is
+    allowed (ingest falls back to the fused single-launch path) and
+    warns."""
+    import warnings
+
     from .session import _ingest_fn
 
     if session.spec.shards is None:
@@ -376,6 +386,13 @@ def reshard_session(session, new_shards: int) -> ResizeReport:
         new_state, report = reshard(session.state, new_shards)
     else:
         new_state, report = reshard_dyadic(session.state, new_shards)
+    old_axes = psh.mesh_resize("shards", session.spec.shards)
+    new_axes = psh.mesh_resize("shards", new_shards)
+    if old_axes and not new_axes:
+        warnings.warn(
+            f"resize {session.spec.shards}->{new_shards} leaves the mesh "
+            f"'shards' axes {old_axes} (not a divisor); ingest falls back "
+            f"to the fused single-launch path", stacklevel=2)
     session.spec = dataclasses.replace(session.spec, shards=new_shards)
     session.state = new_state
     session._compiled = _ingest_fn(session.spec, session.block,

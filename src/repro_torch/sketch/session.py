@@ -12,9 +12,12 @@ scheduling snapshot. A quantile state's 0-d ``mass`` is a state buffer
 like its bank's three.
 
 Ingest goes through one cached compiled ingest per ``(spec, block,
-donate)`` (``_ingest_fn``, as the reference's jitted one): on the card a
-CUDA graph of the adapter's ``update`` per state shape, captured at its
-first call and replayed per block; on the CPU the eager update.
+donate)`` and mesh layout (``_ingest_fn``, as the reference's jitted
+one): on the card a CUDA graph of the adapter's ``update`` per state
+shape, captured at its first call and replayed per block; on the CPU the
+eager update. Under a mesh whose "shards" axes the sharded bank's
+``"auto"`` path takes (``mesh_layout``), the update is the shard_map
+path, DTensors in and out, and runs eagerly: no graph is captured.
 ``BlockFeeder`` stages block i on the host and the copy engine while
 block i-1 computes.
 
@@ -47,6 +50,7 @@ import numpy as np
 import torch
 
 from ..kernels.sketch_update import kernel as _kernel
+from ..parallel import sharding as psh
 from ..platform import DEFAULT_DEVICE, donate_state_buffers, resolve_device
 from . import api
 from .api import SketchSpec
@@ -70,6 +74,21 @@ def ingest_cache_spec(spec: SketchSpec) -> SketchSpec:
     if spec.tenant_caps is not None:
         changes["k"] = int(sum(spec.tenant_caps))
     return dataclasses.replace(spec, **changes)
+
+
+def mesh_layout(spec: SketchSpec) -> Optional[Tuple]:
+    """The active mesh as a sharded spec's update sees it: ``(mesh,
+    axes)`` when the sharded banks' ``"auto"`` path takes the shard_map
+    path (a mesh whose "shards" axes have 2 or more ranks and divide the
+    spec's S), else None (the single-device update). Part of a compiled
+    ingest cell's key, so a mesh layout never shares a cell with a
+    single-device one."""
+    if spec.shards is None:
+        return None
+    from .sharded import _shard_mesh_axes
+
+    axes = _shard_mesh_axes(spec.shards)
+    return (psh.current_mesh(), axes) if axes else None
 
 
 def _leaves(state) -> List[torch.Tensor]:
@@ -156,9 +175,11 @@ class CompiledIngest:
     buffer may then be reused).
     """
 
-    def __init__(self, spec: SketchSpec, block: int, donate: bool):
+    def __init__(self, spec: SketchSpec, block: int, donate: bool,
+                 layout: Optional[Tuple] = None):
         self.spec = spec
         self.block = block
+        self.layout = layout   # the cell's mesh_layout (its cache key)
         # donation only on the card (platform.donate_state_buffers)
         self.donate = bool(donate) and donate_state_buffers()
         self.graphs: Dict[Tuple, _Graph] = {}
@@ -182,7 +203,10 @@ class CompiledIngest:
                 f"{tuple(weights.shape)}")
         leaves = _leaves(state)
         dev = leaves[0].device
-        if dev.type != "cuda":
+        if (dev.type != "cuda" or mesh_layout(self.spec) is not None
+                or any(psh.is_dtensor(t) for t in leaves)):
+            # the CPU, or a mesh: the eager update (a capture would hold
+            # DTensor dispatch and, for a mesh-sharded state, a gather)
             return api.adapter_for(self.spec).update(
                 self.spec, state, items.to(dev, I32), weights.to(dev, I32))
         shape = tuple(t.shape for t in leaves)
@@ -278,9 +302,9 @@ class CompiledIngest:
 
 
 @functools.lru_cache(maxsize=None)
-def _ingest_fn_cached(spec: SketchSpec, block: int,
-                      donate: bool = True) -> CompiledIngest:
-    return CompiledIngest(spec, block, donate)
+def _ingest_fn_cached(spec: SketchSpec, block: int, donate: bool = True,
+                      layout: Optional[Tuple] = None) -> CompiledIngest:
+    return CompiledIngest(spec, block, donate, layout)
 
 
 def _ingest_fn(spec: SketchSpec, block: int, donate: bool = True
@@ -288,11 +312,12 @@ def _ingest_fn(spec: SketchSpec, block: int, donate: bool = True
     """The compiled ingest of one ``(spec, block, donate)`` cell, cached
     for the process (unbounded, as the reference's: an eviction would
     capture a live session's graph anew). The spec is normalised first
-    (``ingest_cache_spec``). A cell's CUDA graph holds the update's
-    intermediates in its own memory pool (PERF.md gives the main spec's
-    size)."""
+    (``ingest_cache_spec``), and the active mesh's layout for the spec
+    (``mesh_layout``) is part of the key. A cell's CUDA graph holds the
+    update's intermediates in its own memory pool (PERF.md gives the main
+    spec's size)."""
     return _ingest_fn_cached(ingest_cache_spec(spec), int(block),
-                             bool(donate))
+                             bool(donate), mesh_layout(spec))
 
 
 def ingest_cache_stats() -> Dict[str, int]:
@@ -892,4 +917,4 @@ class BlockFeeder:
 
 
 __all__ = ["BlockFeeder", "CompiledIngest", "StreamSession", "_ingest_fn",
-           "ingest_cache_spec", "ingest_cache_stats"]
+           "mesh_layout", "ingest_cache_spec", "ingest_cache_stats"]

@@ -1,9 +1,10 @@
 """The port's training runtime (counterpart of ``repro.train``): the
 train step (loss, gradients through kernel 5, AdamW), the trainer loop
 with its SS± token and expert trackers, checkpoints in the reference's
-format, and the straggler monitor. One device: the DP gradient exchange
-(``dp_exchange.py``, ``shard_map`` over a mesh) and the mesh-aware
-restore come with the mesh, ROADMAP item 19."""
+format, the straggler monitor, and the compressed data-parallel gradient
+exchange over a mesh axis (``dp_exchange``). The step, the trainer and
+the restore run on one device (a mesh-aware restore and
+``Trainer(mesh=)`` are not ported yet)."""
 from .step import (TrainState, abstract_state, build_train_step, init_state,
                    state_axes)
 from .straggler import StragglerConfig, StragglerMonitor

@@ -14,8 +14,8 @@ package restores in the other.
     every ``milestone_every``-th step for good.
   - **Restore**: onto one device, each leaf cast to the dtype of the
     ``like`` tree's leaf after its keys and shapes are checked. The
-    reference's mesh re-sharding on restore (``axes``) waits for the
-    mesh, ROADMAP item 19.
+    reference's mesh re-sharding on restore (``axes``) is ROADMAP item
+    19b.
 """
 from __future__ import annotations
 

@@ -5,7 +5,7 @@ State contracts, as in the reference:
   - params: bf16 at scale (or the dtype the caller's init chose);
   - optimizer state: f32 master weights and moments, a tree like the
     params (``state_axes`` gives the logical axes of both; the sharding
-    they describe waits for the mesh, ROADMAP item 19);
+    the model does not apply them yet: ROADMAP item 19b);
   - batch: a dict of tensors on the params' device (``tokens``,
     ``labels``, and ``vision``, ``frames``, ``mask`` where the model
     takes them);

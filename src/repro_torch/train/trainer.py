@@ -16,8 +16,8 @@ Fault tolerance:
 The SS± trackers run on the card beside the step: ``TokenStats`` takes
 each batch's tokens and, for a MoE model, ``ExpertLoadStats`` each
 step's ``expert_counts`` (kernel 1, one launch a push). Per-step wall
-time feeds ``StragglerMonitor``. Multi-host meshes and their elastic
-restore wait for ROADMAP item 19.
+time feeds ``StragglerMonitor``. ``Trainer(mesh=)`` and the elastic
+restore onto a mesh are ROADMAP item 19b.
 """
 from __future__ import annotations
 

@@ -361,10 +361,18 @@ def test_block_and_kernel_backends_agree(shards, variant):
 
 
 def test_sharded_paths_not_ported_name_their_roadmap_item():
+    """``path="shard_map"`` with no mesh raises the reference's
+    ``ValueError`` (its message naming the port's module where the
+    reference's names its own); an unknown path raises too."""
     st = tshd.init(64, 4, device="cpu")
     it = torch.zeros(8, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="item 19"):
+    with pytest.raises(ValueError) as want:
+        jshd.update_block(jshd.init(64, 4), jnp.zeros(8, jnp.int32),
+                          jnp.zeros(8, jnp.int32), path="shard_map")
+    with pytest.raises(ValueError) as got:
         tshd.update_block(st, it, it, path="shard_map")
+    assert str(got.value).replace("repro_torch.", "repro.") == \
+        str(want.value)
     with pytest.raises(ValueError, match="unknown path"):
         tshd.update_block(st, it, it, path="fast")
 

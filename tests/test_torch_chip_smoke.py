@@ -863,3 +863,37 @@ def test_train_phase_rejects_a_dropped_attention_gradient(monkeypatch):
     with pytest.raises(SystemExit, match="plain twin"):
         cs.train_phase(torch.device("cpu"), get=configs.get_smoke,
                        main=SMOKE_TRAIN, moe=SMOKE_TRAIN_MOE, timed=False)
+
+
+def test_mesh_phase_rehearsal(monkeypatch):
+    """The mesh phase at a small size on the CPU (gloo for the one-rank
+    group too): (a)'s shard_map runs equal their twins and the CPU, the
+    exchange equals its CPU twin (the smoke Qwen3's shapes), and (b)'s
+    two child processes take the shard_map path and gather (a)'s bank,
+    each run's launch check made once per run; a child that fails is
+    fatal."""
+    cs = _chip_smoke()
+    checked = _on_the_cpu(monkeypatch, cs)
+    monkeypatch.setattr(cs, "MESH", dict(
+        blocks=4, cpu_blocks=2, q_blocks=2, arch="qwen3_0_6b",
+        smoke_arch=True, k_frac=0.01, steps=2, seed=31, ranks=2,
+        child_timeout=300))
+    spec = SketchSpec(eps=0.05, alpha=2.0, shards=8, bits=12)
+    q_spec = SketchSpec(kind="quantile", bits=12, eps=0.1, alpha=2.0,
+                        shards=4)
+    stream = cs.make_stream(4, BLOCK, seed=1, bits=12)
+    cpu = torch.device("cpu")
+    out = cs.mesh_phase(cpu, stream, BLOCK, spec, q_spec, c=cs.MESH)
+    assert set(out["runs"]) == {
+        "mesh (a) sharded shard_map", "mesh (a) dyadic shard_map",
+        "mesh (b) rank 0 session", "mesh (b) rank 1 session"}
+    assert ("mesh (a) sharded shard_map", "sketch_residual_kernel", 4,
+            "staged") in checked
+    # at these sizes kernel 2's rows fit its staged layout
+    assert ("mesh (a) dyadic shard_map", "sketch_residual_kernel_banked", 2,
+            "staged") in checked
+    assert out["times"]["b_rank1"]["local_rows"] == 4
+    assert out["exchange"]["steps"] == 2 and out["exchange"]["leaves"] > 0
+    monkeypatch.setattr(cs, "MESH", dict(cs.MESH, ranks=3))
+    with pytest.raises(SystemExit, match="rank"):
+        cs.mesh_phase(cpu, stream, BLOCK, spec, q_spec, c=cs.MESH)

@@ -116,8 +116,15 @@ def test_update_paths():
     one = torch.ones(4, dtype=torch.int32)
     _assert_state(tds.update_block(ts, one, one, path="bank"),
                   tds.update_block(ts, one, one, path="auto"), "auto")
-    with pytest.raises(NotImplementedError, match="item 19"):
+    # no mesh: the reference's ValueError (the port's message names its
+    # own module where the reference's names its own)
+    with pytest.raises(ValueError) as want:
+        jds.update_block(jds.init(BITS, 2, eps=EPS), jnp.asarray(one.numpy()),
+                         jnp.asarray(one.numpy()), path="shard_map")
+    with pytest.raises(ValueError) as got:
         tds.update_block(ts, one, one, path="shard_map")
+    assert str(got.value).replace("repro_torch.", "repro.") == \
+        str(want.value)
     with pytest.raises(ValueError, match="unknown path"):
         tds.update_block(ts, one, one, path="kernel")
 

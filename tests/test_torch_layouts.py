@@ -103,3 +103,28 @@ def test_decode_chunks_cover_the_card_at_the_serving_shapes(B, C, chunk):
     assert lay.chunk == chunk and lay.kv_groups == lay.g_groups == 1
     assert lay.split_ctas * B >= 132 and lay.combine * B >= 132
     assert (lay.threads, lay.rep, lay.sub) == (256, 1, 8)
+
+
+@pytest.mark.parametrize("ranks", [1, 2, 4])
+def test_mesh_paths_local_rows_keep_their_layouts(ranks):
+    """The shard_map paths hand kernels 3 and 2 the rank's rows only: the
+    main spec's 128 shards of 3,125 slots as 128, 64 or 32 sketches
+    (kernel 3's layout goes by the rows of 128 slots in one sketch, 25
+    here), and the 8-shard dyadic bank at bits = 24 as s_loc * 24 rows
+    of the layers' 96,000 slots (kernel 2's by the slots in a row). Each
+    local shape names the layout of the single-device run and passes the
+    wrappers' size checks."""
+    from repro_torch.core.quantiles import dyadic_layer_capacities
+    from repro_torch.core.spacesaving import capacity_for
+
+    k = -(-capacity_for(1e-5, 2.0) // 128)            # per shard
+    E, rows = 128 // ranks, -(-k // 128)
+    assert (k, rows) == (3125, 25)
+    assert kernel.residual_layout(rows) == "staged"
+    kernel._check_sizes("sketch_residual_kernel", E, rows, 65536,
+                        E * rows * 128, E * 65536)
+    K = max(dyadic_layer_capacities(24, eps=1e-3, alpha=2.0))
+    R = (8 // ranks) * 24
+    assert K == 96000 and kernel.banked_layout(K) == "unstaged"
+    kernel._check_sizes("sketch_residual_kernel_banked", R, K, R * 65536,
+                        R * K)

@@ -20,10 +20,19 @@ master weights and params within lr·2^-7: a step moves a weight by
 lr·mh/(sqrt(vh) + eps), about lr whatever the gradient's size at step 1,
 so where the reference's gradient lies within its tolerance of 0 the
 sign may fall either way and the two steps may differ by 2·lr there.
-``microbatches=2`` is held the same way. ``remat=True`` equals ``remat=False`` bit for bit. Also: the
-abstract state's shapes and dtypes, and the grad guard of the kernel
-wrappers (a wrapper refuses operands that require grad before it looks
-at their device; ``_attend`` on CPU tensors takes the plain path).
+``microbatches=2`` is held the same way. ``remat=True`` equals
+``remat=False`` bit for bit. Also: the abstract state's shapes and
+dtypes, and the grad guard of the kernel wrappers (a wrapper refuses
+operands that require grad before it looks at their device; ``_attend``
+on CPU tensors takes the plain path).
+
+An architecture's configs, params (both packages'), batch and the
+reference's loss and gradients are made once for the module (``cases``)
+and shared by its parametrized tests; every function under test leaves
+them as they were. The reference's one-step state is its gradients
+through its own ``adamw_update`` (``_ref_step``): its ``build_train_step``
+is exactly that, and ``test_reference_step_is_its_grads_then_adamw``
+holds the two bit for bit.
 """
 from __future__ import annotations
 
@@ -42,6 +51,7 @@ import jax.numpy as jnp
 from repro import configs as jconfigs
 from repro.models import build_model as jbuild
 from repro.optim import adamw_init as j_adamw_init
+from repro.optim import adamw_update as j_adamw_update
 from repro.train import step as JS
 from repro_torch import configs as tconfigs
 from repro_torch.models import build_model as tbuild
@@ -100,12 +110,27 @@ def _ref_grads(jcfg, jp, jb):
     return loss, aux, grads
 
 
+@pytest.fixture(scope="module")
+def cases():
+    """arch -> (jcfg, tcfg, jp, tp, jb, tb, the reference's (loss, aux,
+    grads)), made at first use."""
+    made = {}
+
+    def get(arch):
+        if arch not in made:
+            jcfg, tcfg = _cfgs(arch)
+            jp, tp = reference_params(jcfg, tcfg)
+            jb, tb = _batch(jcfg)
+            made[arch] = (jcfg, tcfg, jp, tp, jb, tb,
+                          _ref_grads(jcfg, jp, jb))
+        return made[arch]
+
+    return get
+
+
 @pytest.mark.parametrize("arch", jconfigs.ARCH_IDS)
-def test_loss_and_gradients(arch):
-    jcfg, tcfg = _cfgs(arch)
-    jp, tp = reference_params(jcfg, tcfg)
-    jb, tb = _batch(jcfg)
-    wl, waux, wg = _ref_grads(jcfg, jp, jb)
+def test_loss_and_gradients(cases, arch):
+    jcfg, tcfg, jp, tp, jb, tb, (wl, waux, wg) = cases(arch)
     gl, gaux, gg = TS.loss_and_grads(tbuild(tcfg), tp, tb, True, "kernel")
     np.testing.assert_allclose(float(gl), float(wl), rtol=LOSS_TOL)
     np.testing.assert_array_equal(gaux["expert_counts"].numpy(),
@@ -115,6 +140,18 @@ def test_loss_and_gradients(arch):
 
 def _ref_state(jp):
     return JS.TrainState(params=jp, opt=j_adamw_init(jp))
+
+
+def _ref_step(jp, ref_grads):
+    """The reference's one-step (state, metrics) from its loss and
+    gradients: ``build_train_step``'s ``microbatches=1`` body, its
+    ``adamw_update`` at the default config on them."""
+    loss, aux, grads = ref_grads
+    params, opt, metrics = jax.jit(j_adamw_update)(grads, j_adamw_init(jp),
+                                                   jp)
+    return JS.TrainState(params=params, opt=opt), {
+        "loss": loss.astype(jnp.float32),
+        "expert_counts": aux["expert_counts"], **metrics}
 
 
 def _port_state(tp):
@@ -156,20 +193,29 @@ def _hold_step(label, got, want, gm, wm):
 
 
 @pytest.mark.parametrize("arch", jconfigs.ARCH_IDS)
-def test_one_train_step(arch):
-    jcfg, tcfg = _cfgs(arch)
-    jp, tp = reference_params(jcfg, tcfg)
-    jb, tb = _batch(jcfg)
-    want, wm = jax.jit(JS.build_train_step(jcfg))(_ref_state(jp), jb)
+def test_one_train_step(cases, arch):
+    jcfg, tcfg, jp, tp, jb, tb, ref_grads = cases(arch)
+    want, wm = _ref_step(jp, ref_grads)
     got, gm = TS.build_train_step(tcfg)(_port_state(tp), tb)
     _hold_step(arch, got, want, gm, wm)
 
 
+@pytest.mark.parametrize("arch", ["qwen3_0_6b", "olmoe_1b_7b"])
+def test_reference_step_is_its_grads_then_adamw(cases, arch):
+    """What ``_ref_step`` stands on: the reference's jitted
+    ``build_train_step`` equals its gradients through its jitted
+    ``adamw_update``, bit for bit, state and metrics."""
+    jcfg, _, jp, _, jb, _, ref_grads = cases(arch)
+    want, wm = jax.jit(JS.build_train_step(jcfg))(_ref_state(jp), jb)
+    got, gm = _ref_step(jp, ref_grads)
+    for a, b in zip(jax.tree.leaves((want, wm)), jax.tree.leaves((got, gm))):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    assert set(wm) == set(gm)
+
+
 @pytest.mark.parametrize("arch", jconfigs.ARCH_IDS)
-def test_two_microbatches(arch):
-    jcfg, tcfg = _cfgs(arch)
-    jp, tp = reference_params(jcfg, tcfg)
-    jb, tb = _batch(jcfg)
+def test_two_microbatches(cases, arch):
+    jcfg, tcfg, jp, tp, jb, tb, _ = cases(arch)
     want, wm = jax.jit(JS.build_train_step(jcfg, microbatches=2))(
         _ref_state(jp), jb)
     got, gm = TS.build_train_step(tcfg, microbatches=2)(_port_state(tp), tb)
