@@ -194,7 +194,21 @@ result):
      to ``"bank"``; ``train.dp_exchange.build_compressed_allreduce`` on
      that mesh over f32 gradients of Qwen3-0.6B's parameter shapes
      (``k_frac`` 0.01, 3 steps carrying the residual), equal leaf for
-     leaf to the same exchange on CPU copies. (b) two child processes
+     leaf to the same exchange on CPU copies; the model on that mesh
+     (``mesh_model``, MESH_MODEL): Qwen3-0.6B at full size through
+     ``Trainer(mesh=, rules=default_rules())`` for 2 steps on DTensor
+     state, kernel 5 on the rank's shards (2 a layer a step) and kernel
+     1 for the token tracker, beside the same Trainer without a mesh
+     (losses and gradient norms within the twin tolerances), its state
+     saved on the mesh restored without one and the plain one's restored
+     onto the mesh, bit for bit; Gemma3-27B's serving run (one period,
+     B = 2 x 8,192, 8 tokens) through ``ServeEngine`` under ``use_mesh``
+     on DTensor params, kernel 5 on the prefill and kernel 6 on each
+     decode step (the cache's slots gathered over "model"), every
+     step's logits and the SS± counts equal to the run without a mesh;
+     kernels 5 and 6 held to their plain versions on the operands the
+     mesh runs gave them; each path's ms and the mesh's overhead over
+     the run without one. (b) two child processes
      on the same card in a gloo group (``mesh_child``): a
      ``StreamSession`` of the main spec on ``"bank"`` under ``use_mesh``
      of a ("data",) mesh of 2 takes the shard_map path, kernel 3 on each
@@ -340,7 +354,8 @@ reference's plain-JAX scan; the entries of flash and of kernels 1-3
 give their launches by path, kernels 1-4 and the unbiased kernel also
 ``stream_ms``; kernels 2 and 3 give their launches by run in
 ``launches_by_run``, the mesh phase's runs among them; flash's and
-decode's launches include the model phase's, decode's by run in
+decode's launches include the model phase's and the mesh phase's
+(``mesh_launches`` of them), decode's by run in
 ``launches_by_run``, their ``max_abs_err`` the model phase's shapes too, and both give their times and row shares at
 the serving shapes under ``serving``; flash's launches include the
 train phase's, ``training_launches`` of them, its ``max_abs_err`` the
@@ -1967,7 +1982,11 @@ def device_ms(call, st, reps) -> float:
     profiler sees it, summed over the kernels a call launches once each
     (a wrapper's launches, without the host's time between them). Means
     per launch, as the profiler may miss a window's first launch. A window
-    in which it records no kernel is taken again, at most twice."""
+    in which it records no kernel is taken again, at most twice; after a
+    third such window (the card's tracing has dropped whole windows on
+    this machine), the median of ``device_span_ms`` over ``reps`` calls
+    instead: CUDA events around each call, which also hold the device's
+    gaps between a wrapper's launches."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1982,7 +2001,11 @@ def device_ms(call, st, reps) -> float:
                 if e.device_type == torch.autograd.DeviceType.CUDA and e.count]
         if seen:
             return sum(_dev_us(e) / e.count for e in seen) / 1e3
-    raise SystemExit("the profiler saw no kernel on the card")
+    copies = iter([[t.clone() for t in st] for _ in range(reps + 1)])
+    spans = device_span_ms(lambda: call(next(copies)), reps)
+    log(f"device_ms: the profiler saw no kernel in 3 windows; CUDA events "
+        f"instead: {spans}")
+    return statistics.median(spans)
 
 
 STREAM_ROUNDS = 5
@@ -2637,7 +2660,12 @@ def decode_device_ms(fn, calls: int = 10, cold: bool = False) -> dict:
         if seen:
             return dict(per_call_ms=statistics.median(spans),
                         per_call_spans=spans, per_launch=seen, cold_l2=cold)
-    raise SystemExit("the profiler saw no decode kernel on the card")
+    # the card's tracing dropped three windows (see ``device_ms``): the
+    # per-call times, from CUDA events, stand; per launch not measured
+    log("decode_device_ms: the profiler saw no decode kernel in 3 windows; "
+        "per launch not measured")
+    return dict(per_call_ms=statistics.median(spans), per_call_spans=spans,
+                per_launch=None, cold_l2=cold)
 
 
 def sdpa(q, k, v, **kw):
@@ -2981,10 +3009,12 @@ def attention_calls(cfg) -> tuple:
 
 class AttentionSpy:
     """While open: counts the model's prefill attention calls by mask
-    (``layers._attend``: windowed, causal, unmasked) and the plain
+    (``layers._attend_local``: windowed, causal, unmasked) and the plain
     versions' calls, and keeps the first operands of each kind (flash by
     mask and shape, decode by cache length) for ``hold_kept`` and the
-    timings at serving shapes."""
+    timings at serving shapes. It reads the layers' local functions, the
+    ones a mesh run calls on each rank's shards, so kept operands are a
+    rank's plain tensors in a mesh run too."""
 
     def __init__(self, keep=False):
         self.keep = keep
@@ -2993,8 +3023,8 @@ class AttentionSpy:
         from repro_torch.models import layers as L
 
         self.L = L
-        self.saved = (L._attend, L.decode_attend, L.flash_attention_ref,
-                      L.decode_attention_ref)
+        self.saved = (L._attend_local, L._decode_attend_local,
+                      L.flash_attention_ref, L.decode_attention_ref)
         attend, decode_attend, fref, dref = self.saved
         self.masks = dict(windowed=0, causal=0, unmasked=0)
         self.plain = dict(flash=0, decode=0)
@@ -3020,14 +3050,14 @@ class AttentionSpy:
                 return fn(*a, **kw)
             return run
 
-        L._attend, L.decode_attend = spy_attend, spy_decode
+        L._attend_local, L._decode_attend_local = spy_attend, spy_decode
         L.flash_attention_ref = count("flash", fref)
         L.decode_attention_ref = count("decode", dref)
         return self
 
     def __exit__(self, *exc):
         L = self.L
-        (L._attend, L.decode_attend, L.flash_attention_ref,
+        (L._attend_local, L._decode_attend_local, L.flash_attention_ref,
          L.decode_attention_ref) = self.saved
 
 
@@ -6239,7 +6269,274 @@ def exchange_phase(mesh, c, device) -> dict:
                 cpu_ms_per_exchange=ms_h)
 
 
-def mesh_phase(device, stream, block, spec, q_spec, c=MESH) -> dict:
+# (a)'s model on the mesh: Qwen3-0.6B at full width and depth through
+# Trainer(mesh=, rules=) on DTensor state (TRAIN_MAIN's shape, remat on,
+# 2 steps) beside the same Trainer without a mesh, held by the twin
+# tolerances (TWIN_LOSS_RTOL, TWIN_GRAD_NORM_RTOL: the mesh moves which
+# way DTensor decomposes a product, a bf16 model's rounding), its state
+# saved on the mesh and restored without one, and the other way round,
+# bit for bit; Gemma3-27B's serving run (MODEL_MAIN's shape, fewer new
+# tokens) under use_mesh on DTensor params beside the run without one:
+# every step's logits and the SS± cache's counts equal
+MESH_MODEL = dict(
+    train=dict(arch="qwen3_0_6b", seq_len=2048, batch=4, steps=2, seed=27),
+    serve=dict(arch="gemma3_27b", batch=2, prompt=8192, new_tokens=8,
+               context=131_072, decay_period=16, seed=23))
+
+
+def _rel(a, b) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def _same_tree(a, b) -> bool:
+    """Leaf for leaf equal, DTensor leaves gathered whole."""
+    from repro_torch.parallel import sharding as psh
+    from repro_torch.train.checkpoint import _flatten
+
+    fa, fb = _flatten(a), _flatten(b)
+    return sorted(fa) == sorted(fb) and all(
+        torch_equal(psh.full(fa[k]), psh.full(fb[k])) for k in fa)
+
+
+def torch_equal(a, b) -> bool:
+    import torch
+
+    return a.shape == b.shape and a.dtype == b.dtype and bool(
+        torch.equal(a.to(b.device), b))
+
+
+def mesh_train(mesh, device, c, get) -> dict:
+    """The Trainer on ``mesh`` and without one (see MESH_MODEL): launches
+    (kernel 5 twice a layer a step on the rank's shard, kernel 1 once a
+    step for the token tracker), losses and gradient norms held, ms a
+    step, the state's layout, the two checkpoint crossings."""
+    import tempfile
+
+    from repro_torch.data import DataConfig
+    from repro_torch.models.transformer import tree_leaves
+    from repro_torch.parallel import sharding as psh
+    from repro_torch.train import Trainer, TrainerConfig
+    from repro_torch.train import checkpoint as ckpt
+
+    cfg = get(c["arch"])
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=c["seq_len"],
+                    global_batch=c["batch"], seed=c["seed"])
+    rules = psh.default_rules()
+    rec = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        def trainer(on_mesh, sub):
+            tc = TrainerConfig(total_steps=c["steps"], ckpt_every=0,
+                               ckpt_dir=f"{tmp}/{sub}", log_every=1,
+                               seed=c["seed"])
+            return Trainer(cfg, dc, tc, mesh=mesh if on_mesh else None,
+                           rules=rules if on_mesh else None, device=device)
+
+        runs = {}
+        for name in ("mesh", "plain"):
+            tr = trainer(name == "mesh", name)
+            if (name == "mesh") != all(psh.is_dtensor(t) for t in
+                                       tree_leaves(tr.state)):
+                raise SystemExit(f"mesh train: the {name} trainer's state is "
+                                 f"{'not ' if name == 'mesh' else ''}"
+                                 f"DTensors")
+            reset_counts()
+            with AttentionSpy(keep=name == "mesh") as spy:
+                tr.run()
+                sync(device)
+            fl, fu = check_train_launches(
+                f"mesh train {name}", read_counts(),
+                2 * cfg.num_layers * c["steps"], c["steps"], spy)
+            runs[name] = dict(
+                losses=[r["loss"] for r in tr.metrics_log],
+                grad_norms=[r["grad_norm"] for r in tr.metrics_log],
+                ms_per_step=[r["step_time_s"] * 1e3 for r in tr.metrics_log],
+                flash_by_path=fl, fused_by_layout=fu)
+            if name == "mesh":
+                mesh_tr = tr
+                rec["embed_placements"] = str(
+                    tuple(tr.state.params["embed"].placements))
+                # kernel 5 against its plain version on the operands the
+                # mesh run gave it (a rank's shards)
+                kept = {k: tuple(t.detach() if hasattr(t, "detach") else t
+                                 for t in ops)
+                        for k, ops in spy.operands.items()}
+                del spy
+                rec["kernels_vs_plain"] = hold_kept("mesh train", kept)
+                rec["local_shapes"] = {k: [list(t.shape) for t in ops[:3]]
+                                       for k, ops in kept.items()}
+                del kept
+            else:
+                plain_tr = tr
+        m, p = runs["mesh"], runs["plain"]
+        bad = [i for i, (a, b) in enumerate(zip(m["losses"], p["losses"]))
+               if not _rel(a, b) <= TWIN_LOSS_RTOL]
+        bad += [i for i, (a, b) in enumerate(zip(m["grad_norms"],
+                                                 p["grad_norms"]))
+                if not _rel(a, b) <= TWIN_GRAD_NORM_RTOL]
+        if bad or not all(math.isfinite(x) for x in m["losses"] +
+                          m["grad_norms"]):
+            raise SystemExit(f"mesh train: the mesh run is not the plain "
+                             f"run's: {m} against {p}")
+        rec.update(runs=runs, loss_rtol=TWIN_LOSS_RTOL,
+                   grad_norm_rtol=TWIN_GRAD_NORM_RTOL,
+                   ms_per_step_mesh=m["ms_per_step"][-1],
+                   ms_per_step_plain=p["ms_per_step"][-1],
+                   mesh_overhead_ms_per_step=(m["ms_per_step"][-1]
+                                              - p["ms_per_step"][-1]))
+        # the state saved on the mesh restores without one, bit for bit,
+        # and the plain trainer's restores onto the mesh
+        t0 = time.perf_counter()
+        mesh_tr.save()
+        plain_tr.save()
+        sync(device)
+        rec["save_s"] = time.perf_counter() - t0
+        got, _ = ckpt.restore(f"{tmp}/mesh", {"train": mesh_tr.state},
+                              device=device)
+        if any(psh.is_dtensor(t) for t in tree_leaves(got)) or \
+                not _same_tree(got["train"], mesh_tr.state):
+            raise SystemExit("mesh train: the state saved on the mesh did "
+                             "not restore without one bit for bit")
+        del got
+        gc_free(device)
+        with psh.use_mesh(mesh, rules):
+            got, _ = ckpt.restore(f"{tmp}/plain", {"train": mesh_tr.state},
+                                  axes={"train": mesh_tr.axes},
+                                  device=device)
+        if not all(psh.is_dtensor(t) for t in tree_leaves(got)) or \
+                not _same_tree(got["train"], plain_tr.state):
+            raise SystemExit("mesh train: the plain state did not restore "
+                             "onto the mesh bit for bit")
+        rec["restores"] = "bit for bit, both ways"
+        del got, mesh_tr, plain_tr
+        gc_free(device)
+    log(f"mesh (a) train {cfg.name}: {json.dumps(rec)}")
+    return rec
+
+
+def _serve_ms(engine, params, toks, new_tokens, device) -> dict:
+    """Prefill ms and decode ms a step (median), each timed with a sync,
+    through the engine's own steps (its logits gathered as ``generate``
+    gathers them)."""
+    import torch
+    from repro_torch.parallel import sharding as psh
+
+    sync(device)
+    t0 = time.perf_counter()
+    logits, cache = engine._prefill(params, {"tokens": toks})
+    cur = torch.argmax(psh.full(logits)[:, -1], -1).to(torch.int32)[:, None]
+    sync(device)
+    prefill = (time.perf_counter() - t0) * 1e3
+    steps = []
+    for _ in range(new_tokens):
+        t0 = time.perf_counter()
+        logits, cache, _ = engine._step(params, cache, cur)
+        cur = torch.argmax(psh.full(logits)[:, -1], -1).to(
+            torch.int32)[:, None]
+        sync(device)
+        steps.append((time.perf_counter() - t0) * 1e3)
+    return dict(prefill_ms=prefill, decode_ms_per_step=statistics.median(
+        steps))
+
+
+def mesh_serve(mesh, device, c, get) -> dict:
+    """Gemma3-27B's serving run (see MESH_MODEL) through ``ServeEngine``
+    without a mesh and under ``use_mesh`` with DTensor params: kernel 5
+    on the prefill and kernel 6 on every decode step in both, every
+    step's logits and the SS± cache's counts equal, kernels 5 and 6 held
+    to their plain versions on the operands the mesh run gave them, and
+    each run's prefill and decode ms."""
+    from repro_torch.models import build_model
+    from repro_torch.parallel import sharding as psh
+    from repro_torch.serve import ServeEngine
+
+    cfg = get(c["arch"])
+    params, axes = build_model(cfg).init(c["seed"], device=device)
+    toks, kw = model_inputs(cfg, c["batch"], c["prompt"], device, c["seed"])
+    flash_n, decode_n = attention_calls(cfg)
+    rules = psh.default_rules()
+    rec, res = {}, {}
+    for name in ("plain", "mesh"):
+        on = mesh if name == "mesh" else None
+        with psh.use_mesh(on, rules if on is not None else None):
+            p = psh.distribute(params, axes)
+            engine = ServeEngine(cfg, p, c["context"], c["decay_period"],
+                                 device=device)
+            reset_counts()
+            with AttentionSpy(keep=name == "mesh") as spy:
+                res[name] = engine.generate(toks, c["new_tokens"],
+                                            keep_logits=True, **kw)
+                sync(device)
+            fl = check_model_launches(f"mesh serve {name}", read_counts(),
+                                      flash_n, decode_n * c["new_tokens"],
+                                      spy)
+            rec[name] = dict(flash_by_path=fl,
+                             decode_launches=decode_n * c["new_tokens"],
+                             **_serve_ms(engine, p, toks, c["new_tokens"],
+                                         device))
+            if name == "mesh":
+                if not all(psh.is_dtensor(t) for t in
+                           hh_entry_of(res[name]["cache"], cfg).values()):
+                    raise SystemExit("mesh serve: the SS± cache is not on "
+                                     "the mesh")
+                rec["cache_placements"] = str(tuple(hh_entry_of(
+                    res[name]["cache"], cfg)["counts"].placements))
+                rec["kernels_vs_plain"] = hold_kept("mesh serve",
+                                                    spy.operands)
+                rec["local_shapes"] = {
+                    k: [list(t.shape) for t in ops[:3]]
+                    for k, ops in spy.operands.items()}
+            del engine, p, spy
+    got, want = res["mesh"], res["plain"]
+    if not all(torch_equal(a, b) for a, b in zip(got["logits"],
+                                                 want["logits"])) or \
+            len(got["logits"]) != c["new_tokens"] + 1:
+        raise SystemExit("mesh serve: the mesh run's logits are not the "
+                         "plain run's")
+    g, w = (hh_entry_of(r["cache"], cfg) for r in (got, want))
+    if not all(torch_equal(psh.full(g[k]), w[k]) for k in ("ids", "counts",
+                                                          "errors")):
+        raise SystemExit("mesh serve: the mesh run's SS± cache is not the "
+                         "plain run's")
+    rec.update(logits="equal", hh_counts="equal",
+               mesh_overhead_prefill_ms=(rec["mesh"]["prefill_ms"]
+                                         - rec["plain"]["prefill_ms"]),
+               mesh_overhead_decode_ms_per_step=(
+                   rec["mesh"]["decode_ms_per_step"]
+                   - rec["plain"]["decode_ms_per_step"]))
+    del res, got, want, g, w, params
+    gc_free(device)
+    log(f"mesh (a) serve {cfg.name}: {json.dumps(rec)}")
+    return rec
+
+
+def mesh_model(mesh, device, c=MESH_MODEL, get=None) -> dict:
+    """(a)'s model on the mesh (see MESH_MODEL): training and serving,
+    with the launches of kernels 5, 6 and 1 under the mesh. ``get`` picks
+    the configs (the full ones, Gemma3 cut to one period, by default; the
+    CPU rehearsal passes the smoke ones)."""
+    from repro_torch import configs
+
+    t0 = time.perf_counter()
+    train = mesh_train(mesh, device, c["train"], get or configs.get)
+    serve = mesh_serve(mesh, device, c["serve"],
+                       get or (lambda a: one_period(configs.get(a))))
+    launches = {"flash": {}, "decode": {
+        "mesh (a) serve": serve["mesh"]["decode_launches"]},
+        "fused": train["runs"]["mesh"]["fused_by_layout"]}
+    for part in (train["runs"]["mesh"], serve["mesh"]):
+        for path, n in part["flash_by_path"].items():
+            launches["flash"][path] = launches["flash"].get(path, 0) + n
+    errs = {"flash": 0.0, "decode": 0.0}
+    for rec in (train, serve):
+        for key, r in rec["kernels_vs_plain"].items():
+            kind = "decode" if key.startswith("decode") else "flash"
+            errs[kind] = max(errs[kind], r["max_abs_err"])
+    return dict(train=train, serve=serve, launches=launches,
+                max_abs_err=errs, seconds=time.perf_counter() - t0)
+
+
+def mesh_phase(device, stream, block, spec, q_spec, c=MESH,
+               model=MESH_MODEL, get=None) -> dict:
     """The mesh paths (fatal). (a) one rank: a process group of one rank
     over a ``FileStore`` (NCCL for the card's tensors, gloo for the CPU
     twin's) and ``make_smoke_mesh(1)``: the sharded bank (``spec``)
@@ -6249,7 +6546,9 @@ def mesh_phase(device, stream, block, spec, q_spec, c=MESH) -> dict:
     (``q_spec``) through its shard_map path (kernel 2), equal to
     ``"bank"``; the compressed exchange over the model's parameter
     shapes, equal to the same exchange on the CPU leaf for leaf (one
-    rank: the top-k scatter of unique indices, exact). (b) ``c["ranks"]``
+    rank: the top-k scatter of unique indices, exact); the model on the
+    mesh (``mesh_model``: ``model``'s training and serving, ``get`` its
+    configs). (b) ``c["ranks"]``
     child processes sharing the card in a gloo group: a ``StreamSession``
     of ``spec`` on ``"bank"`` under ``use_mesh`` of a ("data",) mesh
     takes the shard_map path (kernel 3 on S / ranks rows a rank); the
@@ -6356,6 +6655,7 @@ def mesh_phase(device, stream, block, spec, q_spec, c=MESH) -> dict:
             del qgot, qtwin
             # the compressed exchange over the model's parameter shapes
             out["exchange"] = exchange_phase(mesh, c, device)
+            out["model"] = mesh_model(mesh, device, model, get)
         finally:
             dist.destroy_process_group()
         # (b): ranks sharing the card over gloo
@@ -6619,8 +6919,19 @@ def main() -> int:
     mesh = mesh_phase(device, main_stream, B, fault_spec(),
                       q_specs["sharded"])
     runs.update(mesh["runs"])
+    for layout, n in mesh["model"]["launches"]["fused"].items():
+        runs[f"mesh (a) train trackers {layout}"] = dict(
+            kernel=FUSED, launches=n, layout=layout)
     log(f"mesh phase ({card}): {json.dumps(mesh['times'])}")
     log(f"mesh phase exchange ({card}): {json.dumps(mesh['exchange'])}")
+    tr, sv = mesh["model"]["train"], mesh["model"]["serve"]
+    log(f"mesh phase model ({card}), ms on the mesh and without: "
+        + json.dumps(dict(
+            train_step=[tr["ms_per_step_mesh"], tr["ms_per_step_plain"]],
+            prefill=[sv["mesh"]["prefill_ms"], sv["plain"]["prefill_ms"]],
+            decode_step=[sv["mesh"]["decode_ms_per_step"],
+                         sv["plain"]["decode_ms_per_step"]],
+            launches=mesh["model"]["launches"])))
     phase_done("mesh")
 
     times = {
@@ -6730,6 +7041,20 @@ def main() -> int:
         flash_entry["launches"] += n
         flash_entry["launches_by_path"][path] += n
     flash_entry["training_launches"] = sum(train_launches["flash"].values())
+    # kernels 5 and 6 on the mesh: their launches on each rank's shard in
+    # the mesh phase's training and serving runs, held to their plain
+    # versions on those shards
+    mesh_launches = mesh["model"]["launches"]
+    for path, n in mesh_launches["flash"].items():
+        flash_entry["launches"] += n
+        flash_entry["launches_by_path"][path] += n
+    flash_entry["mesh_launches"] = sum(mesh_launches["flash"].values())
+    decode_entry["launches_by_run"].update(mesh_launches["decode"])
+    decode_entry["launches"] = sum(decode_entry["launches_by_run"].values())
+    decode_entry["mesh_launches"] = sum(mesh_launches["decode"].values())
+    for entry, kind in ((flash_entry, "flash"), (decode_entry, "decode")):
+        entry["max_abs_err"] = max(entry["max_abs_err"],
+                                   mesh["model"]["max_abs_err"][kind])
     for run in ("main", "moe"):
         for r in (*train[run]["kernels_vs_plain"].values(),
                   *train[run]["flash_grads_vs_plain"].values()):

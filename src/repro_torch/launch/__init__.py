@@ -1,2 +1,3 @@
-"""Launchers (counterpart of ``repro.launch``): the mesh builders. The
-train and serve drivers and the multi-pod dry-run are not ported yet."""
+"""Launch entry points (counterpart of ``repro.launch``): the mesh
+builders (``mesh``), the train and serve CLIs (``train``, ``serve``).
+The multi-pod dry-run is not ported yet."""

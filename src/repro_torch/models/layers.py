@@ -18,6 +18,16 @@ require grad. The kernels keep the scores in f32 where the
 reference keeps bf16 models' (S, S) scores and P in bf16, so a bf16
 model agrees with the reference within bf16 rounding, not bit for bit.
 
+On a mesh (``parallel.sharding.use_mesh``) the params are DTensors and
+the reference's ``shard`` calls lay out q, k, the attention output and
+the MLP's hidden and output. Kernels 5 and 6 run under
+``sharding.local_map`` on each rank's shard: kernel 5 on the rank's
+batch rows and q-heads, with the kv-heads those q-heads read (a
+replicated k/v is cut to them); kernel 6 on the rank's batch rows with
+the cache's slots gathered over the axes "cache" binds, since its mass
+is summed over the q-heads inside the kernel and a rank's partial
+softmax over its slots could not be rescaled head by head after it.
+
 JAX's type promotion is kept by hand: ``torch.einsum`` refuses mixed
 dtypes, so every product promotes its operands first (``ein``), as
 ``jnp.result_type`` would; Python scalars stay weak in both frameworks.
@@ -36,6 +46,7 @@ from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_attention.kernel import flash_attention_kernel
 from repro_torch.kernels.flash_attention.ops import FlashAttentionFn
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.parallel import sharding as psh
 
 F32 = torch.float32
 BF16 = torch.bfloat16
@@ -104,6 +115,44 @@ def _project_qkv(x, p, cfg: ModelConfig):
 
 
 def _attend(q, k, v, causal: bool, window: int, attention: str):
+    """GQA attention in the model layout (``_attend_local``), on each
+    rank's shard when q is a DTensor: q by ("batch", "seq", "heads"),
+    k and v by ("batch", "seq", "kv"); a rank whose q-heads are split
+    and whose kv-heads are not takes the kv-heads its q-heads read
+    (``_kv_for_heads``)."""
+    if not psh.is_dtensor(q):
+        return _attend_local(q, k, v, causal, window, attention)
+    H, KV = q.shape[2], k.shape[2]
+    qs = psh.act_spec(q.shape, "batch", "seq", "heads", None).spec
+    ks = psh.act_spec(k.shape, "batch", "seq", "kv", None).spec
+
+    def local(q, k, v):
+        k, v = _kv_for_heads(q, k, v, qs[2], H, KV)
+        return _attend_local(q, k, v, causal, window, attention)
+
+    return psh.local_map(local, (q, k, v), (qs, ks, ks), qs)
+
+
+def _kv_for_heads(q, k, v, heads_axes, H: int, KV: int):
+    """k, v cut to the kv-heads this rank's q-heads read, where the q-heads
+    are split over ``heads_axes`` and k, v hold every kv-head (the rules
+    replicate a kv dim its axes do not divide). q-head h reads kv-head
+    h // G: a run of whole groups is a slice of kv-heads, a part of one
+    group is one kv-head, anything else repeats each q-head's kv-head."""
+    h_loc = q.shape[2]
+    if h_loc == H or k.shape[2] != KV:
+        return k, v
+    G = H // KV
+    i, _ = psh.shard_index(heads_axes)
+    kv = torch.arange(i * h_loc, (i + 1) * h_loc, device=k.device) // G
+    if h_loc % G == 0:
+        kv = kv[::G]
+    elif G % h_loc == 0:
+        kv = kv[:1]
+    return k.index_select(2, kv), v.index_select(2, kv)
+
+
+def _attend_local(q, k, v, causal: bool, window: int, attention: str):
     """GQA attention in the model layout, q (B, S, H, hd) and k, v (B, T,
     KV, hd), sequence ends aligned: kernel 5 for CUDA tensors under
     ``attention="kernel"`` (through ``FlashAttentionFn`` when grad mode
@@ -157,10 +206,13 @@ def attention(
             raise ValueError(f"seq {S} must be a multiple of window "
                              f"{cfg.window}")
         window = cfg.window
+    q = psh.shard(q, "batch", "seq", "heads", None)
+    kk = psh.shard(kk, "batch", "seq", "kv", None)
     causal = kind != "encoder" and cross_states is None
     out = _attend(q, kk, vv, causal, window, attention)
     out = out.reshape(B, S, H * hd)
     out = ein("bsh,hd->bsd", out, p["wo"])
+    out = psh.shard(out, "batch", "seq", "embed")
     if return_kv:
         return out, (kk, vv)
     return out
@@ -171,6 +223,20 @@ def attention(
 # ---------------------------------------------------------------------------
 
 def decode_attend(q, cache_k, cache_v, valid, attention: str = "kernel"):
+    """Kernel 6 or its plain version (``_decode_attend_local``); with a
+    DTensor among the inputs, on each rank's batch rows (every q-head,
+    the slots gathered over the axes "cache" binds), ctx and mass split
+    as the rows are."""
+    if not any(psh.is_dtensor(t) for t in (q, cache_k, cache_v, valid)):
+        return _decode_attend_local(q, cache_k, cache_v, valid, attention)
+    ins = (q, cache_k, cache_v, valid)
+    rows = [psh.lead_spec(t.shape, "batch") for t in ins]
+    return psh.local_map(lambda *a: _decode_attend_local(*a, attention),
+                         ins, rows, (rows[0], rows[3]))
+
+
+def _decode_attend_local(q, cache_k, cache_v, valid,
+                         attention: str = "kernel"):
     """q (B, KV, G, hd), caches (B, C, KV, hd), valid (B, C) bool ->
     (ctx (B, KV, G, hd) in the caches' dtype, mass (B, C) f32 summed over
     the q-heads; 0 on a row with no valid slot). Kernel 6 for CUDA
@@ -244,7 +310,8 @@ def mlp(x: torch.Tensor, p: dict, cfg: ModelConfig) -> torch.Tensor:
     h = _act(ein("bsd,df->bsf", x, p["wi0"]), cfg.act)
     if cfg.mlp_gated:
         h = h * ein("bsd,df->bsf", x, p["wi1"])
-    return ein("bsf,fd->bsd", h, p["wo"])
+    h = psh.shard(h, "batch", "seq", "ff")
+    return psh.shard(ein("bsf,fd->bsd", h, p["wo"]), "batch", "seq", "embed")
 
 
 # ---------------------------------------------------------------------------

@@ -5,10 +5,14 @@ expert, truncated at per-expert capacity C, scattered into an (E, C, D)
 buffer, run through a batched expert matmul and combined back weighted
 by the router gates. FLOPs scale with tokens x top_k x capacity_factor.
 
-The reference's dispatch groups follow the active mesh's data-parallel
-axis; the port's model does not read the mesh yet (ROADMAP item 19b),
-so there is one group, which is what the reference computes without a
-mesh. Ties keep the reference's order: ``top_k`` prefers the lower
+Dispatch is group-local, as the reference's: ``_num_dispatch_groups``
+reads the active mesh's "groups" axes (the data-parallel ones), one
+group per data shard, and capacity binds per group; without a mesh there
+is one group. On a mesh the routing, the sort, ``searchsorted`` and the
+scatters (which have no DTensor rule) run under ``sharding.local_map``
+on each rank's groups, and the expert matmuls between the reference's
+``shard`` calls run on DTensors, experts split over "model". Ties keep
+the reference's order: ``top_k`` prefers the lower
 expert index, the expert sort is stable, the run starts are left-side
 ``searchsorted``. The per-expert counts are bit-exact; the combine is a
 scatter-add in x's dtype (``index_add_``), whose bf16 rounding order may
@@ -23,6 +27,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import _act, _norm_init, ein
+from repro_torch.parallel import sharding as psh
 
 F32 = torch.float32
 
@@ -47,10 +52,21 @@ def init_moe(gen, cfg: ModelConfig, dtype=torch.bfloat16, device=None):
 
 
 def _num_dispatch_groups(T: int) -> int:
-    """Dispatch groups: the mesh's data-parallel shard count in the
-    reference; 1 without a mesh, the port's model's case until item
-    19b."""
-    return 1
+    """Dispatch groups: the size of the mesh axes the "groups" rule binds
+    (the data-parallel shard count), or 1 without a mesh, when nothing
+    binds, or when that size does not divide the T tokens."""
+    mesh, rules = psh.current_mesh(), psh.current_rules()
+    if mesh is None or rules is None:
+        return 1
+    ax = rules.act.get("groups")
+    if ax is None:
+        return 1
+    names = psh.axis_names(mesh)
+    n = 1
+    for a in ((ax,) if isinstance(ax, str) else tuple(ax)):
+        if a in names:
+            n *= mesh.size(names.index(a))
+    return n if (n > 1 and T % n == 0) else 1
 
 
 def top_k(x: torch.Tensor, k: int):
@@ -72,10 +88,49 @@ def moe_ffn(x: torch.Tensor, p: dict,
     G = _num_dispatch_groups(T)
     Tl = T // G
     C = max(1, int(math.ceil(Tl * K * cfg.capacity_factor / E)))
-    dev = x.device
 
-    xf = x.reshape(G, Tl, D)
-    logits = ein("gtd,de->gte", xf.float(), p["router"])
+    xf = psh.shard(x.reshape(G, Tl, D), "groups", None, "embed")
+    router = p["router"]
+    if psh.is_dtensor(xf):
+        def groups(*rest):
+            return psh.lead_spec((G,) + rest, "groups")
+
+        whole = psh.PartitionSpec(*([None] * router.ndim))
+        xb, gate, route = psh.local_map(
+            lambda xf, r: _dispatch(xf, r, cfg, C),
+            (xf, router), (groups(Tl, D), whole),
+            (groups(E, C, D), groups(Tl * K), groups(4, Tl * K)))
+    else:
+        xb, gate, route = _dispatch(xf, router, cfg, C)
+    xb = psh.shard(xb, "groups", "experts", None, "embed")
+
+    h = _act(ein("gecd,edf->gecf", xb, p["wi0"]), cfg.act)
+    h = h * ein("gecd,edf->gecf", xb, p["wi1"])
+    h = psh.shard(h, "groups", "experts", None, "ff")
+    yb = ein("gecf,efd->gecd", h, p["wo"])
+    yb = psh.shard(yb, "groups", "experts", None, "embed")
+
+    if psh.is_dtensor(yb):
+        out, counts = psh.local_map(
+            lambda yb, gate, route: _combine(yb, gate, route, Tl, x.dtype),
+            (yb, gate, route),
+            (groups(E, C, D), groups(Tl * K), groups(4, Tl * K)),
+            (groups(Tl, D), groups(E)))
+    else:
+        out, counts = _combine(yb, gate, route, Tl, x.dtype)
+    out = psh.shard(out, "groups", None, "embed")
+    return out.reshape(B, S, D), counts.sum(0, dtype=torch.int32)
+
+
+def _dispatch(xf, router, cfg: ModelConfig, C: int):
+    """Route each group's tokens (xf (G, Tl, D)) into its (E, C) buffer:
+    (xb (G, E, C, D), the sorted assignments' gates (G, Tl*K) f32, and
+    their expert, token, destination row and kept flag (G, 4, Tl*K)
+    int32)."""
+    G, Tl, D = xf.shape
+    E, K = cfg.num_experts, cfg.experts_per_token
+    dev = xf.device
+    logits = ein("gtd,de->gte", xf.float(), router)
     probs = torch.softmax(logits, dim=-1)
     gate, expert = top_k(probs, K)                              # (G, Tl, K)
     gate = gate / torch.clamp_min(gate.sum(-1, keepdim=True), 1e-9)
@@ -101,23 +156,29 @@ def moe_ffn(x: torch.Tensor, p: dict,
     # written and dropped
     gidx = torch.arange(G, device=dev)[:, None]
     picked = xf[gidx, t_s]                                      # (G, Tl*K, D)
-    buf = torch.zeros((G, E * C + 1, D), dtype=x.dtype, device=dev)
+    buf = torch.zeros((G, E * C + 1, D), dtype=xf.dtype, device=dev)
     buf[gidx, dest] = picked
     xb = buf[:, : E * C].reshape(G, E, C, D)
+    route = torch.stack([e_s, t_s, dest, keep.long()], dim=1)
+    return xb, g_s, route.to(torch.int32)
 
-    h = _act(ein("gecd,edf->gecf", xb, p["wi0"]), cfg.act)
-    h = h * ein("gecd,edf->gecf", xb, p["wi1"])
-    yb = ein("gecf,efd->gecd", h, p["wo"])
 
-    # combine: gather back to token order, weight by gate, scatter-add
+def _combine(yb, g_s, route, Tl: int, dtype):
+    """Each group's expert outputs (yb (G, E, C, D)) gathered back to
+    token order, weighted by the gates and scatter-added: (out (G, Tl, D),
+    the per-group expert counts (G, E) int32)."""
+    G, E, C, D = yb.shape
+    dev = yb.device
+    e_s, t_s, dest, keep = route.long().unbind(1)
+    gidx = torch.arange(G, device=dev)[:, None]
     yflat = torch.cat([yb.reshape(G, E * C, D),
                        torch.zeros((G, 1, D), dtype=yb.dtype, device=dev)],
                       dim=1)
     contrib = yflat[gidx, dest]                                 # (G, Tl*K, D)
-    contrib = contrib * g_s[..., None].to(x.dtype) * keep[..., None]
-    out = torch.zeros((G, Tl, D), dtype=x.dtype, device=dev)
+    contrib = contrib * g_s[..., None].to(dtype) * keep.bool()[..., None]
+    out = torch.zeros((G, Tl, D), dtype=dtype, device=dev)
     for g in range(G):
-        out[g].index_add_(0, t_s[g], contrib[g].to(x.dtype))
-
-    counts = torch.bincount(e_flat.reshape(-1), minlength=E).to(torch.int32)
-    return out.reshape(B, S, D), counts
+        out[g].index_add_(0, t_s[g], contrib[g].to(dtype))
+    counts = torch.stack([torch.bincount(e_s[g], minlength=E)
+                          for g in range(G)]).to(torch.int32)
+    return out, counts

@@ -23,6 +23,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import _norm_init, ein, rms_norm
+from repro_torch.parallel import sharding as psh
 
 F32 = torch.float32
 BF16 = torch.bfloat16
@@ -109,6 +110,7 @@ def mamba_layer(u: torch.Tensor, p: dict, cfg: ModelConfig,
     Bm = xBC[..., Din: Din + N].float()
     Cm = xBC[..., Din + N:].float()
 
+    x = psh.shard(x, "batch", "seq", "inner")
     xh = x.reshape(B, S, nh, hp).float()
     dt = F.softplus(dt.float() + p["dt_bias"])                     # (B,S,nh)
     a = -torch.exp(p["A_log"])                                      # (nh,)
@@ -153,7 +155,8 @@ def mamba_layer(u: torch.Tensor, p: dict, cfg: ModelConfig,
     y = y.reshape(B, S, Din).to(u.dtype)
     # gated RMSNorm (mamba2): norm(y * silu(z))
     y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
-    out = ein("bsi,id->bsd", y, p["out_proj"])
+    out = psh.shard(ein("bsi,id->bsd", y, p["out_proj"]), "batch", "seq",
+                    "embed")
     if not return_state:
         return out
     # decode cache: the state after the last chunk; the conv history is

@@ -14,8 +14,13 @@ unstacked under ``rem{i}``, Zamba2's shared block under
 ``torch.utils.checkpoint``: the period's activations are recomputed in
 the backward. Gradients flow through everything, kernel 5 included
 (``layers._attend`` takes ``FlashAttentionFn`` when an input requires
-grad); the sharded forms (the reference's ``shard`` calls) are ROADMAP
-item 19b.
+grad).
+
+On a mesh (``parallel.sharding.use_mesh``, params laid out by
+``sharding.distribute``) the forward runs on DTensors: the embedding,
+the encoder frames and the logits are laid out by the reference's
+``shard`` calls, as are the layers' activations, and the prefill's
+cache is laid out by ``serve.kv_cache.cache_axes``.
 
 Every function that attends takes ``attention="kernel" | "plain"``
 (see ``layers.attention``).
@@ -32,6 +37,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.moe import init_moe, moe_ffn
 from repro_torch.models.ssm import init_mamba, mamba_layer
+from repro_torch.parallel import sharding as psh
 from repro_torch.platform import DEFAULT_DEVICE, resolve_device
 
 F32 = torch.float32
@@ -207,7 +213,29 @@ def _ring_from_prefill(k, v, ctx_len: int):
 
 
 def _collect_attn_entry(k, v, kind, cfg: ModelConfig, collect_ctx: int):
-    """The decode cache entry of one attention layer from prefill K/V."""
+    """The decode cache entry of one attention layer from prefill K/V; on
+    a mesh, built from each rank's batch rows and kv-heads (the slots
+    whole; ``prefill_forward`` lays the cache out after)."""
+    from repro_torch.serve.kv_cache import _is_hh
+
+    if not psh.is_dtensor(k):
+        return _collect_attn_entry_local(k, v, kind, cfg, collect_ctx)
+    kv = psh.act_spec(k.shape, "batch", "seq", "kv", None).spec
+    slots = psh.PartitionSpec(kv[0], None, kv[2], None)
+    rows = psh.PartitionSpec(kv[0], None)
+    names = ("k", "v", "ids", "counts", "errors")
+
+    def local(k, v):
+        e = _collect_attn_entry_local(k, v, kind, cfg, collect_ctx)
+        return tuple(e[n] for n in names if n in e)
+
+    out = psh.local_map(local, (k, v), (kv, kv), (slots, slots) + (rows,) * (
+        3 if _is_hh(cfg, kind, collect_ctx) else 0))
+    return dict(zip(names, out))
+
+
+def _collect_attn_entry_local(k, v, kind, cfg: ModelConfig,
+                              collect_ctx: int):
     from repro_torch.serve.kv_cache import _is_hh, cache_len_for
 
     C = cache_len_for(cfg, kind, collect_ctx)
@@ -310,8 +338,16 @@ def _run_stack(x, params, cfg: ModelConfig, positions, cross_states,
 
     body = period_body
     if remat:   # the reference's jax.checkpoint(period_body)
+        # the recompute runs in the backward, on autograd's device thread
+        # for CUDA tensors: it re-enters the forward's mesh
+        mesh, rules = psh.current_mesh(), psh.current_rules()
+
+        def in_mesh(x, period_params):
+            with psh.use_mesh(mesh, rules):
+                return period_body(x, period_params)
+
         def body(x, period_params):
-            return checkpoint(period_body, x, period_params,
+            return checkpoint(in_mesh, x, period_params,
                               use_reentrant=False)
     x, (counts, period_entries) = maybe_scan(cfg, body, x,
                                              params["periods"])
@@ -339,14 +375,14 @@ def _embed(params, cfg: ModelConfig, tokens, vision):
     x = params["embed"].to(BF16)[tokens.long()] * math.sqrt(cfg.d_model)
     if vision is not None:
         x = torch.cat([vision.to(x.dtype), x], dim=1)
-    return x
+    return psh.shard(x, "batch", "seq", "embed")
 
 
 def _encode(params, cfg: ModelConfig, frames, dtype, attention):
     """Whisper's encoder over the frame embeddings: the cross states."""
     if frames is None:
         raise ValueError("whisper needs frame embeddings")
-    enc = frames.to(dtype)
+    enc = psh.shard(frames.to(dtype), "batch", "seq", "embed")
     enc_pos = torch.arange(enc.shape[1], device=enc.device)
 
     def enc_body(h, lp):
@@ -384,7 +420,8 @@ def forward(
                                      kinds, rem_kinds, remat=remat,
                                      attention=attention)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return _unembed(params, cfg, x), expert_counts
+    return (psh.shard(_unembed(params, cfg, x), "batch", "seq", "vocab"),
+            expert_counts)
 
 
 def prefill_forward(
@@ -414,8 +451,12 @@ def prefill_forward(
                              rem_kinds, remat=False, collect_ctx=context,
                              attention=attention)
     cache["pos"] = torch.full((B,), S, dtype=I32, device=x.device)
+    if psh.current_mesh() is not None:
+        from repro_torch.serve.kv_cache import cache_axes
+        cache = psh.distribute(cache, cache_axes(cfg, B, context), "act")
     x = L.rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
-    return _unembed(params, cfg, x), cache
+    return (psh.shard(_unembed(params, cfg, x), "batch", None, "vocab"),
+            cache)
 
 
 def loss_fn(params, cfg: ModelConfig, batch: dict, remat: bool = True,
@@ -428,6 +469,8 @@ def loss_fn(params, cfg: ModelConfig, batch: dict, remat: bool = True,
         frames=batch.get("frames"), remat=remat, attention=attention)
     labels = batch["labels"]
     S_text = labels.shape[1]
+    # the label pick reads each row's whole vocab: gathered on a mesh
+    logits = psh.shard(logits, "batch", "seq", None)
     logits = logits[:, -S_text:].float()   # the vision prefix predicts nothing
     lse = torch.logsumexp(logits, dim=-1)
     picked = logits.gather(-1, labels.long()[..., None])[..., 0]

@@ -18,8 +18,20 @@ The rules are the reference's, entry for entry:
   mesh) cell has a layout.
 
 Torch has no ambient mesh: ``use_mesh`` sets the thread's (mesh, rules)
-for ``shard``, ``act_spec``, ``param_specs``, ``mesh_axis`` and
-``mesh_resize``, and nothing else reads it.
+for ``shard``, ``act_spec``, ``param_specs``, ``mesh_axis``,
+``mesh_resize``, ``distribute`` and ``local_map``, and nothing else
+reads it. Under a mesh a plain tensor that meets a DTensor in an op is
+taken as replicated (DTensor's implicit replication), as a JAX array
+without a sharding is: positions, masks, a batch every rank holds.
+
+The model on a mesh: ``distribute`` lays a param (or state, or cache)
+tree out as DTensors by its logical axes, each rank keeping its slice of
+the whole tensor every rank holds (no communication), and ``gather``
+takes it back to plain tensors. Activations follow the reference's
+``shard`` calls (a redistribute) and DTensor's own propagation between
+them. What DTensor has no rule for, and the kernels, run under
+``local_map``: the function sees each rank's ``to_local()`` shards and
+its outputs are wrapped back with the placements it states.
 
 Parallelism coverage (the tables of ``default_rules``):
   DP    batch -> ("pod", "data")
@@ -147,9 +159,27 @@ def use_mesh(mesh, rules: Optional[ShardingRules] = None):
         default_rules(multi_pod="pod" in axis_names(mesh))
         if mesh is not None else None)
     try:
-        yield
+        with (_implicit_replication() if mesh is not None
+              else contextlib.nullcontext()):
+            yield
     finally:
         _CTX.mesh, _CTX.rules = old
+
+
+@contextlib.contextmanager
+def _implicit_replication():
+    """DTensor ops take a plain tensor argument as replicated while open;
+    the flag's earlier value comes back after (a nested mesh leaves its
+    caller's setting as it was)."""
+    from torch.distributed.tensor import DTensor
+
+    disp = DTensor._op_dispatcher
+    old = disp._allow_implicit_replication
+    disp._allow_implicit_replication = True
+    try:
+        yield
+    finally:
+        disp._allow_implicit_replication = old
 
 
 def current_mesh():
@@ -382,7 +412,9 @@ def _tree_specs(tree, axes_tree, table_name: str):
     table = getattr(rules, table_name)
 
     def one(p, names_str):
-        names = parse_axes(names_str)
+        # "" is a replicated leaf of any rank (the reference asserts
+        # rank 0, which its own trainer's 1-D sketch leaves break)
+        names = parse_axes(names_str) or (None,) * len(p.shape)
         if len(names) != len(p.shape):
             raise ValueError(f"axes {names_str!r} for a leaf of shape "
                              f"{tuple(p.shape)}")
@@ -391,8 +423,137 @@ def _tree_specs(tree, axes_tree, table_name: str):
     return _pytree.tree_map(one, tree, axes_tree)
 
 
+# ---------------------------------------------------------------------------
+# The model on the mesh: trees of DTensors, and functions on local shards
+# ---------------------------------------------------------------------------
+
+def _active_mesh():
+    mesh = _CTX.mesh
+    if mesh is None:
+        raise RuntimeError("no mesh is active: enter parallel.sharding."
+                           "use_mesh(mesh, rules) first")
+    return mesh
+
+
+def shard_index(ax: Axis, mesh=None) -> Tuple[int, int]:
+    """(this rank's chunk, the number of chunks) of a dim bound to the
+    mesh axes ``ax`` (None: (0, 1)). The first axis is the outer split,
+    as ``placements`` lays a dim over several axes."""
+    mesh = mesh if mesh is not None else _active_mesh()
+    idx, n = 0, 1
+    for a in ((ax,) if isinstance(ax, str) else tuple(ax or ())):
+        size = mesh.size(axis_names(mesh).index(a))
+        idx, n = idx * size + mesh.get_local_rank(a), n * size
+    return idx, n
+
+
+def lead_spec(shape, name: str) -> PartitionSpec:
+    """The spec of a tensor split on its leading dim alone, by logical
+    ``name`` (a rank's batch rows, dispatch groups), under the active
+    mesh."""
+    return act_spec(shape, name, *([None] * (len(shape) - 1))).spec
+
+
+def lay_out(x: torch.Tensor, spec: PartitionSpec, mesh=None):
+    """``x`` as a DTensor of ``spec`` on the mesh. A DTensor is
+    redistributed; a plain tensor, which every rank holds whole and
+    alike, is cut to this rank's slice with no communication."""
+    from torch.distributed.tensor import DTensor
+
+    mesh = mesh if mesh is not None else _active_mesh()
+    pl = placements(spec, mesh)
+    if is_dtensor(x):
+        return x if tuple(x.placements) == pl else x.redistribute(mesh, pl)
+    local = x.contiguous()
+    for dim, ax in enumerate(spec):
+        if ax is not None:
+            i, n = shard_index(ax, mesh)
+            local = local.chunk(n, dim=dim)[i]
+    return DTensor.from_local(local.contiguous(), mesh, pl, run_check=False,
+                              shape=x.shape, stride=x.contiguous().stride())
+
+
+def distribute(tree, axes_tree, table: str = "param"):
+    """``tree``'s tensors laid out on the active mesh by their logical
+    axes (``param_specs``, or ``act_specs`` with ``table="act"``): plain
+    leaves cut to this rank's slice, DTensor leaves redistributed. With
+    no mesh, ``tree`` as it is."""
+    from torch.utils import _pytree
+
+    if _CTX.mesh is None or _CTX.rules is None:
+        return tree
+    specs = _tree_specs(tree, axes_tree, table)
+    return _pytree.tree_map(
+        lambda t, s: lay_out(t, s.spec) if isinstance(t, torch.Tensor)
+        else t, tree, specs)
+
+
+def gather(tree):
+    """``tree`` with every DTensor leaf gathered whole (``full``)."""
+    from torch.utils import _pytree
+
+    return _pytree.tree_map(full, tree)
+
+
+def local_map(fn, args, in_specs, out_specs):
+    """``fn`` on each rank's local shards: ``fn(*locals)``, where each
+    arg with a spec is laid out by it (``lay_out``) and taken
+    ``to_local()``, and an arg whose spec is None is passed as it is.
+    Each output is wrapped back as a DTensor of its ``out_specs`` entry
+    (``fn`` returns one tensor for one spec, else a tuple).
+
+    Differentiable: an arg replicated over a mesh axis over which some
+    output is split takes its gradient as ``Partial`` there (each rank
+    holds the part its own output shard gives; the redistribute after
+    sums them), else with its own placements."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = _active_mesh()
+    outs = (out_specs,) if isinstance(out_specs, PartitionSpec) \
+        else tuple(out_specs)
+    split = set()
+    for spec in outs:
+        for d, p in enumerate(placements(spec, mesh)):
+            if isinstance(p, Shard):
+                split.add(d)
+    local = []
+    for x, spec in zip(args, in_specs):
+        if spec is None:
+            local.append(x)
+            continue
+        d_x = lay_out(x, spec, mesh)
+        grad = tuple(Partial() if d in split and isinstance(p, Replicate)
+                     else p for d, p in enumerate(d_x.placements))
+        local.append(_ContiguousGrad.apply(
+            d_x.to_local(grad_placements=grad)))
+    res = fn(*local)
+    single = isinstance(out_specs, PartitionSpec)
+    res = (res,) if single else tuple(res)
+    wrapped = tuple(DTensor.from_local(r.contiguous(), mesh,
+                                       placements(spec, mesh),
+                                       run_check=False)
+                    for r, spec in zip(res, outs))
+    return wrapped[0] if single else wrapped
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose backward makes the gradient contiguous: a
+    DTensor's ops take its local tensor's views as the global tensor's,
+    which a strided local gradient (from a permute inside ``fn``) would
+    break."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
 __all__ = ["Axis", "ShardingRules", "default_rules", "PartitionSpec",
            "NamedSharding", "use_mesh", "current_mesh", "current_rules",
            "axis_names", "host_device_mesh", "placements", "is_dtensor",
            "full", "shard", "act_spec", "mesh_axis", "mesh_resize",
-           "parse_axes", "param_specs", "act_specs"]
+           "parse_axes", "param_specs", "act_specs", "shard_index",
+           "lead_spec", "lay_out", "distribute", "gather", "local_map"]

@@ -3,7 +3,10 @@
 Counterpart of ``repro/serve/engine.py``. The reference jits its two
 step functions; here they run eagerly (capturing a CUDA graph of the
 decode step is later work). Greedy picks the first maximum, as
-``jnp.argmax`` does.
+``jnp.argmax`` does. On a mesh (called under ``use_mesh`` with params
+laid out by ``sharding.distribute``) the steps run on DTensors and each
+step's logits are gathered whole for the pick; ``keep_logits`` keeps
+them gathered.
 """
 from __future__ import annotations
 
@@ -14,6 +17,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.parallel import sharding as psh
 from repro_torch.platform import DEFAULT_DEVICE
 from repro_torch.serve.decode import build_serve_step
 from repro_torch.serve.prefill import build_prefill_step
@@ -56,6 +60,7 @@ class ServeEngine:
         if frames is not None:
             batch["frames"] = frames
         logits, cache = self._prefill(self.params, batch)
+        logits = psh.full(logits)
         kept = [logits[:, -1]]
         out = [tokens.cpu().numpy()]
         cur = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
@@ -65,6 +70,7 @@ class ServeEngine:
         for _ in range(max_new_tokens):
             out.append(cur.cpu().numpy())
             logits, cache, _aux = self._step(self.params, cache, cur)
+            logits = psh.full(logits)
             kept.append(logits[:, -1])
             cur = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
             steps += 1

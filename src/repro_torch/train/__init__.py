@@ -3,8 +3,8 @@ train step (loss, gradients through kernel 5, AdamW), the trainer loop
 with its SS± token and expert trackers, checkpoints in the reference's
 format, the straggler monitor, and the compressed data-parallel gradient
 exchange over a mesh axis (``dp_exchange``). The step, the trainer and
-the restore run on one device (a mesh-aware restore and
-``Trainer(mesh=)`` are not ported yet)."""
+the restore run on one device or on a mesh (``Trainer(mesh=, rules=)``,
+``checkpoint.restore(axes=)``)."""
 from .step import (TrainState, abstract_state, build_train_step, init_state,
                    state_axes)
 from .straggler import StragglerConfig, StragglerMonitor

@@ -12,10 +12,14 @@ package restores in the other.
     mid-save never corrupts the latest checkpoint.
   - **Keep-N + milestones**: the last ``keep`` checkpoints survive, and
     every ``milestone_every``-th step for good.
-  - **Restore**: onto one device, each leaf cast to the dtype of the
-    ``like`` tree's leaf after its keys and shapes are checked. The
-    reference's mesh re-sharding on restore (``axes``) is ROADMAP item
-    19b.
+  - **Restore**: each leaf cast to the dtype of the ``like`` tree's
+    leaf after its keys and shapes are checked, onto ``device``; with
+    ``axes`` under an active mesh, laid out on it by them (the elastic
+    reshard: a checkpoint saved on any mesh, or none, restores onto the
+    current one).
+  - **Save on a mesh**: DTensor leaves are gathered whole first (every
+    rank takes part) and rank 0 alone writes, the others waiting for it,
+    so the files are the single-device ones.
 """
 from __future__ import annotations
 
@@ -27,7 +31,9 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from ..parallel import sharding as psh
 from ..platform import DEFAULT_DEVICE, resolve_device
 
 _SEP = "/"
@@ -100,15 +106,20 @@ def save(
     milestone_every: int = 0,
 ) -> Path:
     ckpt_dir = Path(ckpt_dir)
+    final = ckpt_dir / f"step_{step:010d}"
+    on_mesh = any(psh.is_dtensor(v) for v in _flatten(state).values())
+    flat = _flatten(psh.gather(state))
+    if on_mesh and dist.get_rank() != 0:
+        dist.barrier()
+        return final
     ckpt_dir.mkdir(parents=True, exist_ok=True)
     tmp = ckpt_dir / f"tmp.{step}"
-    final = ckpt_dir / f"step_{step:010d}"
     if tmp.exists():
         shutil.rmtree(tmp)
     tmp.mkdir()
 
     arrays, dtypes = {}, {}
-    for k, v in _flatten(state).items():
+    for k, v in flat.items():
         arrays[k], dtypes[k] = _to_numpy(v)
     np.savez(tmp / "arrays.npz", **arrays)
     manifest = {
@@ -125,6 +136,8 @@ def save(
     os.rename(tmp, final)  # atomic publish
 
     _gc(ckpt_dir, keep=keep, milestone_every=milestone_every)
+    if on_mesh:
+        dist.barrier()
     return final
 
 
@@ -155,13 +168,20 @@ def restore(
     like,
     *,
     step: Optional[int] = None,
+    axes=None,
+    table: str = "param",
     device=DEFAULT_DEVICE,
 ) -> Tuple[Any, Dict]:
     """(state, extra): the checkpoint at ``step`` (the latest by default)
-    as a tree like ``like`` (tensors of any device, ``meta`` included, or
-    numpy arrays: their shapes and dtypes), each leaf a tensor on
-    ``device`` in the like leaf's dtype. Raises FileNotFoundError with no
-    checkpoint, ValueError for a missing key or another shape."""
+    as a tree like ``like`` (tensors of any device, ``meta`` and DTensors
+    included, or numpy arrays: their shapes and dtypes), each leaf a
+    tensor on ``device`` in the like leaf's dtype. With ``axes`` (a
+    logical-axes tree like ``like``) under an active mesh, each leaf is
+    laid out on that mesh by ``param_specs`` (or ``act_specs`` with
+    ``table="act"``), whatever mesh it was saved from; without a mesh
+    ``axes`` changes nothing, as in the reference. Raises
+    FileNotFoundError with no checkpoint, ValueError for a missing key
+    or another shape."""
     ckpt_dir = Path(ckpt_dir)
     step = step if step is not None else latest_step(ckpt_dir)
     if step is None:
@@ -188,6 +208,8 @@ def restore(
             return t.to(device=dev, dtype=_torch_dtype(want))
 
         state = _rebuild(like, leaf)
+    if axes is not None:
+        state = psh.distribute(state, axes, table)
     return state, manifest.get("extra", {})
 
 

@@ -4,8 +4,12 @@ gradients -> clip -> AdamW, one call.
 State contracts, as in the reference:
   - params: bf16 at scale (or the dtype the caller's init chose);
   - optimizer state: f32 master weights and moments, a tree like the
-    params (``state_axes`` gives the logical axes of both; the sharding
-    the model does not apply them yet: ROADMAP item 19b);
+    params (``state_axes`` gives the logical axes of both);
+  - on a mesh (``parallel.sharding.use_mesh``) ``init_state`` lays the
+    whole state out as DTensors by ``state_axes`` (``param_specs``), the
+    gradients come back laid out as their params, and AdamW, the clip
+    and the global norm run on DTensors, so the new state keeps the
+    layout (the reference's jit in_shardings);
   - batch: a dict of tensors on the params' device (``tokens``,
     ``labels``, and ``vision``, ``frames``, ``mask`` where the model
     takes them);
@@ -28,6 +32,7 @@ from ..configs.base import ModelConfig
 from ..models import build_model
 from ..models.transformer import tree_leaves, tree_map
 from ..optim.adamw import AdamWConfig, AdamWState, adamw_init, adamw_update
+from ..parallel import sharding as psh
 from ..platform import DEFAULT_DEVICE
 
 F32 = torch.float32
@@ -65,23 +70,34 @@ def abstract_state(cfg: ModelConfig, key=None) -> Tuple[TrainState,
 def init_state(cfg: ModelConfig, key,
                device=DEFAULT_DEVICE) -> Tuple[TrainState, TrainState]:
     """Concrete (state, axes): bf16 params from ``key`` (an int seed or a
-    ``torch.Generator`` on ``device``), the optimizer state from them."""
+    ``torch.Generator`` on ``device``), the optimizer state from them;
+    under a mesh, laid out on it by the axes (every rank draws the same
+    whole state and keeps its slice)."""
     params, axes = build_model(cfg).init(key, device=device)
-    return TrainState(params=params, opt=adamw_init(params)), \
+    state, axes = TrainState(params=params, opt=adamw_init(params)), \
         state_axes(axes)
+    return psh.distribute(state, axes), axes
 
 
 def loss_and_grads(model, params, batch, remat: bool, attention: str):
     """(loss, aux, grads): the loss and its gradient in every param leaf
     (zeros for a leaf the loss does not reach, as ``jax.grad`` gives),
-    each in its param's dtype."""
+    each in its param's dtype and, on a mesh, its param's layout."""
     live = tree_map(lambda p: p.detach().requires_grad_(True), params)
     loss, aux = model.loss(live, batch, remat=remat, attention=attention)
     leaves = tree_leaves(live)
     got = torch.autograd.grad(loss, leaves, allow_unused=True)
-    grads = iter([torch.zeros_like(p) if g is None else g
+    grads = iter([torch.zeros_like(p) if g is None else _like(g, p)
                   for p, g in zip(leaves, got)])
     return loss.detach(), aux, tree_map(lambda _: next(grads), live)
+
+
+def _like(g, p):
+    """A DTensor gradient redistributed to its param's placements (a
+    reduction's gradient may come back ``Partial``)."""
+    if psh.is_dtensor(g) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 def build_train_step(

@@ -16,8 +16,15 @@ Fault tolerance:
 The SS± trackers run on the card beside the step: ``TokenStats`` takes
 each batch's tokens and, for a MoE model, ``ExpertLoadStats`` each
 step's ``expert_counts`` (kernel 1, one launch a push). Per-step wall
-time feeds ``StragglerMonitor``. ``Trainer(mesh=)`` and the elastic
-restore onto a mesh are ROADMAP item 19b.
+time feeds ``StragglerMonitor``.
+
+On a mesh (``Trainer(mesh=, rules=)``, as the reference's): init, ``run``
+and ``try_resume`` run under ``use_mesh(mesh, rules)``; the state is laid
+out as DTensors by its logical axes, every rank drawing the same batches
+and holding them whole (the reference's unsharded batch), and a resume
+restores the checkpoint onto this mesh whatever mesh wrote it. The mesh
+is one rank per device of ``device``'s type; the trackers run on each
+rank's device, the same on every rank.
 """
 from __future__ import annotations
 
@@ -32,6 +39,7 @@ import torch
 from ..configs.base import ModelConfig
 from ..data import DataConfig, TokenPipeline
 from ..optim.adamw import AdamWConfig
+from ..parallel import sharding as psh
 from ..platform import DEFAULT_DEVICE, resolve_device
 from ..sketch.state import SketchState
 from ..sketch.stats import ExpertLoadStats, TokenStats
@@ -62,10 +70,16 @@ class Trainer:
         data_cfg: DataConfig,
         tcfg: TrainerConfig = TrainerConfig(),
         opt_cfg: AdamWConfig = AdamWConfig(),
+        mesh=None,
+        rules=None,
         device=DEFAULT_DEVICE,
     ):
         self.cfg, self.data_cfg, self.tcfg = cfg, data_cfg, tcfg
+        self.mesh, self.rules = mesh, rules
         self.device = resolve_device(device)
+        if mesh is not None and mesh.device_type != self.device.type:
+            raise ValueError(f"a {mesh.device_type} mesh for a trainer on "
+                             f"{self.device.type}")
         self.pipeline = TokenPipeline(data_cfg)
         self.monitor = StragglerMonitor()
         self.token_stats = TokenStats(
@@ -77,8 +91,9 @@ class Trainer:
             if cfg.num_experts else None)
         self._stop = False
         self.metrics_log: list = []
-        self.state, self.axes = init_state(cfg, tcfg.seed,
-                                           device=self.device)
+        with psh.use_mesh(mesh, rules):
+            self.state, self.axes = init_state(cfg, tcfg.seed,
+                                               device=self.device)
         self._step = build_train_step(cfg, opt_cfg)
         self.step_num = 0
 
@@ -115,8 +130,13 @@ class Trainer:
     def try_resume(self) -> bool:
         if ckpt.latest_step(self.tcfg.ckpt_dir) is None:
             return False
-        restored, extra = ckpt.restore(self.tcfg.ckpt_dir, self._payload(),
-                                       device=self.device)
+        axes = {"train": self.axes}
+        if self.token_stats is not None:
+            axes["sketch"] = {"ids": "", "counts": "", "errors": ""}
+        with psh.use_mesh(self.mesh, self.rules):
+            restored, extra = ckpt.restore(self.tcfg.ckpt_dir,
+                                           self._payload(), axes=axes,
+                                           device=self.device)
         self.state = restored["train"]
         if self.token_stats is not None and "sketch" in restored:
             s = restored["sketch"]
@@ -133,6 +153,18 @@ class Trainer:
     def run(self, steps: Optional[int] = None) -> Dict:
         steps = steps if steps is not None else self.tcfg.total_steps
         target = self.step_num + steps
+        with psh.use_mesh(self.mesh, self.rules):
+            self._run(target)
+        if self._stop:  # preempted: final save
+            self.save()
+        return {
+            "final_step": self.step_num,
+            "final_loss": (self.metrics_log[-1]["loss"] if self.metrics_log
+                           else None),
+            "preempted": self._stop,
+        }
+
+    def _run(self, target: int) -> None:
         while self.step_num < target and not self._stop:
             batch_np = self.pipeline.next_batch()
             batch = {k: torch.from_numpy(v).to(self.device)
@@ -141,7 +173,8 @@ class Trainer:
             self.state, metrics = self._step(self.state, batch)
             # to the host: waits for the step, as the reference's
             # np.asarray of its metrics does
-            metrics = {k: v.cpu().numpy() for k, v in metrics.items()}
+            metrics = {k: psh.full(v).cpu().numpy()
+                       for k, v in metrics.items()}
             dt = time.time() - t0
             self.monitor.observe(0, dt)
             self.step_num += 1
@@ -162,14 +195,6 @@ class Trainer:
             if self.tcfg.ckpt_every and \
                     self.step_num % self.tcfg.ckpt_every == 0:
                 self.save()
-        if self._stop:  # preempted: final save
-            self.save()
-        return {
-            "final_step": self.step_num,
-            "final_loss": (self.metrics_log[-1]["loss"] if self.metrics_log
-                           else None),
-            "preempted": self._stop,
-        }
 
 
 __all__ = ["Trainer", "TrainerConfig"]

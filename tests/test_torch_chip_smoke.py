@@ -677,8 +677,10 @@ def _kernels_as_plain(monkeypatch, flash_fault=None, decode_fault=None):
             return decode_fault(*out) if decode_fault else out
         return L.decode_attention_ref(q, k, v, valid)
 
-    monkeypatch.setattr(L, "_attend", attend)
-    monkeypatch.setattr(L, "decode_attend", decode_attend)
+    # the layers' local functions: what a mesh run calls on each rank's
+    # shards, and every call without a mesh
+    monkeypatch.setattr(L, "_attend_local", attend)
+    monkeypatch.setattr(L, "_decode_attend_local", decode_attend)
 
 
 def test_model_phase_rehearsal(monkeypatch):
@@ -865,15 +867,30 @@ def test_train_phase_rejects_a_dropped_attention_gradient(monkeypatch):
                        main=SMOKE_TRAIN, moe=SMOKE_TRAIN_MOE, timed=False)
 
 
+SMOKE_MESH_MODEL = dict(
+    train=dict(arch="qwen3_0_6b", seq_len=32, batch=4, steps=2, seed=27),
+    serve=dict(arch="gemma3_27b", batch=2, prompt=32, new_tokens=3,
+               context=128, decay_period=4, seed=23))
+
+
 def test_mesh_phase_rehearsal(monkeypatch):
     """The mesh phase at a small size on the CPU (gloo for the one-rank
     group too): (a)'s shard_map runs equal their twins and the CPU, the
-    exchange equals its CPU twin (the smoke Qwen3's shapes), and (b)'s
-    two child processes take the shard_map path and gather (a)'s bank,
-    each run's launch check made once per run; a child that fails is
-    fatal."""
+    exchange equals its CPU twin (the smoke Qwen3's shapes), the model on
+    the mesh (smoke Qwen3's Trainer on DTensor state against the one
+    without a mesh, both checkpoint crossings bit for bit; smoke Gemma3's
+    serving run on DTensor params, logits and SS± counts equal, kernels 5
+    and 6 counted on the rank's shards), and (b)'s two child processes
+    take the shard_map path and gather (a)'s bank, each run's launch
+    check made once per run; a child that fails is fatal."""
+    from repro_torch import configs
+    from repro_torch.serve import kv_cache
+
     cs = _chip_smoke()
     checked = _on_the_cpu(monkeypatch, cs)
+    trained = _train_on_the_cpu(monkeypatch, cs)
+    monkeypatch.setattr(kv_cache, "HH_ENGAGE_CTX", 32)  # SS± at smoke size
+    monkeypatch.setattr(cs, "MESH_MODEL", SMOKE_MESH_MODEL)
     monkeypatch.setattr(cs, "MESH", dict(
         blocks=4, cpu_blocks=2, q_blocks=2, arch="qwen3_0_6b",
         smoke_arch=True, k_frac=0.01, steps=2, seed=31, ranks=2,
@@ -883,7 +900,24 @@ def test_mesh_phase_rehearsal(monkeypatch):
                         shards=4)
     stream = cs.make_stream(4, BLOCK, seed=1, bits=12)
     cpu = torch.device("cpu")
-    out = cs.mesh_phase(cpu, stream, BLOCK, spec, q_spec, c=cs.MESH)
+    out = cs.mesh_phase(cpu, stream, BLOCK, spec, q_spec, c=cs.MESH,
+                        model=cs.MESH_MODEL, get=configs.get_smoke)
+    model = out["model"]
+    # 2 layers, 2 steps, remat: kernel 5 twice a layer a step, in the mesh
+    # run and its twin; the token tracker's kernel 1 once a step
+    assert [c[1:3] for c in trained] == [(8, 2), (8, 2)]
+    assert model["launches"] == {
+        "flash": {"wgmma": 8 + 7}, "decode": {"mesh (a) serve": 7 * 3},
+        "fused": {"staged": 2}}
+    train, serve = model["train"], model["serve"]
+    assert train["runs"]["mesh"]["losses"] == train["runs"]["plain"]["losses"]
+    assert train["restores"] == "bit for bit, both ways"
+    assert set(train["kernels_vs_plain"]) == {"causal S=32 T=32"}
+    assert serve["logits"] == serve["hh_counts"] == "equal"
+    assert serve["mesh"]["decode_launches"] == 7 * 3
+    assert {k.split()[0] for k in serve["kernels_vs_plain"]} == {
+        "windowed", "causal", "decode"}
+    assert set(model["max_abs_err"]) == {"flash", "decode"}
     assert set(out["runs"]) == {
         "mesh (a) sharded shard_map", "mesh (a) dyadic shard_map",
         "mesh (b) rank 0 session", "mesh (b) rank 1 session"}
@@ -895,5 +929,8 @@ def test_mesh_phase_rehearsal(monkeypatch):
     assert out["times"]["b_rank1"]["local_rows"] == 4
     assert out["exchange"]["steps"] == 2 and out["exchange"]["leaves"] > 0
     monkeypatch.setattr(cs, "MESH", dict(cs.MESH, ranks=3))
+    # (b)'s failure alone: (a)'s model ran above
+    monkeypatch.setattr(cs, "mesh_model", lambda *a: {})
     with pytest.raises(SystemExit, match="rank"):
-        cs.mesh_phase(cpu, stream, BLOCK, spec, q_spec, c=cs.MESH)
+        cs.mesh_phase(cpu, stream, BLOCK, spec, q_spec, c=cs.MESH,
+                      model=cs.MESH_MODEL, get=configs.get_smoke)

@@ -266,8 +266,219 @@ def suite_exchange(rank: int, world: int, inp: dict) -> dict:
     return out
 
 
+def _tree(flat: dict, prefix: str) -> dict:
+    """The nested dict of the ``prefix``-ed entries of ``flat`` (keys
+    ``prefix/a/b``), the reference's param tree."""
+    out = {}
+    for key, a in flat.items():
+        if not key.startswith(prefix + "/"):
+            continue
+        node, parts = out, key[len(prefix) + 1:].split("/")
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = a
+    return out
+
+
+def _flat_out(out: dict, key: str, tree) -> None:
+    """A tree's leaves, gathered whole, under ``key/<path>``."""
+    import torch
+
+    from repro_torch.parallel import sharding as psh
+    from repro_torch.train.checkpoint import _flatten
+
+    for path, t in _flatten(tree).items():
+        t = psh.full(t)
+        out[f"{key}/{path}"] = (t.float() if t.dtype == torch.bfloat16
+                                else t).numpy()
+
+
+def suite_model(rank: int, world: int, inp: dict) -> dict:
+    """The model on a (world // 2, 2) mesh: forward logits, expert counts
+    and loss of each config in ``inp["archs"]``; OLMoE where capacity
+    binds per dispatch group; Qwen3 on a (1, world) mesh (kv-heads
+    replicated, each rank's q-head reading its kv-head); ``_attend`` on
+    synthetic GQA shapes; Gemma3's prefill and decode steps with the SS±
+    cache's slots over "model"; the Trainer resumed from the reference's
+    checkpoint for 2 steps; one OLMoE train step."""
+    import dataclasses
+
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch import configs
+    from repro_torch.convert import params_from_reference
+    from repro_torch.data import DataConfig
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models import layers as L, moe
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.parallel import sharding as psh
+    from repro_torch.serve import build_prefill_step, build_serve_step
+    from repro_torch.serve import kv_cache
+    from repro_torch.train import (Trainer, TrainerConfig, TrainState,
+                                   build_train_step, state_axes)
+
+    out = {}
+    mesh = make_smoke_mesh(world, device="cpu")
+    line = init_device_mesh("cpu", (1, world),
+                            mesh_dim_names=("data", "model"))
+
+    def model_of(arch, **kw):
+        cfg = dataclasses.replace(configs.get_smoke(arch), **kw)
+        params = params_from_reference(_tree(inp, f"{arch}/params"), cfg,
+                                       device="cpu")
+        _, axes = T.init_params(None, cfg, device="meta")
+        return cfg, params, axes
+
+    def batch_of(arch, cfg):
+        b = {"tokens": torch.from_numpy(inp[f"{arch}/tokens"]),
+             "labels": torch.from_numpy(inp[f"{arch}/labels"])}
+        if f"{arch}/frames" in inp:
+            b["frames"] = torch.from_numpy(inp[f"{arch}/frames"]).bfloat16()
+        return b
+
+    def forward(key, arch, on, **kw):
+        cfg, params, axes = model_of(arch, **kw)
+        b = batch_of(arch, cfg)
+        with psh.use_mesh(on):
+            p = psh.distribute(params, axes)
+            logits, counts = T.forward(p, cfg, b["tokens"],
+                                       frames=b.get("frames"))
+            out[f"{key}/placements"] = np.asarray(str(tuple(
+                logits.placements)))
+            out[f"{key}/logits"] = psh.full(logits).float().numpy()
+            out[f"{key}/counts"] = psh.full(counts).numpy()
+            loss, _ = T.loss_fn(p, cfg, b)
+            out[f"{key}/loss"] = psh.full(loss).numpy()
+            out[f"{key}/groups"] = np.asarray(moe._num_dispatch_groups(
+                b["tokens"].numel()))
+
+    for arch in inp["archs"]:
+        forward(str(arch), str(arch), mesh)
+    forward("moe_bind", "olmoe_1b_7b", mesh,
+            capacity_factor=float(inp["moe_bind_cf"]))
+    forward("line", "qwen3_0_6b", line)
+
+    gen = torch.Generator().manual_seed(5)
+    for H, KV in ((8, 2), (4, 1), (6, 3)):
+        q, k, v = (torch.randn((2, 8, h, 8), generator=gen)
+                   for h in (H, KV, KV))
+        with psh.use_mesh(mesh):
+            qs = psh.act_spec(q.shape, "batch", "seq", "heads", None).spec
+            ks = psh.act_spec(k.shape, "batch", "seq", "kv", None).spec
+            got = L._attend(psh.lay_out(q, qs), psh.lay_out(k, ks),
+                            psh.lay_out(v, ks), True, 0, "kernel")
+            out[f"gqa/{H}x{KV}/got"] = psh.full(got).numpy()
+        out[f"gqa/{H}x{KV}/want"] = L._attend(q, k, v, True, 0,
+                                               "kernel").numpy()
+        out[f"gqa/{H}x{KV}/split"] = np.asarray([qs[2] is not None,
+                                                 ks[2] is not None])
+
+    kv_cache.HH_ENGAGE_CTX = int(inp["hh_engage"])
+    cfg, params, axes = model_of("gemma3_27b")
+    ctx, steps = int(inp["gemma/context"]), int(inp["gemma/steps"])
+    toks = torch.from_numpy(inp["gemma3_27b/tokens"])
+    for name, on in (("plain", None), ("mesh", mesh)):
+        with psh.use_mesh(on):
+            p = psh.distribute(params, axes)
+            pre = build_prefill_step(cfg, ctx, device="cpu")
+            step = build_serve_step(cfg, ctx, int(inp["gemma/decay"]),
+                                    device="cpu")
+            logits, cache = pre(p, {"tokens": toks})
+            seq = [psh.full(logits)[:, -1]]
+            for _ in range(steps):
+                cur = seq[-1].argmax(-1).to(torch.int32)[:, None]
+                logits, cache, _ = step(p, cache, cur)
+                seq.append(psh.full(logits)[:, -1])
+            out[f"gemma/{name}/logits"] = torch.stack(seq).float().numpy()
+            hh = next(e for e in cache["periods"].values()
+                      if "counts" in e)
+            if on is not None:
+                out["gemma/cache_placements"] = np.asarray(str(tuple(
+                    hh["counts"].placements)))
+            for f in ("ids", "counts", "errors"):
+                out[f"gemma/{name}/{f}"] = psh.full(hh[f]).numpy()
+
+    cfg = configs.get_smoke("qwen3_0_6b")
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=32, global_batch=4)
+    tc = TrainerConfig(total_steps=2, ckpt_every=0,
+                       ckpt_dir=str(inp["trainer/ckpt_dir"]), log_every=1,
+                       track_tokens=False)
+    tr = Trainer(cfg, dc, tc, mesh=mesh, device="cpu")
+    out["trainer/resumed"] = np.asarray(tr.try_resume())
+    out["trainer/state_placements"] = np.asarray(str(tuple(
+        tr.state.opt.master["embed"].placements)))
+    tr.run(2)
+    out["trainer/losses"] = np.asarray([r["loss"] for r in tr.metrics_log])
+    out["trainer/grad_norms"] = np.asarray(
+        [r["grad_norm"] for r in tr.metrics_log])
+
+    cfg, params, axes = model_of("olmoe_1b_7b")
+    with psh.use_mesh(mesh):
+        state = psh.distribute(TrainState(params, adamw_init(params)),
+                               state_axes(axes))
+        new, metrics = build_train_step(cfg)(
+            state, batch_of("olmoe_1b_7b", cfg))
+        for k in ("loss", "grad_norm"):
+            out[f"olmoe_step/{k}"] = psh.full(metrics[k]).numpy()
+        out["olmoe_step/expert_counts"] = psh.full(
+            metrics["expert_counts"]).numpy()
+        _flat_out(out, "olmoe_step/params", new.params)
+    return out
+
+
+def suite_checkpoint(rank: int, world: int, inp: dict) -> dict:
+    """Checkpoints across meshes on ``world`` = 8 ranks: the reference's
+    grid (a (8, 8) leaf on "embed,ff" saved from a (4, 2) mesh, restored
+    onto (2, 4)); a model state saved on the (4, 2) mesh for the parent
+    to restore in the JAX package; the JAX package's checkpoint restored
+    onto the (2, 4) mesh."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.parallel import sharding as psh
+    from repro_torch.train import checkpoint as ckpt
+
+    out = {}
+    m42 = init_device_mesh("cpu", (4, 2), mesh_dim_names=("data", "model"))
+    m24 = init_device_mesh("cpu", (2, 4), mesh_dim_names=("data", "model"))
+    d = str(inp["dir"])
+    x = torch.from_numpy(inp["w"])
+    with psh.use_mesh(m42):
+        xs = psh.distribute({"w": x}, {"w": "embed,ff"})
+        out["grid/saved_local"] = np.asarray(xs["w"].to_local().shape)
+        ckpt.save(f"{d}/grid", 1, xs)
+    with psh.use_mesh(m24):
+        got, _ = ckpt.restore(f"{d}/grid", {"w": x}, axes={"w": "embed,ff"},
+                              device="cpu")
+    w = got["w"]
+    out["grid/mesh"] = np.asarray(w.device_mesh.shape)
+    out["grid/placements"] = np.asarray(str(tuple(w.placements)))
+    out["grid/local"] = w.to_local().numpy()
+    out["grid/full"] = psh.full(w).numpy()
+
+    like = {"params": {"w": torch.from_numpy(inp["state/w"]).bfloat16(),
+                       "b": torch.from_numpy(inp["state/b"])},
+            "step": torch.tensor(int(inp["state/step"]), dtype=torch.int32)}
+    axes = {"params": {"w": "embed,ff", "b": "ff"}, "step": ""}
+    with psh.use_mesh(m42):
+        state = psh.distribute(like, axes)
+        ckpt.save(f"{d}/port", 3, state, extra={"step": 3})
+    with psh.use_mesh(m24):
+        got, extra = ckpt.restore(f"{d}/jax", like, axes=axes, device="cpu")
+    out["jax/extra_step"] = np.asarray(extra["step"])
+    out["jax/dtensor"] = np.asarray(all(
+        psh.is_dtensor(t) for t in (got["params"]["w"], got["step"])))
+    out["jax/w_placements"] = np.asarray(str(tuple(
+        got["params"]["w"].placements)))
+    _flat_out(out, "jax/state", got)
+    return out
+
+
 SUITES = {"sharding": suite_sharding, "sketch": suite_sketch,
-          "exchange": suite_exchange}
+          "exchange": suite_exchange, "model": suite_model,
+          "checkpoint": suite_checkpoint}
 
 
 def _child(suite: str, rank: int, world: int, d: pathlib.Path) -> None:
