@@ -348,6 +348,21 @@ result):
      last loss within rtol 1e-5, bit-equality recorded); a stop after 3
      steps saves at step 3; the token sketch survives a resume.
 
+9. the dry-run phase (``dryrun_phase``): in a child process of its own
+   (``--dryrun-child``), a one-rank fake process group and a (1, 1) mesh
+   on the card, train main's step (Qwen3-0.6B, 4 x 2,048, remat) and the
+   model phase's decode step (Gemma3-27B, one period, B = 2, context
+   131,072) traced under ``FakeTensorMode`` by ``launch.dryrun.
+   trace_cell``; fatal: (a) kernel 5's op traced as often as the real
+   train step launches kernel 5 (56) and kernel 6's as the real decode
+   step launches kernel 6 (6), (b) the traced FLOPs of the train step
+   within 1e-3 of ``FlopCounterMode``'s over one real step of train main
+   (both printed op by op on a failure), (c) no device memory allocated
+   by the traces (FakeTensorMode's one 4-byte context probe made and
+   freed before the count), and the child done within 90 s; printed: the
+   predicted
+   per-device peak beside train main's measured one, the roofline terms.
+
 The line before the last two is ``{"kernels": [...]}`` (the six ported
 kernels and the port's own unbiased kernel, which replaces the
 reference's plain-JAX scan; the entries of flash and of kernels 1-3
@@ -2483,11 +2498,12 @@ def check_attention_cases(device) -> tuple:
     counters show it); decode ctx at 3e-5 / 3e-2, mass at atol 2e-5, rtol
     2e-4, and its sums; flash and ctx also row by row (``check_rows``).
     Returns the worst max abs error and the worst row share of each
-    kernel, and the flash cases per path."""
+    kernel, and the flash cases per path. Each kernel is launched
+    through its torch op (``ops.op``), as the model calls it."""
     import torch
-    from repro_torch.kernels.decode_attention.kernel import \
-        decode_attention_kernel
+    from repro_torch.kernels.decode_attention import ops as decode_ops
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention_kernel, flash_path)
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
@@ -2507,7 +2523,7 @@ def check_attention_cases(device) -> tuple:
                      f"KV={KV} hd={hd} causal={causal} window={window}]")
             want = flash_attention_ref(q, k, v, causal=causal, window=window)
             before = dict(flash_attention_kernel.launches)
-            got = flash_attention_kernel(q, k, v, causal=causal, window=window)
+            got = flash_ops.op(q, k, v, causal, window)
             torch.cuda.synchronize()
             path = flash_path(dtype, hd, True)
             ran = {p: n - before[p]
@@ -2533,7 +2549,7 @@ def check_attention_cases(device) -> tuple:
             label = (f"{DECODE} vs plain [{name} B={B} KV={KV} G={G} hd={hd} "
                      f"C={C}{' row 0 empty' if empty_row else ''}]")
             want_ctx, want_mass = decode_attention_ref(q, k, v, valid)
-            ctx, mass = decode_attention_kernel(q, k, v, valid)
+            ctx, mass = decode_ops.op(q, k, v, valid)
             torch.cuda.synchronize()
             err = close(label + " ctx", ctx, want_ctx, tol, tol)
             share = check_rows(label + " ctx", ctx, want_ctx)[1]
@@ -2692,27 +2708,32 @@ def bound(nbytes: int, flops: int) -> dict:
 
 def flash_bound(q, k, causal, window) -> dict:
     """Least work: q, k, v read once and out written once; 4·hd FLOPs per
-    allowed (q, k) pair per q-head (q·k and p·v, a multiply-add each)."""
-    from repro_torch.kernels.flash_attention.ref import allowed_pairs
+    allowed (q, k) pair per q-head (``ref.flash_flops``, which kernel 5's
+    op counts too)."""
+    from repro_torch.kernels.flash_attention.ref import (allowed_count,
+                                                         flash_flops)
 
     B, S, H, hd = q.shape
     T = k.shape[1]
-    pairs = int(allowed_pairs(S, T, causal, window).sum())
     nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
-    return dict(pairs=pairs, **bound(nbytes, 4 * B * H * hd * pairs))
+    return dict(pairs=allowed_count(S, T, causal, window),
+                **bound(nbytes, flash_flops(B, S, T, H, hd, causal, window)))
 
 
 def decode_bound(q, k, valid) -> dict:
     """Least work, from this run's mask: q, valid and the K and V rows of
     the valid slots read once, ctx and the f32 mass written once; 4·hd
-    FLOPs per valid slot per q-head."""
+    FLOPs per valid slot per q-head (``ref.decode_flops``, which kernel
+    6's op counts too)."""
+    from repro_torch.kernels.decode_attention.ref import decode_flops
+
     B, KV, G, hd = q.shape
     n_valid = int(valid.sum())
     esize = q.element_size()
     nbytes = (esize * (2 * q.numel() + 2 * n_valid * KV * hd)
               + valid.numel() + 4 * valid.numel())
     return dict(valid_slots=n_valid,
-                **bound(nbytes, 4 * n_valid * KV * G * hd))
+                **bound(nbytes, decode_flops(n_valid, KV, G, hd)))
 
 
 def attention_inputs(device, seed):
@@ -3991,6 +4012,18 @@ def profile_train_step(tr) -> dict:
     return out
 
 
+def count_step_flops(tr) -> dict:
+    """One more step of ``tr`` under ``FlopCounterMode``: its FLOPs, in
+    total and by op (kernel 5's op by its own formula), the count the
+    dry-run phase holds its trace to."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as fc:
+        tr.run(1)
+    return dict(total=fc.get_total_flops(), by_op={
+        str(k): v for k, v in fc.get_flop_counts()["Global"].items()})
+
+
 def train_step_bounds(cfg, seq_len, batch) -> dict:
     """``roofline_terms`` of one train step at this shape, remat on (flops:
     ``model_flops``, bytes: ``analytic_hbm_bytes``)."""
@@ -4015,7 +4048,7 @@ def backward_times(operands) -> dict:
     dk, dv written once; 8·hd FLOPs per allowed pair and q-head: dP,
     dV, dQ, dK)."""
     import torch
-    from repro_torch.kernels.flash_attention.ref import (allowed_pairs,
+    from repro_torch.kernels.flash_attention.ref import (allowed_count,
                                                          flash_attention_ref)
 
     out = {}
@@ -4028,7 +4061,7 @@ def backward_times(operands) -> dict:
         dout = torch.ones_like(q)
         ms = time_ms(lambda: torch.autograd.grad(flash_attention_ref(
             *leaves, causal=causal, window=window), leaves, dout), 3, 1)
-        pairs = int(allowed_pairs(S, k.shape[1], causal, window).sum())
+        pairs = allowed_count(S, k.shape[1], causal, window)
         nbytes = q.element_size() * (4 * q.numel() + 4 * k.numel())
         out[key] = dict(ms=ms, **bound(nbytes, 8 * B * H * hd * pairs))
         del leaves, dout
@@ -4157,6 +4190,7 @@ def train_main(label, cfg, c, device, tmp, timed=True) -> dict:
         rec["backward_times"] = backward_times(operands)
         rec["profiled_step"] = profile_train_step(tr)
         rec["bounds"] = train_step_bounds(cfg, c["seq_len"], c["batch"])
+        rec["flop_counter"] = count_step_flops(tr)
     log(f"{label}: {json.dumps({k: v for k, v in rec.items() if k not in ('twin', 'kernels_vs_plain')})}")
     del tr, operands, spy
     gc_free(device)
@@ -6775,6 +6809,177 @@ def mesh_child(rank: int, world: int, tmp: str) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# The dry-run phase: the train and decode steps traced on a fake group
+# ---------------------------------------------------------------------------
+
+# train main's shape (TRAIN_MAIN: Qwen3-0.6B, B = 4 x 2,048, remat) and the
+# model phase's decode step (MODEL_MAIN: Gemma3-27B cut to one period, B =
+# 2 at context 131,072), each traced on a one-rank fake group; the child
+# must finish within budget_s
+DRYRUN = dict(train=dict(arch="qwen3_0_6b", seq_len=2048, batch=4),
+              decode=dict(arch="gemma3_27b", batch=2, context=131_072),
+              budget_s=90, flops_rtol=1e-3)
+
+
+def dryrun_child(tmp: str) -> int:
+    """The dry-run phase's child: a one-rank fake process group and a
+    (1, 1) mesh on the conf's device, train main's step and the decode
+    step traced under ``FakeTensorMode`` (``launch.dryrun.trace_cell``),
+    their records and the device memory this process allocated, written
+    to ``tmp``. It runs in a process of its own so that its fake group
+    never meets the mesh phase's groups."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.parallel.sharding import default_rules
+
+    tmp = pathlib.Path(tmp)
+    conf = json.loads((tmp / "conf.json").read_text())
+    c, device = conf["c"], conf["device"]
+    get = configs.get_smoke if conf["smoke"] else configs.get
+
+    def allocated():
+        return (torch.cuda.max_memory_allocated() if device == "cuda"
+                else 0)
+
+    dryrun.fake_group(1)
+    mesh = make_smoke_mesh(1, device)
+    out = {"max_allocated_after": {"mesh": allocated()}}
+    if device == "cuda":
+        # FakeTensorMode starts the card's context once a device name with
+        # one 4-byte tensor, made and freed (``fake_tensor.
+        # init_gpu_context``): made to happen here, before the count
+        from torch._subclasses.fake_tensor import FakeTensorMode
+
+        with FakeTensorMode():
+            for name in ("cuda", f"cuda:{torch.cuda.current_device()}"):
+                torch.empty(1, device=name)
+        out["context_probe_bytes"] = allocated()
+        torch.cuda.reset_peak_memory_stats()
+    for name, kind in (("train", "train"), ("decode", "decode")):
+        cc = c[name]
+        cfg = get(cc["arch"])
+        if kind == "decode":
+            cfg = one_period(cfg)
+            shape = InputShape("decode main", cc["context"], cc["batch"],
+                               "decode")
+            rules = dryrun.cell_rules(shape, multi=False)
+        else:
+            shape = InputShape("train main", cc["seq_len"], cc["batch"],
+                               "train")
+            rules = default_rules()
+        t0 = time.perf_counter()
+        trace, memory = dryrun.trace_cell(cfg, shape, mesh, rules,
+                                          {"remat": True}, device,
+                                          keep=False)
+        rec = dryrun.record(cfg, shape, trace, memory, chips=1)
+        rec.update(seconds=time.perf_counter() - t0,
+                   peak_bytes=trace.peak,
+                   flops_by_op=dict(trace.flops_by_op))
+        out[name] = rec
+        out["max_allocated_after"][name] = allocated()
+    if device == "cuda":
+        out["device_bytes"] = dict(
+            allocated=torch.cuda.memory_allocated(),
+            max_allocated=torch.cuda.max_memory_allocated(),
+            reserved=torch.cuda.memory_reserved())
+    else:
+        out["device_bytes"] = dict(allocated=0, max_allocated=0, reserved=0)
+    (tmp / "dryrun.json").write_text(json.dumps(out))
+    return 0
+
+
+def dryrun_phase(device, flops_want, flash_per_step, decode_per_step,
+                 peak_measured_gb=None, c=DRYRUN, smoke=False) -> dict:
+    """Train main's step and the decode step traced in a child process
+    (``dryrun_child``), held to the real runs, each gate fatal:
+
+    (a) the traced calls of kernel 5's op equal the launches a real train
+        step makes (``flash_per_step``: 56 for Qwen3-0.6B, a forward and
+        remat's recompute a layer), and kernel 6's a real decode step's
+        (``decode_per_step``: 6, one a layer of the period);
+    (b) the traced FLOPs of the train step equal ``flops_want``, what
+        ``FlopCounterMode`` counted over one real step of train main
+        (``count_step_flops``), within ``flops_rtol``; on a failure both
+        totals are printed op by op;
+    (c) the traces allocated no device memory (``max_memory_allocated``
+        stays 0 once FakeTensorMode's one context probe, a 4-byte tensor
+        made and freed, is done);
+
+    and the child ends within ``budget_s``. Printed, not gated: the
+    predicted per-device peak (arguments + temp) beside train main's
+    measured ``max_memory_allocated``, and the roofline terms."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        (tmp / "conf.json").write_text(json.dumps(dict(
+            c=c, device=torch_device_type(device), smoke=smoke)))
+        try:
+            proc = subprocess.run(
+                [sys.executable, str(ROOT / "chip_smoke.py"),
+                 "--dryrun-child", str(tmp)], capture_output=True,
+                text=True, timeout=c["budget_s"])
+        except subprocess.TimeoutExpired:
+            raise SystemExit(f"dry-run phase: the child ran past its "
+                             f"{c['budget_s']} s budget") from None
+        if proc.returncode != 0:
+            raise SystemExit(f"dry-run phase: the child failed "
+                             f"({proc.returncode}):\n{proc.stdout[-3000:]}"
+                             f"\n{proc.stderr[-3000:]}")
+        res = json.loads((tmp / "dryrun.json").read_text())
+    seconds = time.perf_counter() - t0
+    train, decode = res["train"], res["decode"]
+    got = dict(flash=train["kernel_ops"]["flash"],
+               decode=decode["kernel_ops"]["decode"])
+    if got != dict(flash=flash_per_step, decode=decode_per_step):
+        raise SystemExit(f"dry-run phase (a): traced kernel op calls {got}, "
+                         f"the real steps launch flash {flash_per_step} and "
+                         f"decode {decode_per_step}")
+    traced = train["cost_raw"]["flops"]
+    rel = abs(traced - flops_want["total"]) / max(flops_want["total"], 1)
+    if not rel <= c["flops_rtol"]:
+        ops = sorted(set(train["flops_by_op"]) | set(flops_want["by_op"]))
+        for op in ops:
+            log(f"  {op}: traced {train['flops_by_op'].get(op, 0)}, "
+                f"counted {flops_want['by_op'].get(op, 0)}")
+        raise SystemExit(f"dry-run phase (b): the trace counts {traced} "
+                         f"FLOPs, FlopCounterMode {flops_want['total']} "
+                         f"(relative {rel})")
+    dev = res["device_bytes"]
+    if dev["max_allocated"] != 0:
+        raise SystemExit(f"dry-run phase (c): the traces allocated device "
+                         f"memory: {dev}, the peak after each stage "
+                         f"{res['max_allocated_after']}")
+    mem = train["memory"]
+    out = dict(
+        seconds=seconds, child_seconds=dict(train=train["seconds"],
+                                            decode=decode["seconds"]),
+        kernel_ops=got, flops_traced=traced, flops_counted=flops_want[
+            "total"], flops_rel=rel, device_bytes=dev,
+        context_probe_bytes=res.get("context_probe_bytes", 0),
+        predicted_peak_gb=(mem["argument_size_in_bytes"]
+                           + mem["temp_size_in_bytes"]) / 1e9,
+        measured_peak_gb=peak_measured_gb, memory=dict(
+            train=mem, decode=decode["memory"]),
+        collectives=dict(train=train["collectives"],
+                         decode=decode["collectives"]),
+        roofline=dict(train=train["roofline"], decode=decode["roofline"]))
+    log(f"dry-run phase: {json.dumps(out)}")
+    return out
+
+
+def torch_device_type(device) -> str:
+    import torch
+
+    return torch.device(device).type
+
+
 def gpu_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -7007,6 +7212,12 @@ def main() -> int:
     phase_done("model")
     train_launches, train = train_phase(device)
     phase_done("train")
+    tm, mm = train["main"], model["main"]
+    dryrun = dryrun_phase(device, tm["flop_counter"],
+                          tm["flash_launches"] // tm["steps"],
+                          mm["decode_launches"] // mm["new_tokens"],
+                          tm["peak_memory_gb"])
+    phase_done("dry-run")
     # kernels 5 and 6 on the model phase's paths too: flash by path, decode
     # by run; their times at the serving shapes beside the attention
     # phase's
@@ -7141,7 +7352,7 @@ def main() -> int:
         tenant=tenant_runs, tenant_kernel_times=tenant_kernel_times,
         family=family_runs, faults=fault_runs, mesh=mesh,
         profile=prof, attention=attention, model=model, train=train,
-        kernels=kernels), indent=1))
+        dryrun=dryrun, kernels=kernels), indent=1))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -7153,4 +7364,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--mesh-rank"]:
         sys.exit(mesh_child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
+    if sys.argv[1:2] == ["--dryrun-child"]:
+        sys.exit(dryrun_child(sys.argv[2]))
     sys.exit(main())

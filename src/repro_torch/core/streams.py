@@ -18,9 +18,11 @@ frequencies never go negative (the strict turnstile), and
 from __future__ import annotations
 
 import dataclasses
-from typing import List
+from typing import List, Tuple
 
 import numpy as np
+
+Update = Tuple[int, int]  # (item_id, +1 | -1): one row of a stream
 
 
 def zipf_insertions(n: int, universe: int, skew: float = 1.0,
@@ -184,5 +186,5 @@ def mixed_traffic(num_tenants: int, n_updates: int, *,
         cursors[t] += 1
     return out
 
-__all__ = ["zipf_insertions", "bounded_stream", "StreamStats",
+__all__ = ["Update", "zipf_insertions", "bounded_stream", "StreamStats",
            "exact_stats", "heavy_hitters", "mixed_traffic"]

@@ -20,6 +20,14 @@ import torch
 NEG_INF = -1e9
 
 
+def decode_flops(valid_slots: int, KV: int, G: int, hd: int) -> int:
+    """The least work of one call: 4·hd FLOPs per valid slot per q-head
+    (q·k and p·v, a multiply-add each), ``valid_slots`` summed over the
+    batch rows. ``chip_smoke.py``'s bound and the op's FLOP formula
+    (``ops.py``) both count this."""
+    return 4 * valid_slots * KV * G * hd
+
+
 def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
                          v_cache: torch.Tensor, valid: torch.Tensor):
     """q (B, KV, G, hd); caches (B, C, KV, hd); valid (B, C) bool.
@@ -41,4 +49,4 @@ def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
     return ctx.to(v_cache.dtype), mass
 
 
-__all__ = ["NEG_INF", "decode_attention_ref"]
+__all__ = ["NEG_INF", "decode_flops", "decode_attention_ref"]

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 NEG_INF = -1e30
@@ -30,6 +31,26 @@ def allowed_pairs(S: int, T: int, causal: bool, window: int,
     if window:
         allowed &= kpos > qpos - window
     return allowed
+
+
+def allowed_count(S: int, T: int, causal: bool, window: int) -> int:
+    """How many (q, k) pairs ``allowed_pairs`` allows, counted row by row
+    on the host without building the (S, T) mask (so a FLOP formula may
+    call it inside ``FakeTensorMode``): query row i sits at key position
+    i + T - S and sees the keys from its window's start to itself
+    (causal) or to T - 1."""
+    qpos = np.arange(S, dtype=np.int64) + (T - S)
+    hi = np.minimum(qpos, T - 1) if causal else np.full(S, T - 1)
+    lo = np.maximum(qpos - window + 1, 0) if window else np.zeros(S, np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def flash_flops(B: int, S: int, T: int, H: int, hd: int, causal: bool,
+                window: int) -> int:
+    """The least work of one call: 4·hd FLOPs per allowed (q, k) pair per
+    q-head (q·k and p·v, a multiply-add each). ``chip_smoke.py``'s bound
+    and the op's FLOP formula (``ops.py``) both count this."""
+    return 4 * B * H * hd * allowed_count(S, T, causal, window)
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -51,4 +72,5 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(B, S, H, hd).to(q.dtype)
 
 
-__all__ = ["NEG_INF", "allowed_pairs", "flash_attention_ref"]
+__all__ = ["NEG_INF", "allowed_pairs", "allowed_count", "flash_flops",
+           "flash_attention_ref"]

@@ -1,3 +1,4 @@
 """Launch entry points (counterpart of ``repro.launch``): the mesh
-builders (``mesh``), the train and serve CLIs (``train``, ``serve``).
-The multi-pod dry-run is not ported yet."""
+builders (``mesh``), the train and serve CLIs (``train``, ``serve``) and
+the multi-pod dry-run (``dryrun``: one step of each cell traced on a
+fake process group)."""

@@ -8,13 +8,15 @@ tensors with a mirrored "axes" tree of logical dim names, as there.
 
 Attention goes through the port's kernels where the reference attends in
 plain JAX: prefill and training (``_causal_full``, ``_banded_local``)
-through kernel 5 (``kernels/flash_attention``), one token against a
-cache through kernel 6 (``kernels/decode_attention``). CUDA tensors
-launch the kernel; CPU tensors, and ``attention="plain"``, take its
-plain version (``ref.py``). Training differentiates kernel 5 through
-``FlashAttentionFn`` (its backward: the plain version's gradient, the
-reference's); kernel 6 serves decode only and refuses inputs that
-require grad. The kernels keep the scores in f32 where the
+through kernel 5's op (``kernels/flash_attention/ops.op``), one token
+against a cache through kernel 6's (``kernels/decode_attention/ops.op``).
+On CUDA tensors an op launches its kernel; on CPU tensors it runs the
+kernel's plain version (``ref.py``), and under ``FakeTensorMode`` its
+fake rule, so a dry-run traces the op the card runs.
+``attention="plain"`` calls the plain versions themselves. Training
+differentiates kernel 5's op (its backward: the plain version's
+gradient, the reference's); kernel 6 serves decode only and has no
+gradient. The kernels keep the scores in f32 where the
 reference keeps bf16 models' (S, S) scores and P in bf16, so a bf16
 model agrees with the reference within bf16 rounding, not bit for bit.
 
@@ -41,10 +43,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.decode_attention.kernel import decode_attention_kernel
+from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
-from repro_torch.kernels.flash_attention.kernel import flash_attention_kernel
-from repro_torch.kernels.flash_attention.ops import FlashAttentionFn
+from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.parallel import sharding as psh
 
@@ -100,10 +101,35 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
 # Attention (training / prefill): kernel 5
 # ---------------------------------------------------------------------------
 
+def project(x, w, *names: Optional[str]):
+    """x (B, S, D) by w (D, N) or (D, N, hd) -> (B, S, N) or (B, S, N,
+    hd), the output dims named ``names`` (("heads", None), ("kv", None),
+    ("inner",)).
+
+    On a mesh the product runs on each rank's shards (``local_map``): x
+    by ("batch", "seq", None), w by (None, *names) (an FSDP-split embed
+    dim gathered), the result by ("batch", "seq", *names), the layout the
+    reference's ``shard`` calls give it. DTensor's own einsum flattens
+    the output dims and may split them, or the tokens, over "model": it
+    then cannot unflatten (N, hd) where the model axis does not divide N
+    (Qwen3-0.6B's 8 kv-heads on a model axis of 16, with a data axis
+    above 1), a dim the rules replicate, nor follow a token split in the
+    backward on a mesh with a pod axis."""
+    eq = "bsd,dhk->bshk" if w.dim() == 3 else "bsd,de->bse"
+    if not (psh.is_dtensor(x) or psh.is_dtensor(w)):
+        return ein(eq, x, w)
+    return psh.local_map(
+        lambda x, w: ein(eq, x, w), (x, w),
+        (psh.act_spec(x.shape, "batch", "seq", None).spec,
+         psh.act_spec(w.shape, None, *names).spec),
+        psh.act_spec(tuple(x.shape[:2]) + tuple(w.shape[1:]), "batch",
+                     "seq", *names).spec)
+
+
 def _project_qkv(x, p, cfg: ModelConfig):
-    q = ein("bsd,dhk->bshk", x, p["wq"])
-    k = ein("bsd,dhk->bshk", x, p["wk"])
-    v = ein("bsd,dhk->bshk", x, p["wv"])
+    q = project(x, p["wq"], "heads", None)
+    k = project(x, p["wk"], "kv", None)
+    v = project(x, p["wv"], "kv", None)
     if cfg.qkv_bias:
         q = q + p["bq"]
         k = k + p["bk"]
@@ -154,19 +180,16 @@ def _kv_for_heads(q, k, v, heads_axes, H: int, KV: int):
 
 def _attend_local(q, k, v, causal: bool, window: int, attention: str):
     """GQA attention in the model layout, q (B, S, H, hd) and k, v (B, T,
-    KV, hd), sequence ends aligned: kernel 5 for CUDA tensors under
-    ``attention="kernel"`` (through ``FlashAttentionFn`` when grad mode
-    is on and an input requires grad), its plain version otherwise. No
-    tile rule (the reference model has none: Whisper's cross-attention
+    KV, hd), sequence ends aligned: kernel 5's op under
+    ``attention="kernel"`` (the kernel on CUDA tensors, its plain version
+    on CPU tensors, a gradient either way), the plain version under
+    ``"plain"``. No tile rule (the reference model has none: Whisper's cross-attention
     has T = 1,500), unlike ``ops.flash_attention``'s Pallas API
     parity."""
     dt = torch.promote_types(torch.promote_types(q.dtype, k.dtype), v.dtype)
     q, k, v = (t.to(dt).contiguous() for t in (q, k, v))
-    if check_attention(attention) == "kernel" and q.is_cuda:
-        if torch.is_grad_enabled() and any(t.requires_grad
-                                           for t in (q, k, v)):
-            return FlashAttentionFn.apply(q, k, v, causal, window)
-        return flash_attention_kernel(q, k, v, causal=causal, window=window)
+    if check_attention(attention) == "kernel":
+        return flash_ops.op(q, k, v, causal, window)
     return flash_attention_ref(q, k, v, causal=causal, window=window)
 
 
@@ -197,9 +220,9 @@ def attention(
         q = rope(q, positions, cfg.rope_theta)
         kk = rope(kk, positions, cfg.rope_theta)
     else:
-        q = ein("bsd,dhk->bshk", x, p["wq"])
-        kk = ein("bsd,dhk->bshk", cross_states, p["wk"])
-        vv = ein("bsd,dhk->bshk", cross_states, p["wv"])
+        q = project(x, p["wq"], "heads", None)
+        kk = project(cross_states, p["wk"], "kv", None)
+        vv = project(cross_states, p["wv"], "kv", None)
     window = 0
     if kind in ("swa", "local") and cross_states is None:
         if S > cfg.window and S % cfg.window:
@@ -239,8 +262,9 @@ def _decode_attend_local(q, cache_k, cache_v, valid,
                          attention: str = "kernel"):
     """q (B, KV, G, hd), caches (B, C, KV, hd), valid (B, C) bool ->
     (ctx (B, KV, G, hd) in the caches' dtype, mass (B, C) f32 summed over
-    the q-heads; 0 on a row with no valid slot). Kernel 6 for CUDA
-    tensors under ``attention="kernel"``, its plain version otherwise.
+    the q-heads; 0 on a row with no valid slot). Kernel 6's op under
+    ``attention="kernel"`` (the kernel on CUDA tensors, its plain version
+    on CPU tensors), the plain version under ``"plain"``.
 
     Where q is f32 and the cache bf16 (f32 params over ``build_cache``'s
     bf16 cache), both the kernel and its plain version take the cache as
@@ -256,8 +280,8 @@ def _decode_attend_local(q, cache_k, cache_v, valid,
         q, cache_k, cache_v = (t.to(dt) for t in (q, cache_k, cache_v))
     q, cache_k, cache_v = (t.contiguous() for t in (q, cache_k, cache_v))
     valid = valid.contiguous()
-    if check_attention(attention) == "kernel" and q.is_cuda:
-        ctx, mass = decode_attention_kernel(q, cache_k, cache_v, valid)
+    if check_attention(attention) == "kernel":
+        ctx, mass = decode_ops.op(q, cache_k, cache_v, valid)
     else:
         ctx, mass = decode_attention_ref(q, cache_k, cache_v, valid)
     return ctx.to(out_dtype), mass

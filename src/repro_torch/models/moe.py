@@ -179,6 +179,7 @@ def _combine(yb, g_s, route, Tl: int, dtype):
     out = torch.zeros((G, Tl, D), dtype=dtype, device=dev)
     for g in range(G):
         out[g].index_add_(0, t_s[g], contrib[g].to(dtype))
-    counts = torch.stack([torch.bincount(e_s[g], minlength=E)
-                          for g in range(G)]).to(torch.int32)
+    # per-expert counts of a known size (bincount's size follows the data)
+    counts = torch.zeros((G, E), dtype=torch.int32, device=dev).scatter_add_(
+        1, e_s, torch.ones_like(e_s, dtype=torch.int32))
     return out, counts

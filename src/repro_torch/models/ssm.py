@@ -22,7 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import _norm_init, ein, rms_norm
+from repro_torch.models.layers import _norm_init, ein, project, rms_norm
 from repro_torch.parallel import sharding as psh
 
 F32 = torch.float32
@@ -80,12 +80,18 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
 
 
 def _split_proj(u, p, cfg: ModelConfig):
+    """(z, xBC, dt): the in-projection cut into its three parts. On a mesh
+    each part is its own product with its slice of the weight, laid out
+    by ("batch", "seq", "inner") (``layers.project``): DTensor's own
+    product of the whole projection may split the tokens over "model",
+    which its backward cannot follow on a mesh with a pod axis."""
     Din, nh, N, conv_dim = dims(cfg)
+    cuts = ((0, Din), (Din, Din + conv_dim), (Din + conv_dim, None))
+    if psh.is_dtensor(u) or psh.is_dtensor(p["in_proj"]):
+        w = p["in_proj"]
+        return tuple(project(u, w[:, a:b], "inner") for a, b in cuts)
     zxbcdt = ein("bsd,de->bse", u, p["in_proj"])
-    z = zxbcdt[..., :Din]
-    xBC = zxbcdt[..., Din: Din + conv_dim]
-    dt = zxbcdt[..., Din + conv_dim:]
-    return z, xBC, dt
+    return tuple(zxbcdt[..., a:b] for a, b in cuts)
 
 
 def mamba_layer(u: torch.Tensor, p: dict, cfg: ModelConfig,
@@ -111,9 +117,45 @@ def mamba_layer(u: torch.Tensor, p: dict, cfg: ModelConfig,
     Cm = xBC[..., Din + N:].float()
 
     x = psh.shard(x, "batch", "seq", "inner")
+    ssd = (lambda *a: _ssd_chunks(*a, hp=hp, nc=nc, cl=cl, dtype=u.dtype))
+    args = (x, dt, Bm, Cm, p["A_log"], p["dt_bias"], p["skip"])
+    if psh.is_dtensor(x):
+        # on each rank's batch rows and heads: DTensor cannot follow the
+        # per-head reshapes and batched products of the chunked form
+        P = psh.PartitionSpec
+        hs = psh.act_spec((nh,), "inner").spec[0]
+        bs = psh.act_spec((B,), "batch").spec[0]
+        y, s = psh.local_map(
+            ssd, args, (P(bs, None, hs), P(bs, None, hs), P(bs, None, None),
+                        P(bs, None, None), P(hs), P(hs), P(hs)),
+            (P(bs, None, hs), P(bs, hs, None, None)))
+    else:
+        y, s = ssd(*args)
+    # gated RMSNorm (mamba2): norm(y * silu(z))
+    y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
+    out = psh.shard(ein("bsi,id->bsd", y, p["out_proj"]), "batch", "seq",
+                    "embed")
+    if not return_state:
+        return out
+    # decode cache: the state after the last chunk; the conv history is
+    # the last K-1 pre-conv inputs (what the depthwise conv needs next)
+    if S < 3:
+        xBC_pre = F.pad(xBC_pre, (0, 0, 3 - S, 0))
+    cache = {"conv": xBC_pre[:, -3:].to(BF16), "state": s}
+    return out, cache
+
+
+def _ssd_chunks(x, dt, Bm, Cm, A_log, dt_bias, skip, *, hp: int, nc: int,
+                cl: int, dtype):
+    """The chunked SSD scan on (a rank's share of) the heads: x (B, S,
+    nh·hp), dt (B, S, nh) before its softplus, Bm and Cm (B, S, N) f32,
+    A_log, dt_bias and skip (nh,) -> (y (B, S, nh·hp) in ``dtype``, the
+    final state (B, nh, hp, N) f32)."""
+    B, S, Din = x.shape
+    nh, N = Din // hp, Bm.shape[-1]
     xh = x.reshape(B, S, nh, hp).float()
-    dt = F.softplus(dt.float() + p["dt_bias"])                     # (B,S,nh)
-    a = -torch.exp(p["A_log"])                                      # (nh,)
+    dt = F.softplus(dt.float() + dt_bias)                          # (B,S,nh)
+    a = -torch.exp(A_log)                                           # (nh,)
     dA = dt * a
 
     xc = xh.reshape(B, nc, cl, nh, hp)
@@ -127,7 +169,7 @@ def mamba_layer(u: torch.Tensor, p: dict, cfg: ModelConfig,
     # mask is applied before the exp (the exponent is positive above it)
     diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]            # (B,nc,q,t,nh)
     causal = torch.tril(torch.ones((cl, cl), dtype=torch.bool,
-                                   device=u.device))
+                                   device=x.device))
     decay = torch.exp(torch.where(causal[None, None, :, :, None], diff,
                                   -1e30))
     scores = ein("bcqn,bctn->bcqt", Cc, Bc)
@@ -142,7 +184,7 @@ def mamba_layer(u: torch.Tensor, p: dict, cfg: ModelConfig,
 
     # inter-chunk recurrence over nc (the reference's lax.scan)
     chunk_decay = torch.exp(last[:, :, 0, :])                       # (B,nc,nh)
-    s = torch.zeros((B, nh, hp, N), dtype=F32, device=u.device)
+    s = torch.zeros((B, nh, hp, N), dtype=F32, device=x.device)
     s_prevs = []
     for c in range(nc):
         s_prevs.append(s)
@@ -151,20 +193,8 @@ def mamba_layer(u: torch.Tensor, p: dict, cfg: ModelConfig,
     y_inter = ein("bcqn,bcqh,bchpn->bcqhp", Cc, torch.exp(cum), s_prevs)
 
     y = (y_intra + y_inter).reshape(B, S, nh, hp)
-    y = y + xh * p["skip"][None, None, :, None]
-    y = y.reshape(B, S, Din).to(u.dtype)
-    # gated RMSNorm (mamba2): norm(y * silu(z))
-    y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
-    out = psh.shard(ein("bsi,id->bsd", y, p["out_proj"]), "batch", "seq",
-                    "embed")
-    if not return_state:
-        return out
-    # decode cache: the state after the last chunk; the conv history is
-    # the last K-1 pre-conv inputs (what the depthwise conv needs next)
-    if S < 3:
-        xBC_pre = F.pad(xBC_pre, (0, 0, 3 - S, 0))
-    cache = {"conv": xBC_pre[:, -3:].to(BF16), "state": s}
-    return out, cache
+    y = y + xh * skip[None, None, :, None]
+    return y.reshape(B, S, Din).to(dtype), s
 
 
 # ---------------------------------------------------------------------------

@@ -13,8 +13,7 @@ unstacked under ``rem{i}``, Zamba2's shared block under
 (the reference's ``jax.checkpoint`` of each period's body) is
 ``torch.utils.checkpoint``: the period's activations are recomputed in
 the backward. Gradients flow through everything, kernel 5 included
-(``layers._attend`` takes ``FlashAttentionFn`` when an input requires
-grad).
+(its op carries the plain attention's gradient).
 
 On a mesh (``parallel.sharding.use_mesh``, params laid out by
 ``sharding.distribute``) the forward runs on DTensors: the embedding,
@@ -305,10 +304,10 @@ def _decoder_layer(x, lp, kind, cfg: ModelConfig, positions, cross_states,
                             cross_states=cross_states, attention=attention)
         if collect_ctx is not None:
             # precomputed cross K/V for decode (no rope on cross attention)
-            entry["xk"] = L.ein("bsd,dhk->bshk", cross_states,
-                                lp["xattn"]["wk"])
-            entry["xv"] = L.ein("bsd,dhk->bshk", cross_states,
-                                lp["xattn"]["wv"])
+            entry["xk"] = L.project(cross_states, lp["xattn"]["wk"], "kv",
+                                    None)
+            entry["xv"] = L.project(cross_states, lp["xattn"]["wv"], "kv",
+                                    None)
     h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
     if cfg.family == "moe":
         y, counts = moe_ffn(h, lp["ffn"], cfg)
@@ -372,7 +371,18 @@ def _kinds(cfg: ModelConfig):
 
 
 def _embed(params, cfg: ModelConfig, tokens, vision):
-    x = params["embed"].to(BF16)[tokens.long()] * math.sqrt(cfg.d_model)
+    table = params["embed"].to(BF16)
+    if psh.is_dtensor(table) or psh.is_dtensor(tokens):
+        # on each rank's rows, the table gathered: DTensor's own indexing
+        # by a row-split DTensor of tokens has no backward on torch 2.11
+        B, S = tokens.shape
+        P = psh.PartitionSpec
+        x = psh.local_map(lambda t, i: t[i.long()], (table, tokens),
+                          (P(None, None), psh.lead_spec((B, S), "batch")),
+                          psh.lead_spec((B, S, table.shape[1]), "batch"))
+    else:
+        x = table[tokens.long()]
+    x = x * math.sqrt(cfg.d_model)
     if vision is not None:
         x = torch.cat([vision.to(x.dtype), x], dim=1)
     return psh.shard(x, "batch", "seq", "embed")
@@ -462,20 +472,33 @@ def prefill_forward(
 def loss_fn(params, cfg: ModelConfig, batch: dict, remat: bool = True,
             attention: str = "kernel"):
     """Masked next-token cross-entropy; returns (loss, aux). Differentiable
-    in the params, kernel 5 included (``FlashAttentionFn``): the train
+    in the params, kernel 5's op included: the train
     step (``train/step.py``) takes its gradient."""
     logits, expert_counts = forward(
         params, cfg, batch["tokens"], vision=batch.get("vision"),
         frames=batch.get("frames"), remat=remat, attention=attention)
     labels = batch["labels"]
     S_text = labels.shape[1]
-    # the label pick reads each row's whole vocab: gathered on a mesh
-    logits = psh.shard(logits, "batch", "seq", None)
-    logits = logits[:, -S_text:].float()   # the vision prefix predicts nothing
-    lse = torch.logsumexp(logits, dim=-1)
-    picked = logits.gather(-1, labels.long()[..., None])[..., 0]
+
+    def token_nll(logits, labels):
+        # the vision prefix predicts nothing
+        logits = logits[:, -S_text:].float()
+        lse = torch.logsumexp(logits, dim=-1)
+        return lse - logits.gather(-1, labels.long()[..., None])[..., 0]
+
+    if psh.is_dtensor(logits):
+        # the label pick reads each row's whole vocab: on each rank's rows,
+        # the vocab gathered (DTensor's own gather backward would build a
+        # zero gradient of the global logits' size on every rank)
+        rows = psh.act_spec(labels.shape, "batch", "seq").spec
+        nll = psh.local_map(
+            token_nll, (logits, labels),
+            (psh.act_spec(logits.shape, "batch", "seq", None).spec, rows),
+            rows)
+    else:
+        nll = token_nll(logits, labels)
     mask = batch.get("mask")
     if mask is None:
         mask = torch.ones_like(labels, dtype=F32)
-    loss = ((lse - picked) * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+    loss = (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
     return loss, {"expert_counts": expert_counts}

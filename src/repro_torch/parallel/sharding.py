@@ -469,6 +469,10 @@ def lay_out(x: torch.Tensor, spec: PartitionSpec, mesh=None):
         if ax is not None:
             i, n = shard_index(ax, mesh)
             local = local.chunk(n, dim=dim)[i]
+    if local.numel() < x.numel():
+        # the rank's slice in memory of its own: a view would keep the
+        # whole tensor alive on every rank
+        local = local.clone(memory_format=torch.contiguous_format)
     return DTensor.from_local(local.contiguous(), mesh, pl, run_check=False,
                               shape=x.shape, stride=x.contiguous().stride())
 

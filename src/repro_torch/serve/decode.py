@@ -165,7 +165,7 @@ def _cross_attn_decode(x, p, entry, cfg: ModelConfig, attention="kernel"):
     """Whisper cross-attention against precomputed encoder K/V (no rope)."""
     B = x.shape[0]
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    q = psh.shard(L.ein("bsd,dhk->bshk", x, p["wq"]), "batch", None, None,
+    q = psh.shard(L.project(x, p["wq"], "heads", None), "batch", None, None,
                   None)[:, 0].reshape(B, KV, H // KV, hd)
     valid = torch.ones(entry["xk"].shape[:2], dtype=torch.bool,
                        device=x.device)

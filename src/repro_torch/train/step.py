@@ -16,10 +16,10 @@ State contracts, as in the reference:
   - ``expert_counts`` in the metrics feeds the SS± expert-load sketch
     (``sketch.stats.ExpertLoadStats``) outside the step.
 
-The gradient is autograd's through the port's model: kernel 5 runs the
-forward of every attention layer and ``FlashAttentionFn`` gives its
-backward (the plain attention's gradient, the reference's ``jax.grad``
-of its plain-JAX attention). ``abstract_state`` builds the state on the
+The gradient is autograd's through the port's model: kernel 5's op runs
+the forward of every attention layer and gives its backward (the plain
+attention's gradient, the reference's ``jax.grad`` of its plain-JAX
+attention). ``abstract_state`` builds the state on the
 ``meta`` device: shapes and dtypes, no allocation, at any model size.
 """
 from __future__ import annotations

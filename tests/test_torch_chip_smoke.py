@@ -934,3 +934,42 @@ def test_mesh_phase_rehearsal(monkeypatch):
     with pytest.raises(SystemExit, match="rank"):
         cs.mesh_phase(cpu, stream, BLOCK, spec, q_spec, c=cs.MESH,
                       model=cs.MESH_MODEL, get=configs.get_smoke)
+
+
+SMOKE_DRYRUN = dict(train=dict(arch="qwen3_0_6b", seq_len=32, batch=4),
+                    decode=dict(arch="gemma3_27b", batch=2, context=64),
+                    budget_s=300, flops_rtol=1e-3)
+
+
+def test_dryrun_phase_rehearsal():
+    """The dry-run phase at smoke size on the CPU: its child traces smoke
+    Qwen3's train step (B = 4 x 32, remat) and smoke Gemma3's decode step
+    (one period) on a one-rank fake group, and the three gates hold
+    against a real CPU step of the same train step under
+    ``FlopCounterMode``: kernel 5's op traced twice a layer (4), kernel
+    6's once a layer of the period, the FLOPs equal, no device memory."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch import configs
+    from repro_torch.train.step import build_train_step, init_state
+
+    cs = _chip_smoke()
+    cfg = configs.get_smoke("qwen3_0_6b")
+    state, _ = init_state(cfg, 0, device="cpu")
+    batch = {k: torch.zeros(4, 32, dtype=torch.int32)
+             for k in ("tokens", "labels")}
+    with FlopCounterMode(display=False) as fc:
+        build_train_step(cfg)(state, batch)
+    want = dict(total=fc.get_total_flops(), by_op={
+        str(k): v for k, v in fc.get_flop_counts()["Global"].items()})
+    decode = cs.attention_calls(cs.one_period(
+        configs.get_smoke("gemma3_27b")))[1]
+    out = cs.dryrun_phase(torch.device("cpu"), want, 2 * cfg.num_layers,
+                          decode, None, c=SMOKE_DRYRUN, smoke=True)
+    assert out["kernel_ops"] == dict(flash=4, decode=decode)
+    assert out["flops_traced"] == want["total"] and out["flops_rel"] == 0.0
+    assert out["device_bytes"]["max_allocated"] == 0
+    mem = out["memory"]["train"]
+    assert out["predicted_peak_gb"] == (mem["argument_size_in_bytes"]
+                                        + mem["temp_size_in_bytes"]) / 1e9
+    assert out["roofline"]["train"]["chips"] == 1

@@ -986,6 +986,57 @@ def test_attention_ops_launch_the_kernels_for_cuda_tensors(cuda):
     assert decode_attention_kernel.launches == before[1] + 1
 
 
+def test_kernel_ops_launch_on_the_card_and_trace_under_fake_tensors(cuda):
+    """Kernels 5 and 6's torch ops: on real CUDA tensors one launch a
+    call, equal to the wrappers' results; under ``FakeTensorMode`` on the
+    card's device the fake rules give the shapes and nothing launches or
+    allocates."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.decode_attention.kernel import \
+        decode_attention_kernel
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_kernel
+
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    q = torch.randn((2, 128, 4, 64), generator=gen, device=cuda).bfloat16()
+    k, v = (torch.randn((2, 128, 2, 64), generator=gen,
+                        device=cuda).bfloat16() for _ in range(2))
+    dq = q[:, :1].reshape(2, 2, 2, 64).contiguous()
+    valid = torch.rand((2, 128), generator=gen, device=cuda) < 0.8
+    before = (sum(flash_attention_kernel.launches.values()),
+              decode_attention_kernel.launches)
+    got = fops.op(q, k, v, True, 32)
+    ctx, mass = dops.op(dq, k, v, valid)
+    torch.cuda.synchronize()
+    assert (sum(flash_attention_kernel.launches.values()),
+            decode_attention_kernel.launches) == (before[0] + 1,
+                                                  before[1] + 1)
+    assert torch.equal(got, flash_attention_kernel(q, k, v, window=32))
+    want_ctx, want_mass = decode_attention_kernel(dq, k, v, valid)
+    assert torch.equal(ctx, want_ctx) and torch.equal(mass, want_mass)
+    torch.cuda.synchronize()
+    launched = (sum(flash_attention_kernel.launches.values()),
+                decode_attention_kernel.launches)
+    allocated = torch.cuda.memory_allocated()
+    with FakeTensorMode():
+        fq = torch.empty((2, 4096, 16, 128), dtype=torch.bfloat16,
+                         device=cuda)
+        fk = torch.empty((2, 4096, 8, 128), dtype=torch.bfloat16,
+                         device=cuda)
+        out = fops.op(fq, fk, fk, True, 0)
+        fctx, fmass = dops.op(fq[:, :1].reshape(2, 8, 2, 128), fk, fk,
+                              torch.empty((2, 4096), dtype=torch.bool,
+                                          device=cuda))
+    assert out.shape == fq.shape and out.device.type == "cuda"
+    assert fctx.shape == (2, 8, 2, 128) and fmass.dtype == torch.float32
+    assert (sum(flash_attention_kernel.launches.values()),
+            decode_attention_kernel.launches) == launched
+    assert torch.cuda.memory_allocated() == allocated
+
+
 # A fault planted in a copy of a kernel's source (the module attribute that
 # names it, the text replaced, its replacement), at the full-width shapes
 # of chip_smoke.py: in the wgmma flash kernel, the first of the eight

@@ -2,7 +2,8 @@
 training on DTensors over a (2, 2) ("data", "model") mesh of one spawned
 gloo group of 4 ranks (``test_torch_ranks.suite_model``), against the
 port without a mesh and against the reference on a (2, 2) mesh of 4 host
-devices with ``AxisType.Auto`` axes (one subprocess a file, with
+devices with ``AxisType.Auto`` axes (two subprocesses beside the ranks,
+the forwards and the training, with
 ``XLA_FLAGS=--xla_force_host_platform_device_count=4``; jax 0.9's
 ``jax.make_mesh`` gives Explicit axes by default, which the reference's
 ``shard`` refuses).
@@ -98,7 +99,7 @@ from repro.parallel.sharding import default_rules, use_mesh
 from repro.train import Trainer, TrainerConfig
 from repro.train.step import TrainState, build_train_step
 
-d = sys.argv[1]
+d, part = sys.argv[1], sys.argv[2]
 inp = dict(np.load(os.path.join(d, "inputs.npz")))
 mesh = jax.make_mesh((2, 2), ("data", "model"),
                      axis_types=(jax.sharding.AxisType.Auto,) * 2)
@@ -137,9 +138,13 @@ def forward(key, arch, **kw):
     out[key + "/loss"] = np.asarray(loss)
 
 
-for arch in inp["archs"]:
-    forward(str(arch), str(arch))
-forward("moe_bind", "olmoe_1b_7b", capacity_factor=float(inp["moe_bind_cf"]))
+if part == "forward":
+    for arch in inp["archs"]:
+        forward(str(arch), str(arch))
+    forward("moe_bind", "olmoe_1b_7b",
+            capacity_factor=float(inp["moe_bind_cf"]))
+    np.savez(os.path.join(d, "reference_forward.npz"), **out)
+    sys.exit(0)
 
 cfg = configs.get_smoke("qwen3_0_6b")
 tr = Trainer(cfg, DataConfig(vocab_size=cfg.vocab_size, seq_len=32,
@@ -172,7 +177,7 @@ def flat(t, prefix):
 
 
 flat(new.params, "olmoe_step/params")
-np.savez(os.path.join(d, "reference.npz"), **out)
+np.savez(os.path.join(d, "reference_train.npz"), **out)
 '''
 
 
@@ -225,23 +230,32 @@ def runs(tmp_path_factory):
              JTrainerConfig(**kw)).save()
     inputs["trainer/ckpt_dir"] = np.asarray(str(d / "trainer"))
     (d / "ranks").mkdir()
-    np.savez(d / "ranks" / "inputs.npz", **inputs)
+    (d / "ref").mkdir()      # the reference's own copy of its inputs
+    np.savez(d / "ref" / "inputs.npz", **inputs)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu",
                XLA_FLAGS="--xla_force_host_platform_device_count=4",
                OMP_NUM_THREADS="1")
-    ref = subprocess.Popen([sys.executable, "-c", _REFERENCE,
-                            str(d / "ranks")], env=env,
-                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                           text=True)
+    # the reference in two processes beside the ranks: the forwards, and
+    # the Trainer with the OLMoE step
+    refs = [subprocess.Popen([sys.executable, "-c", _REFERENCE,
+                              str(d / "ref"), part], env=env,
+                             stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+            for part in ("forward", "train")]
     try:
         outs = run_ranks("model", 4, d / "ranks", inputs, timeout=600)
-        log = ref.communicate(timeout=600)[0]
+        logs = [ref.communicate(timeout=600)[0] for ref in refs]
     finally:
-        if ref.poll() is None:
-            ref.kill()
-            ref.wait()
-    assert ref.returncode == 0, log[-4000:]
-    return outs, dict(np.load(d / "ranks" / "reference.npz")), port, kw
+        for ref in refs:
+            if ref.poll() is None:
+                ref.kill()
+                ref.wait()
+    for ref, log in zip(refs, logs):
+        assert ref.returncode == 0, log[-4000:]
+    want = {}
+    for part in ("forward", "train"):
+        want.update(np.load(d / "ref" / f"reference_{part}.npz"))
+    return outs, want, port, kw
 
 
 def _plain_forward(port, arch, groups=1, **kw):

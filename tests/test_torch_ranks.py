@@ -476,9 +476,66 @@ def suite_checkpoint(rank: int, world: int, inp: dict) -> dict:
     return out
 
 
+def suite_mesh24(rank: int, world: int, inp: dict) -> dict:
+    """Smoke Qwen3 on a (2, world // 2) ("data", "model") mesh, where the
+    model axis (4 on 8 ranks) does not divide its 2 kv-heads and the data
+    axis is above 1: forward logits and loss, and one train step's loss,
+    gradient norm and new params (the projections' layouts:
+    ``layers.project``)."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch import configs
+    from repro_torch.convert import params_from_reference
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.parallel import sharding as psh
+    from repro_torch.train import TrainState, build_train_step, state_axes
+
+    mesh = init_device_mesh("cpu", (2, world // 2),
+                            mesh_dim_names=("data", "model"))
+    cfg = configs.get_smoke("qwen3_0_6b")
+    params = params_from_reference(_tree(inp, "params"), cfg, device="cpu")
+    _, axes = T.init_params(None, cfg, device="meta")
+    b = {k: torch.from_numpy(inp[k]) for k in ("tokens", "labels")}
+    out = {}
+    with psh.use_mesh(mesh):
+        p = psh.distribute(params, axes)
+        logits, _ = T.forward(p, cfg, b["tokens"])
+        out["logits"] = psh.full(logits).float().numpy()
+        out["loss"] = psh.full(T.loss_fn(p, cfg, b)[0]).numpy()
+        k = _k_projection(p, cfg, b["tokens"])
+        out["k_placements"] = np.asarray(str(tuple(k.placements)))
+        state = psh.distribute(TrainState(params, adamw_init(params)),
+                               state_axes(axes))
+        new, metrics = build_train_step(cfg)(state, b)
+        for key in ("loss", "grad_norm"):
+            out[f"step/{key}"] = psh.full(metrics[key]).numpy()
+        _flat_out(out, "step/params", new.params)
+    return out
+
+
+def _k_projection(p, cfg, tokens):
+    """The first layer's k projection of the embedded tokens (its
+    layout is the point: kv-heads replicated over "model")."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    x = T._embed(p, cfg, tokens, None)
+    wk = p["periods"]["pos0"]["attn"]["wk"][0]
+    return L.project(x, wk, "kv", None)
+
+
+def suite_eight(rank: int, world: int, inp: dict) -> dict:
+    """The 8-rank group's two suites in one spawn: ``suite_checkpoint``,
+    then ``suite_mesh24``."""
+    return {**suite_checkpoint(rank, world, inp),
+            **suite_mesh24(rank, world, inp)}
+
+
 SUITES = {"sharding": suite_sharding, "sketch": suite_sketch,
           "exchange": suite_exchange, "model": suite_model,
-          "checkpoint": suite_checkpoint}
+          "eight": suite_eight}
 
 
 def _child(suite: str, rank: int, world: int, d: pathlib.Path) -> None:

@@ -20,7 +20,12 @@ master weights and params within lr·2^-7: a step moves a weight by
 lr·mh/(sqrt(vh) + eps), about lr whatever the gradient's size at step 1,
 so where the reference's gradient lies within its tolerance of 0 the
 sign may fall either way and the two steps may differ by 2·lr there.
-``microbatches=2`` is held the same way. ``remat=True`` equals
+``microbatches=2`` is held the same way, against the reference's
+step computed from its slices' jitted gradients (``_ref_microbatch_
+step``: one compile for both slices, where its jitted
+``build_train_step(microbatches=2)`` compiles the whole unrolled step;
+``test_reference_microbatch_step_is_its_slices_then_adamw`` holds the
+two within one f32 rounding). ``remat=True`` equals
 ``remat=False`` bit for bit. Also: the abstract state's shapes and
 dtypes, and the grad guard of the kernel wrappers (a wrapper refuses
 operands that require grad before it looks at their device; ``_attend``
@@ -213,13 +218,53 @@ def test_reference_step_is_its_grads_then_adamw(cases, arch):
     assert set(wm) == set(gm)
 
 
+def _ref_microbatch_step(jcfg, jp, jb, M=2):
+    """The reference's ``build_train_step(microbatches=M)`` (its
+    ``unroll_scan`` body): each slice's loss and gradient from one jitted
+    ``value_and_grad`` (one compile for the M slices), summed in f32 over
+    M as the body sums them, then ``_ref_step``'s ``adamw_update`` (a
+    compile ``test_one_train_step`` already made)."""
+    vg = jax.jit(jax.value_and_grad(lambda p, b: jbuild(jcfg).loss(p, b),
+                                    has_aux=True))
+    acc = jax.jit(lambda c, l, a, g, e: (
+        jax.tree.map(lambda x, y: x + y.astype(jnp.float32) / M, c, g),
+        l + a / M, e))
+    grads = jax.tree.map(lambda p: jnp.zeros(p.shape, jnp.float32), jp)
+    loss = jnp.zeros((), jnp.float32)
+    counts = jnp.zeros((max(jcfg.num_experts, 1),), jnp.int32)
+    for i in range(M):
+        part = jax.tree.map(
+            lambda x: x.reshape((M, x.shape[0] // M) + x.shape[1:])[i], jb)
+        (l, aux), g = vg(jp, part)
+        grads, loss, counts = acc(grads, loss, l, g,
+                                  counts + aux["expert_counts"])
+    return _ref_step(jp, (loss, {"expert_counts": counts}, grads))
+
+
 @pytest.mark.parametrize("arch", jconfigs.ARCH_IDS)
 def test_two_microbatches(cases, arch):
     jcfg, tcfg, jp, tp, jb, tb, _ = cases(arch)
-    want, wm = jax.jit(JS.build_train_step(jcfg, microbatches=2))(
-        _ref_state(jp), jb)
+    want, wm = _ref_microbatch_step(jcfg, jp, jb)
     got, gm = TS.build_train_step(tcfg, microbatches=2)(_port_state(tp), tb)
     _hold_step(f"{arch} microbatches=2", got, want, gm, wm)
+
+
+@pytest.mark.parametrize("arch", ["qwen3_0_6b"])
+def test_reference_microbatch_step_is_its_slices_then_adamw(cases, arch):
+    """What ``_ref_microbatch_step`` stands on: the reference's jitted
+    ``build_train_step(microbatches=2)`` equals its slices' gradients
+    summed and then its ``adamw_update``, within one f32 rounding of
+    each leaf's largest value (the one jit fuses the sum the other
+    runs apart), on the cheapest config to compile."""
+    jcfg, _, jp, _, jb, _, _ = cases(arch)
+    want, wm = jax.jit(JS.build_train_step(jcfg, microbatches=2))(
+        _ref_state(jp), jb)
+    got, gm = _ref_microbatch_step(jcfg, jp, jb)
+    assert set(wm) == set(gm)
+    for a, b in zip(jax.tree.leaves((want, wm)), jax.tree.leaves((got, gm))):
+        a, b = np.asarray(a), np.asarray(b)
+        np.testing.assert_allclose(a, b, rtol=0, atol=float(
+            np.finfo(np.float32).eps * max(np.abs(_f32(a)).max(), 1e-30)))
 
 
 @pytest.mark.parametrize("arch", ["qwen3_0_6b", "olmoe_1b_7b", "zamba2_7b",
