@@ -363,6 +363,22 @@ result):
    predicted
    per-device peak beside train main's measured one, the roofline terms.
 
+10. the analysis phase (``analysis_phase``), fatal on any finding: the
+    port's analyzer (``repro_torch.analysis``) where CUDA graphs and
+    in-place donation exist: the recompile (SK203) and donation (SK204)
+    layers over the reference's k = 64 grid of nine specs on the card
+    (one cell per normalized layout, the tenant populations T = 3, 5, 1
+    in one; each cell's ``CompiledIngest`` holding one CUDA graph per
+    state shape and none more after the grid is driven again; the
+    ``bank`` cells launch kernel 1; every launching wrapper's state
+    operands first in its launch; a state kept from a donating ingest
+    overwritten by the next, a kept state of ``donate=False`` never);
+    the recompile check on the main spec's cell at its real size on
+    ``"bank"`` (400,000 counters in 128 shards, block 65,536, two
+    sessions on the main stream's first block: one cell, one graph);
+    the ``ast`` layer with ``--ci``. Its seconds and finding counts are
+    logged with the card.
+
 The line before the last two is ``{"kernels": [...]}`` (the six ported
 kernels and the port's own unbiased kernel, which replaces the
 reference's plain-JAX scan; the entries of flash and of kernels 1-3
@@ -6974,6 +6990,59 @@ def dryrun_phase(device, flops_want, flash_per_step, decode_per_step,
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the analyzer on the card
+# ---------------------------------------------------------------------------
+
+def analysis_phase(device, stream, block, spec) -> dict:
+    """The recompile (SK203) and donation (SK204) layers of
+    ``repro_torch.analysis`` on ``device`` over the reference's k = 64
+    grid, the recompile check on ``spec``'s cell at ``block`` (two
+    sessions on ``stream``'s first block: one cell, one graph on the
+    card), and the ``ast`` layer with ``--ci``. Fatal on any finding.
+    Returns the reports, the finding counts by layer, the launches and
+    the seconds."""
+    from repro_torch.analysis.__main__ import main as analysis_main
+    from repro_torch.analysis.donation_audit import audit_donation
+    from repro_torch.analysis.recompile_audit import audit_recompiles
+
+    t0 = time.perf_counter()
+    on_card = torch_device_type(device) == "cuda"
+    found, out = {}, {}
+    reset_counts()
+    found["recompile"], out["recompile"] = audit_recompiles(
+        block=64, k=64, device=device)
+    found["donation"], out["donation"] = audit_donation(
+        k=64, block=64, device=device)
+    found["main cell"], out["main cell"] = audit_recompiles(
+        grid=[spec, spec], block=block, device=device, stream=stream)
+    out["launches"] = {key: n for key, n in read_counts().items() if n}
+    bad = [f.render() for fs in found.values() for f in fs]
+    if bad:
+        raise SystemExit("analysis phase: findings:\n" + "\n".join(bad))
+    main_cell = out["main cell"]
+    if (main_cell["cells"], main_cell["graphs"]) != (1, int(on_card)):
+        raise SystemExit(f"analysis phase: the main spec's cell holds "
+                         f"{main_cell['cells']} cells and "
+                         f"{main_cell['graphs']} graphs")
+    donation = out["donation"]
+    if (donation["donate=True"], donation["donate=False"]) != (on_card,
+                                                               False):
+        raise SystemExit(f"analysis phase: donation {donation}")
+    launched = sum(n for key, n in out["launches"].items()
+                   if key.startswith(FUSED))
+    if on_card and not launched:
+        raise SystemExit("analysis phase: the bank cells launched no "
+                         "kernel 1")
+    rc = analysis_main(["--layers", "ast", "--ci"])
+    if rc != 0:
+        raise SystemExit(f"analysis phase: the ast layer exited {rc}")
+    found["ast"] = []
+    out["findings"] = {layer: len(fs) for layer, fs in found.items()}
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def torch_device_type(device) -> str:
     import torch
 
@@ -7281,6 +7350,11 @@ def main() -> int:
         for key, t in train["main"]["kernel_times"].items()}
     service_profiles(tenant_later, tenant_runs)
     phase_done("service profiles")
+    analysis = analysis_phase(device, main_stream, B,
+                              dataclasses.replace(main_spec, backend="bank"))
+    log(f"analysis phase ({card}): {analysis['seconds']:.1f} s, findings "
+        f"{json.dumps(analysis['findings'])}, {json.dumps(analysis)}")
+    phase_done("analysis")
 
     replaces = {fused: 144, "sketch_residual_kernel_banked": 278,
                 split: 220, "sketch_update_kernel_serial": 396}
@@ -7352,7 +7426,7 @@ def main() -> int:
         tenant=tenant_runs, tenant_kernel_times=tenant_kernel_times,
         family=family_runs, faults=fault_runs, mesh=mesh,
         profile=prof, attention=attention, model=model, train=train,
-        dryrun=dryrun, kernels=kernels), indent=1))
+        dryrun=dryrun, analysis=analysis, kernels=kernels), indent=1))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

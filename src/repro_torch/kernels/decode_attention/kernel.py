@@ -128,7 +128,10 @@ def source_layout(B: int, C: int, KV: int, G: int, hd: int) -> DecodeLayout:
     fn.restype = None
     out = (ctypes.c_int * 16)()
     fn(B, C, KV, G, hd, ctypes.addressof(out))
-    return DecodeLayout(*out[:14], (out[15] << 32) | (out[14] & 0xffffffff))
+    # the scratch size comes back as two C ints: high word, then the low
+    # word read as unsigned
+    return DecodeLayout(*out[:14],
+                        (out[15] << 32) | ctypes.c_uint32(out[14]).value)
 
 
 _entry = (None, None)   # (source, its bound entry point): bound once

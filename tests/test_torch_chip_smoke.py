@@ -973,3 +973,20 @@ def test_dryrun_phase_rehearsal():
     assert out["predicted_peak_gb"] == (mem["argument_size_in_bytes"]
                                         + mem["temp_size_in_bytes"]) / 1e9
     assert out["roofline"]["train"]["chips"] == 1
+
+
+def test_analysis_phase_rehearsal():
+    """The analysis phase on the CPU at a small main cell: the recompile
+    and donation layers on the k = 64 grid (no graph, no donation on the
+    CPU), the main cell's two sessions in one cell, the ast layer with
+    ``--ci``; no finding."""
+    cs = _chip_smoke()
+    stream = bounded_stream(4096, 0.5, universe=1 << 16, seed=1)
+    spec = SketchSpec(kind="frequency", k=512, shards=4, bits=16)
+    out = cs.analysis_phase(torch.device("cpu"), stream, 256, spec)
+    assert out["findings"] == {"recompile": 0, "donation": 0,
+                               "main cell": 0, "ast": 0}
+    assert (out["main cell"]["cells"], out["main cell"]["graphs"]) == (1, 0)
+    assert out["recompile"]["cells"] == 7 and out["recompile"]["grid"] == 9
+    assert out["donation"]["donate=True"] is False
+    assert out["launches"] == {}

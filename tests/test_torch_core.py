@@ -126,6 +126,32 @@ def test_merge(kind):
     _same(got, ref, range(UNIVERSE))
 
 
+def test_lemma9_counterexample_equals_the_reference():
+    """An interleaved stream on which SpaceSaving± drives an error to -1:
+    the reference's ``test_lemma9_error_sum_and_nonneg`` fails when its
+    hypothesis strategy draws such a stream (seed 394961921, 712
+    inserts, alpha 4, universe 256, interleaved). The error sum (15)
+    still covers the unmonitored mass (12); the sign bound does not hold.
+    The port's SpaceSavingPM equals the reference's entry for entry, the
+    -1 included."""
+    from repro.core.streams import bounded_stream as ref_stream
+    from repro.core.streams import exact_stats
+
+    stream = ref_stream("zipf", 712, delete_ratio=1.0 - 1.0 / 4.0,
+                        universe=256, skew=1.1, order="interleaved",
+                        seed=394961921)
+    k = jss.capacity_for(0.1, 4.0, "ss_pm")
+    got = tss.SpaceSavingPM(k).process(stream)
+    ref = jss.SpaceSavingPM(k).process(stream)
+    _same(got, ref, range(256))
+    errors = [e for _, _, e in got.entries()]
+    assert min(errors) == -1 and sum(errors) == 15
+    stats = exact_stats(stream)
+    monitored = {it for it, _, _ in got.entries()}
+    assert sum(c for it, c in stats.frequencies.items()
+               if it not in monitored) == 12
+
+
 @pytest.mark.parametrize("eps,alpha,variant", [
     (1e-3, 2.0, "ss_pm"), (1e-3, 2.0, "lazy"), (0.3, 1.5, "ss"),
     (1e-5, 2.0, "sspm")])
