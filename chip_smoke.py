@@ -297,8 +297,8 @@ result):
      gave them, beside their plain versions, one SDPA call and their
      bounds;
    - the serving invariant of ``tests/test_serve.py:24`` at the same
-     width (a 1,024-token prompt, B = 2, context 4,096): prefill (kernel
-     5) then one step gives the next token of 1,024 decode steps
+     width (a 256-token prompt, B = 2, context 4,096): prefill (kernel
+     5) then one step gives the next token of 256 decode steps
      (kernel 6), the logits held row by row as the twin's (the
      reference's rtol = atol = 0.05, set at smoke width, is exceeded
      at this width by the plain versions too: the same run through
@@ -378,6 +378,41 @@ result):
     sessions on the main stream's first block: one cell, one graph);
     the ``ast`` layer with ``--ci``. Its seconds and finding counts are
     logged with the card.
+
+11. the paper phase (``paper_phase``): the paper's streams (section 5.2,
+    ``repro_torch.core.streams.bounded_stream``, bit for bit the
+    reference's) through ``StreamSession.ingest`` (captured) and
+    ``api.update`` (eager) in blocks of 65,536, SS± and Lazy SS±:
+    (a) the paper's |F|_1 = 1e5 setup over 2^16 ids, 2,000 SS± counters
+    (``eps=0.002, alpha=2``), ``backend="bank"`` (kernel 1): Zipf(1.0),
+    Binomial, Uniform and CAIDA-like insertions x random and targeted
+    deletions x inserts_first and interleaved at ratio 0.5; Zipf at
+    ratio 0.9375 (alpha = 16, ``eps=0.016``) with both patterns,
+    inserts_first; ``backend="serial"`` (kernel 4) on the two Zipf
+    inserts_first streams at ratio 0.5; each bank equal to its plain
+    twin, the same session on the CPU (a pool of processes, beside the
+    card's runs); (b) the main spec at its full size on the adversarial
+    stream (Zipf(1.0) over 2^24 ids, targeted deletions, inserts_first,
+    ratio 0.5, 2^22 insertions: 96 blocks, the last 32 deletions only)
+    on ``"bank"``, ``"kernel"`` (kernel 1) and ``"block"`` (kernel 3),
+    each equal to the plain version's run on the card, the bank run's
+    equal to the kernel run's. Fatal for every run: one launch a block of
+    its kernel and none of another, the eager bank equal to the
+    session's, every row within Thm 4 / Thm 2 (``check_truth``), the
+    largest |f - f_hat| over the items with a nonzero true or estimated
+    frequency at most eps · (I - D). Logged: ms a block captured and
+    eager, recall and precision of ``heavy_hitters`` at phi = eps and
+    10 eps, the MSE over the universe (the paper's Figs 4-5).
+
+12. the examples phase (``examples_phase``): ``examples_torch/``'s four
+    examples, each in a child process on the card (``--example-child``,
+    which also counts its kernel launches), all started together:
+    quickstart, quantile_monitor at ``--shards 0`` and ``--shards 4``,
+    serve_h2o at their defaults, train_lm for 40 steps (two logged
+    records, so its loss check runs) with its checkpoints under
+    ``build/``; fatal: an exit code other than 0 (each example's own
+    asserts), quickstart's printed numbers other than the reference
+    example's (``QUICKSTART_PRINTS``). Each run's seconds are logged.
 
 The line before the last two is ``{"kernels": [...]}`` (the six ported
 kernels and the port's own unbiased kernel, which replaces the
@@ -795,7 +830,7 @@ def case_block(R, K, variant, state, block, device, seed, B=65536):
     weight row)."""
     import torch
     from repro_torch.core.quantiles import dyadic_layer_capacities
-    from repro_torch.core.streams import bounded_stream
+    from repro_torch.core.streams import zipf_interleaved_stream
     from repro_torch.kernels.sketch_update.ops import block_update_with
     from repro_torch.kernels.sketch_update.ref import fused_update_ref
     from repro_torch.sketch import bank as bk
@@ -803,8 +838,8 @@ def case_block(R, K, variant, state, block, device, seed, B=65536):
 
     n_warm = 0 if state == "cold" else 2
     bits = R if block == "dyadic" else 20
-    stream = bounded_stream(math.ceil((n_warm + 1) * B / 1.5) + 1, 0.5,
-                            universe=1 << bits, seed=seed)
+    stream = zipf_interleaved_stream(math.ceil((n_warm + 1) * B / 1.5) + 1,
+                                     0.5, universe=1 << bits, seed=seed)
     if block == "dyadic":
         router = bk.DyadicLevelRouter(R)
         bank = bk.init(dyadic_layer_capacities(R, total_counters=R * K),
@@ -1035,11 +1070,11 @@ def check_all_cases(device) -> dict:
 def make_stream(n_blocks, block, seed, bits=24):
     """A Zipf(1.0) bounded-deletion stream over 2^bits ids, delete ratio
     0.5, sized to fill ``n_blocks`` blocks (the last one partly)."""
-    from repro_torch.core.streams import bounded_stream
+    from repro_torch.core.streams import zipf_interleaved_stream
 
     n_insert = (n_blocks * block) * 2 // 3
-    return bounded_stream(n_insert, 0.5, universe=1 << bits, skew=1.0,
-                          seed=seed)
+    return zipf_interleaved_stream(n_insert, 0.5, universe=1 << bits, skew=1.0,
+                                   seed=seed)
 
 
 def padded_blocks(stream, block):
@@ -1489,7 +1524,7 @@ def bank_phase(specs, streams, twins, block, device):
     import functools
 
     import numpy as np
-    from repro_torch.core.streams import bounded_stream
+    from repro_torch.core.streams import zipf_interleaved_stream
     from repro_torch.kernels.sketch_update import kernel, ref
     from repro_torch.sketch.api import SketchSpec
 
@@ -1539,8 +1574,8 @@ def bank_phase(specs, streams, twins, block, device):
     # the quantile serial path against the quantile bank path
     q = SketchSpec(kind="quantile", bits=12, eps=1e-3, alpha=2.0,
                    backend="serial")
-    stream = bounded_stream(SERIAL_QUANTILE_BLOCKS * block * 2 // 3, 0.5,
-                            universe=1 << 12, skew=1.0, seed=9)
+    stream = zipf_interleaved_stream(SERIAL_QUANTILE_BLOCKS * block * 2 // 3,
+                                     0.5, universe=1 << 12, skew=1.0, seed=9)
     runs["serial quantile"], want = api_run(
         "serial quantile bits=12", q, stream, block, device, serial,
         q.bits)
@@ -2972,8 +3007,10 @@ def attention_phase(device, seed=6) -> tuple:
 MODEL_MAIN = dict(arch="gemma3_27b", batch=2, prompt=8192, new_tokens=32,
                   context=131_072, decay_period=16, seed=23, heavy=16)
 # the reference's serving invariant (tests/test_serve.py:24) at the same
-# width: a 1,024-token prompt, context 4,096 (dense caches)
-MODEL_STEPWISE = dict(batch=2, prompt=1024, context=4096, seed=24)
+# width: a 256-token prompt, context 4,096 (dense caches); the prompt was
+# 1,024 tokens (42 s of decode steps) until the paper and examples phases
+# came in, and is cut to keep chip_smoke.py inside its time limit
+MODEL_STEPWISE = dict(batch=2, prompt=256, context=4096, seed=24)
 # the other nine configs, one period each at full width: prompt tokens
 # (a multiple of the SSD chunk of 256 for the SSM families; LLaVA's 320
 # text tokens follow its 2,880 vision tokens, 3,200 <= its window) and
@@ -5568,7 +5605,7 @@ def unbiased_cases(device) -> int:
     (after two blocks). Returns the worst error (0 or fatal)."""
     import numpy as np
     import torch
-    from repro_torch.core.streams import bounded_stream
+    from repro_torch.core.streams import zipf_interleaved_stream
     from repro_torch.kernels.sketch_update import kernel, ref
     from repro_torch.sketch import bank as bk
     from repro_torch.sketch import family as fam
@@ -5581,8 +5618,8 @@ def unbiased_cases(device) -> int:
     for i, (R, Ki, Kd, warm) in enumerate(cases):
         B = 4096
         router = bk.HashShardRouter(R, 24)
-        s = bounded_stream((warm + 1) * B, 0.5, universe=1 << 24, skew=1.0,
-                           seed=500 + i)
+        s = zipf_interleaved_stream((warm + 1) * B, 0.5, universe=1 << 24,
+                                    skew=1.0, seed=500 + i)
         if i == len(cases) - 1:   # a heavy hitter through most of a block
             s[::3, 0] = 4242
         ins, dels = bk.init(Ki, R, device=device), bk.init(Kd, R, device=device)
@@ -7043,6 +7080,370 @@ def analysis_phase(device, stream, block, spec) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The paper's streams (section 5.2) through the main path
+# ---------------------------------------------------------------------------
+
+# (a) the paper's |F|_1 = 1e5 synthetic setup (benchmarks/common.py:3-6):
+# 100,000 insertions over 2^16 ids, 2,000 SS± counters (the top of Fig 4's
+# budgets: eps = 0.002 at alpha = 2, eps = 0.016 at alpha = 16); (b) the
+# main spec at its full size on the adversarial stream: Zipf(1.0) over 2^24
+# ids, targeted deletions, inserts_first, 2^22 insertions = 96 blocks of
+# 65,536, the last 32 deletions only
+PAPER = dict(n_insert=100_000, bits=16, eps=0.002, eps_alpha16=0.016,
+             seed=0)
+PAPER_MAIN = dict(n_insert=1 << 22, bits=24, eps=1e-5, shards=128, seed=0)
+PAPER_DISTS = ("zipf", "binomial", "uniform", "caida")
+PAPER_PATTERNS = ("random", "targeted")
+PAPER_ORDERS = ("inserts_first", "interleaved")
+PAPER_VARIANTS = ("sspm", "lazy")
+
+
+def paper_cases(c=PAPER) -> list:
+    """The paper-scale grid, each case a dict of its label, the arguments
+    of ``bounded_stream`` (``stream``) and of ``SketchSpec`` (``spec``):
+    every distribution, deletion pattern and order at ratio 0.5; Zipf at
+    ratio 0.9375 (alpha = 16) with both patterns, inserts_first; the
+    serial backend (kernel 4) on the two Zipf inserts_first streams at
+    ratio 0.5. Each for SS± and Lazy SS±."""
+    grid = [(d, p, o, 0.5, 2.0, c["eps"], "bank") for d in PAPER_DISTS
+            for p in PAPER_PATTERNS for o in PAPER_ORDERS]
+    grid += [("zipf", p, "inserts_first", 0.9375, 16.0, c["eps_alpha16"],
+              "bank") for p in PAPER_PATTERNS]
+    grid += [("zipf", p, "inserts_first", 0.5, 2.0, c["eps"], "serial")
+             for p in PAPER_PATTERNS]
+    return [dict(label=f"paper {d} {p} {o} ratio={r} {v} {backend}",
+                 stream=dict(distribution=d, n_insert=c["n_insert"],
+                             delete_ratio=r, universe=1 << c["bits"],
+                             delete_pattern=p, order=o, seed=c["seed"]),
+                 spec=dict(kind="frequency", eps=eps, alpha=a, variant=v,
+                           bits=c["bits"], backend=backend))
+            for d, p, o, r, a, eps, backend in grid for v in PAPER_VARIANTS]
+
+
+def paper_twin(case) -> tuple:
+    """A case's plain twin: its session on the CPU (the plain PyTorch
+    versions of the kernels), as numpy (ids, counts, errors) of the bank.
+    Runs in a worker process of ``paper_phase``'s pool."""
+    import torch
+    from repro_torch.core.streams import bounded_stream
+    from repro_torch.sketch.api import SketchSpec
+    from repro_torch.sketch.session import StreamSession
+
+    torch.set_num_threads(1)
+    stream = bounded_stream(**case["stream"])
+    sess = StreamSession(SketchSpec(**case["spec"]), block=case["block"],
+                         device="cpu")
+    sess.ingest(stream[:, 0], stream[:, 1])
+    return tuple(t.numpy() for t in _bank_of(sess.state))
+
+
+def paper_truth(label, spec, bank, stream, device, factor,
+                stats=None) -> dict:
+    """The gates of a paper run's bank: every row within Thm 4 (SS±) or
+    Thm 2 (Lazy) (``check_truth``); the largest |f - f_hat| over the items
+    with a nonzero true or estimated frequency at most eps · (I - D).
+    Then, not gated: recall and precision of the items whose estimate
+    reaches phi · (I - D) against ``heavy_hitters(stats, phi)`` at phi =
+    eps and 10 eps (None where there is no such item), and the MSE over
+    the universe (the paper's Figs 4-5). ``stats``: the stream's
+    ``exact_stats``, where a caller holds them already."""
+    import numpy as np
+    from repro_torch.core.streams import exact_stats, heavy_hitters
+
+    ratio, n_hot = check_truth(spec, bank, stream, device, factor)
+    U = 1 << spec.bits
+    freq = np.bincount(stream[:, 0], weights=stream[:, 1],
+                       minlength=U).astype(np.int64)
+    ids = bank.ids.reshape(-1).cpu().numpy()
+    counts = bank.counts.reshape(-1).cpu().numpy().astype(np.int64)
+    est = np.zeros(U, np.int64)
+    est[ids[ids >= 0]] = counts[ids >= 0]
+    stats = stats or exact_stats(stream)
+    mass = stats.residual_mass
+    nonzero = (freq != 0) | (est != 0)
+    err = int(np.abs(freq - est)[nonzero].max(initial=0))
+    if err > spec.eps * mass:
+        raise SystemExit(f"{label}: |f - f_hat| reaches {err} > eps * (I - "
+                         f"D) = {spec.eps * mass}")
+    out = dict(worst_err_over_bound=ratio, items_above_bound=n_hot,
+               max_abs_err=err, eps_mass=spec.eps * mass,
+               mse=float(np.mean((est - freq).astype(np.float64) ** 2)))
+    for name, phi in (("eps", spec.eps), ("10eps", 10 * spec.eps)):
+        truth = set(heavy_hitters(stats, phi).tolist())
+        reported = set(np.flatnonzero(est >= phi * mass).tolist())
+        hit = len(truth & reported)
+        out[f"heavy_phi={name}"] = len(truth)
+        out[f"recall_phi={name}"] = hit / len(truth) if truth else None
+        out[f"precision_phi={name}"] = (hit / len(reported) if reported
+                                        else None)
+    return out
+
+
+def paper_run(label, spec, stream, block, device, kernel, layout, twin,
+              factor, stats=None) -> tuple:
+    """One paper run: ``StreamSession.ingest`` of the stream (captured on
+    the card) and ``api.update`` block by block (eager), each launching
+    ``kernel`` once a block on ``layout`` and no other kernel; both banks
+    equal, and equal to ``twin()`` (the plain version's bank); then
+    ``paper_truth``. Returns the record and the bank."""
+    import torch
+    from repro_torch.sketch import api
+    from repro_torch.sketch.session import StreamSession
+
+    items, weights = padded_blocks(stream, block)
+    reset_counts()
+    sess = StreamSession(spec, block=block, device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sess.ingest(stream[:, 0], stream[:, 1])
+    torch.cuda.synchronize()
+    captured = time.perf_counter() - t0
+    state = api.make(spec, device)
+    t0 = time.perf_counter()
+    for it, w in zip(items, weights):
+        state = api.update(spec, state, it, w)
+    torch.cuda.synchronize()
+    eager = time.perf_counter() - t0
+    launches = check_launches(label, read_counts(), kernel, 2 * len(items),
+                              layout)
+    bank = _bank_of(sess.state)
+    if not _same(_bank_of(state), bank):
+        raise SystemExit(f"{label}: the eager bank differs from the "
+                         f"session's")
+    if not _same(bank, [torch.as_tensor(t, device=bank.ids.device)
+                        for t in twin()]):
+        raise SystemExit(f"{label}: the bank differs from its plain twin's")
+    out = dict(label=label, kernel=kernel, layout=layout, blocks=len(items),
+               launches=launches, events=len(stream),
+               rows=bank.ids.shape[0], k_per_row=bank.ids.shape[1],
+               ms_per_block=captured * 1e3 / len(items),
+               eager_ms_per_block=eager * 1e3 / len(items),
+               **paper_truth(label, spec, bank, stream, device, factor,
+                             stats))
+    log(f"{label}: {json.dumps(out)}")
+    return out, bank
+
+
+def paper_phase(device, c=PAPER, main=PAPER_MAIN, block=65536,
+                workers=None) -> dict:
+    """The paper's streams (``bounded_stream``, bit for bit the
+    reference's) through ``StreamSession.ingest`` and ``api.update``:
+
+    (a) ``paper_cases``: each run on ``backend="bank"`` (kernel 1 on the
+        partition layout) or ``"serial"`` (kernel 4), equal to its plain
+        twin, the session on the CPU (``paper_twin``, in a pool of
+        ``workers`` spawned processes, by default one fewer than the
+        host's cores, beside the card's runs; 0: in this process);
+    (b) the main spec (``SketchSpec(eps=1e-5, alpha=2, shards=128,
+        bits=24)``, 400,000 counters, at ``PAPER_MAIN``; ``main`` may
+        shrink it) on the adversarial stream (Zipf(1.0)
+        over 2^bits ids, targeted deletions, inserts_first, ratio 0.5,
+        ``main["n_insert"]`` insertions) on ``backend="bank"``,
+        ``"kernel"`` and ``"block"`` (kernel 3), each equal to the plain
+        version's run on the card; the bank run's bank equal to the
+        kernel run's.
+
+    Every run's rows hold Thm 4 / Thm 2 and its largest error eps · (I -
+    D) (``paper_truth``). Returns the runs and the seconds."""
+    import dataclasses
+    import os
+
+    from repro_torch.core.streams import bounded_stream, exact_stats
+    from repro_torch.kernels.sketch_update import kernel, ref
+    from repro_torch.sketch.api import SketchSpec
+
+    t0 = time.perf_counter()
+    on_card = torch_device_type(device) == "cuda"
+    if workers is None:
+        workers = max(1, (os.cpu_count() or 2) - 1) if on_card else 0
+    cases = [dict(case, block=block) for case in paper_cases(c)]
+    main_args = dict(distribution="zipf", n_insert=main["n_insert"],
+                     delete_ratio=0.5, universe=1 << main["bits"],
+                     delete_pattern="targeted", order="inserts_first",
+                     seed=main["seed"])
+    runs = {}
+    pool = None
+    if workers:
+        import concurrent.futures
+        import multiprocessing
+
+        pool = concurrent.futures.ProcessPoolExecutor(
+            workers, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        if pool:
+            # the slowest twins first (the serial scans), then the main
+            # stream, all beside the card's runs
+            order = sorted(range(len(cases)), key=lambda i:
+                           cases[i]["spec"]["backend"] != "serial")
+            futures = {i: pool.submit(paper_twin, cases[i]) for i in order}
+            main_stream = pool.submit(bounded_stream, **main_args)
+        for i, case in enumerate(cases):
+            spec = SketchSpec(**case["spec"])
+            if spec.backend == "serial":
+                name, layout = "sketch_update_kernel_serial", None
+            else:
+                name = FUSED
+                layout = kernel.fused_layout(-(-spec.capacity // 128) * 128)
+            twin = (futures[i].result if pool else
+                    lambda case=case: paper_twin(case))
+            runs[case["label"]], _ = paper_run(
+                case["label"], spec, bounded_stream(**case["stream"]),
+                block, device, name, layout, twin,
+                2.0 if spec.variant == "sspm" else 1.0)
+        t_a = time.perf_counter() - t0
+        stream = (main_stream.result() if pool
+                  else bounded_stream(**main_args))
+    finally:
+        if pool:
+            pool.shutdown(cancel_futures=True)
+    stats = exact_stats(stream)
+    main_spec = SketchSpec(kind="frequency", eps=main["eps"], alpha=2.0,
+                           variant="sspm", shards=main["shards"],
+                           bits=main["bits"])
+    K = -(-main_spec.capacity // main_spec.shards // 128) * 128
+    banks = {}
+    for backend, name, layout, path, plain in (
+            ("bank", FUSED, kernel.fused_layout(K), partition_path,
+             ref.fused_update_ref),
+            ("kernel", FUSED, kernel.fused_layout(K), fused_path,
+             ref.fused_update_ref),
+            ("block", "sketch_residual_kernel",
+             kernel.residual_layout(K // 128), split_path,
+             ref.residual_phase)):
+        spec = dataclasses.replace(main_spec, backend=backend)
+        twin, _, plain_secs = run_plain(spec, stream, block, device, path,
+                                        plain)
+        label = f"paper main adversarial {backend}"
+        runs[label], banks[backend] = paper_run(
+            label, spec, stream, block, device, name, layout,
+            lambda twin=twin: twin, 2.0, stats)
+        runs[label]["plain_ms_per_block"] = (plain_secs * 1e3
+                                             / runs[label]["blocks"])
+    if not _same(banks["bank"], banks["kernel"]):
+        raise SystemExit("paper main adversarial: the bank backend's bank "
+                         "differs from the kernel backend's")
+    seconds = dict(grid=t_a,
+                   main=time.perf_counter() - t0 - t_a,
+                   total=time.perf_counter() - t0)
+    log(f"paper phase: {json.dumps(seconds)} s ({len(cases)} paper-scale "
+        f"runs, twins in {workers} processes)")
+    return dict(runs=runs, seconds=seconds,
+                deletion_only_blocks=int((len(stream) - main["n_insert"])
+                                         // block))
+
+
+# ---------------------------------------------------------------------------
+# The four examples on the port
+# ---------------------------------------------------------------------------
+
+# examples_torch/quickstart.py's printed numbers: the reference example's
+# (examples/quickstart.py on the CPU), by the start of their line; the
+# sketches are bit for bit the reference's on any device
+QUICKSTART_PRINTS = {
+    "true top-5:": [0, 1, 2, 3, 4],
+    "estimated :": [0, 2190, 1, 1127, 2, 701, 3, 552, 4, 403],
+    "errors": [0, 0, 0, 0, 0, 250],
+    "torch sketch top-5:": [0, 2307, 1, 1178, 2, 743, 3, 576, 4, 426],
+    "sharded top-3 :": [0, 1, 2],
+    "merged top-3:": [0, 1, 2],
+    "median estimate:": [179, 58559],
+}
+TRAIN_LM_STEPS = 40   # two logged records (log_every = 20): the loss check
+
+
+def printed_numbers(stdout: str) -> dict:
+    """The whole numbers of each line of ``QUICKSTART_PRINTS``' starts,
+    after its start (``p99`` is a word, not a number)."""
+    import re
+
+    out = {}
+    for line in stdout.splitlines():
+        for start in QUICKSTART_PRINTS:
+            if line.startswith(start):
+                out[start] = [int(x) for x in
+                              re.findall(r"\b\d+\b", line[len(start):])]
+    return out
+
+
+def example_commands(ckpt_dir) -> list:
+    """(label, argv) of the examples phase: each example of
+    ``examples_torch/`` run by ``chip_smoke.py --example-child``, at its
+    defaults (on the card), quantile_monitor at --shards 0 and 4,
+    train_lm for TRAIN_LM_STEPS steps with its checkpoints in
+    ``ckpt_dir``."""
+    ex = ROOT / "examples_torch"
+    runs = [("quickstart", ex / "quickstart.py", ()),
+            ("quantile_monitor --shards 0", ex / "quantile_monitor.py",
+             ("--shards", "0")),
+            ("quantile_monitor --shards 4", ex / "quantile_monitor.py",
+             ("--shards", "4")),
+            ("serve_h2o", ex / "serve_h2o.py", ()),
+            (f"train_lm --steps {TRAIN_LM_STEPS}", ex / "train_lm.py",
+             ("--steps", str(TRAIN_LM_STEPS), "--ckpt-dir", str(ckpt_dir)))]
+    return [(label, [sys.executable, str(ROOT / "chip_smoke.py"),
+                     "--example-child", str(path), *args])
+            for label, path, args in runs]
+
+
+def example_child(path: str, args) -> int:
+    """Run one example as its ``__main__`` with ``args``; print the kernel
+    launches it made as the last line."""
+    import runpy
+
+    reset_counts()
+    sys.argv = [path, *args]
+    runpy.run_path(path, run_name="__main__")
+    print(json.dumps({"launches": {key: n for key, n in
+                                   read_counts().items() if n}}))
+    return 0
+
+
+def examples_phase(timeout=600) -> dict:
+    """The four examples of ``examples_torch/`` in child processes on the
+    card (``example_commands``), all started together: each must exit 0
+    (so its own asserts hold), and quickstart's printed numbers must equal
+    ``QUICKSTART_PRINTS``. Returns each run's seconds (from its start to
+    its exit, beside the others) and launches."""
+    import concurrent.futures
+    import shutil
+    import tempfile
+
+    def run(argv):
+        t0 = time.perf_counter()
+        p = subprocess.run(argv, capture_output=True, text=True,
+                           timeout=timeout, cwd=ROOT)
+        return p, time.perf_counter() - t0
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    ckpt = tempfile.mkdtemp(prefix="train_lm_", dir=ROOT / "build")
+    out = {}
+    try:
+        cmds = example_commands(ckpt)
+        with concurrent.futures.ThreadPoolExecutor(len(cmds)) as ex:
+            done = list(ex.map(run, [argv for _, argv in cmds]))
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    for (label, _), (p, secs) in zip(cmds, done):
+        if p.returncode != 0:
+            raise SystemExit(f"example {label}: exit {p.returncode}\n"
+                             f"{p.stdout[-2000:]}\n{p.stderr[-4000:]}")
+        lines = p.stdout.strip().splitlines()
+        out[label] = dict(seconds=secs,
+                          launches=json.loads(lines[-1])["launches"])
+        log(f"example {label}: {secs:.1f} s, launches "
+            f"{json.dumps(out[label]['launches'])}; its last lines: "
+            + " | ".join(lines[-4:-1]))
+        if label == "quickstart":
+            got = printed_numbers(p.stdout)
+            if got != QUICKSTART_PRINTS or not any(
+                    line.startswith("errors") and line.endswith(": True")
+                    for line in lines):
+                raise SystemExit(f"example quickstart printed {got}, not "
+                                 f"the reference's {QUICKSTART_PRINTS}")
+    return out
+
+
 def torch_device_type(device) -> str:
     import torch
 
@@ -7355,6 +7756,14 @@ def main() -> int:
     log(f"analysis phase ({card}): {analysis['seconds']:.1f} s, findings "
         f"{json.dumps(analysis['findings'])}, {json.dumps(analysis)}")
     phase_done("analysis")
+    paper = paper_phase(device)
+    runs.update(paper["runs"])
+    log(f"paper phase ({card}): {json.dumps(paper['seconds'])}")
+    phase_done("paper")
+    examples = examples_phase()
+    log(f"examples phase ({card}): " + json.dumps(
+        {label: round(r["seconds"], 1) for label, r in examples.items()}))
+    phase_done("examples")
 
     replaces = {fused: 144, "sketch_residual_kernel_banked": 278,
                 split: 220, "sketch_update_kernel_serial": 396}
@@ -7413,6 +7822,12 @@ def main() -> int:
                              if q["kernel"] == entry["name"]
                              and q["layout"] == r["layout"])
             for r in runs.values() if r["kernel"] == entry["name"]}
+    # the examples' launches, each example in a process of its own
+    for entry in kernels:
+        made = {label: sum(n for key, n in r["launches"].items()
+                           if key.split("[")[0] == entry["name"])
+                for label, r in examples.items()}
+        entry["examples_launches"] = {k: n for k, n in made.items() if n}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
@@ -7426,7 +7841,8 @@ def main() -> int:
         tenant=tenant_runs, tenant_kernel_times=tenant_kernel_times,
         family=family_runs, faults=fault_runs, mesh=mesh,
         profile=prof, attention=attention, model=model, train=train,
-        dryrun=dryrun, analysis=analysis, kernels=kernels), indent=1))
+        dryrun=dryrun, analysis=analysis, paper=paper, examples=examples,
+        kernels=kernels), indent=1))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -7440,4 +7856,6 @@ if __name__ == "__main__":
         sys.exit(mesh_child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     if sys.argv[1:2] == ["--dryrun-child"]:
         sys.exit(dryrun_child(sys.argv[2]))
+    if sys.argv[1:2] == ["--example-child"]:
+        sys.exit(example_child(sys.argv[2], sys.argv[3:]))
     sys.exit(main())

@@ -16,7 +16,7 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
-from repro_torch.core.streams import bounded_stream
+from repro_torch.core.streams import zipf_interleaved_stream
 from repro_torch.kernels.sketch_update.ref import fused_update_ref
 from repro_torch.sketch.api import SketchSpec
 
@@ -63,7 +63,7 @@ def test_run_plain_captures_the_operands_before_the_update(monkeypatch,
     monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
     spec = SketchSpec(kind="frequency", eps=0.05, alpha=2.0, variant=variant,
                       shards=4, bits=12, backend="kernel")
-    stream = bounded_stream(600, 0.5, universe=1 << 12, seed=3)
+    stream = zipf_interleaved_stream(600, 0.5, universe=1 << 12, seed=3)
     cpu = torch.device("cpu")
     want_bank, (want_st, want_args), _ = cs.run_plain(
         spec, stream, 256, cpu, cs.fused_path, fused_update_ref, at)
@@ -106,7 +106,7 @@ def test_run_path_rehearsal(monkeypatch):
     session; its bank is the plain run's."""
     cs = _chip_smoke()
     checked = _on_the_cpu(monkeypatch, cs)
-    stream = bounded_stream(1500, 0.5, universe=1 << 12, seed=4)
+    stream = zipf_interleaved_stream(1500, 0.5, universe=1 << 12, seed=4)
     out, _, sess = cs.run_path("main", _small_main(), stream, BLOCK,
                                torch.device("cpu"), 2.0,
                                "sketch_update_kernel_fused", cs.fused_path,
@@ -127,7 +127,7 @@ def test_feeder_phase_rehearsal(monkeypatch):
     cs = _chip_smoke()
     checked = _on_the_cpu(monkeypatch, cs)
     spec, cpu = _small_main(), torch.device("cpu")
-    stream = bounded_stream(1500, 0.5, universe=1 << 12, seed=5)
+    stream = zipf_interleaved_stream(1500, 0.5, universe=1 << 12, seed=5)
     main = StreamSession(spec, block=BLOCK, device=cpu)
     main.ingest(stream[:, 0], stream[:, 1])
     runs = cs.feeder_phase(spec, stream, BLOCK, cpu, main.state.bank)
@@ -150,8 +150,8 @@ def test_merge_phase_rehearsal(monkeypatch):
     cs = _chip_smoke()
     _on_the_cpu(monkeypatch, cs)
     spec, cpu = _small_main(), torch.device("cpu")
-    main_stream = bounded_stream(1500, 0.5, universe=1 << 12, seed=6)
-    other = bounded_stream(600, 0.5, universe=1 << 12, seed=7)
+    main_stream = zipf_interleaved_stream(1500, 0.5, universe=1 << 12, seed=6)
+    other = zipf_interleaved_stream(600, 0.5, universe=1 << 12, seed=7)
     main = StreamSession(spec, block=BLOCK, device=cpu)
     main.ingest(main_stream[:, 0], main_stream[:, 1])
     out = cs.merge_phase(spec, main, other, BLOCK, cpu, main_stream)
@@ -266,7 +266,7 @@ def test_check_layers_uses_each_rows_capacity(variant):
     cs = _chip_smoke()
     specs = _small_quantile_specs()
     cpu = torch.device("cpu")
-    stream = bounded_stream(3000, 0.5, universe=1 << 10, seed=9)
+    stream = zipf_interleaved_stream(3000, 0.5, universe=1 << 10, seed=9)
     for name in ("sspm", "sharded"):
         spec = specs[name]
         state = api.make(spec, cpu)
@@ -313,8 +313,8 @@ def test_quantile_phase_rehearsal(monkeypatch):
     monkeypatch.setattr(cs, "QUANTILE_SHARDED_BLOCKS", 3)
 
     def stream(n, seed):
-        return bounded_stream(n * BLOCK * 2 // 3, 0.5, universe=1 << 10,
-                              skew=1.0, seed=seed)
+        return zipf_interleaved_stream(n * BLOCK * 2 // 3, 0.5,
+                                       universe=1 << 10, skew=1.0, seed=seed)
 
     streams = dict(main=stream(7, 1), lazy=stream(5, 2))
     streams["sharded"] = streams["main"]
@@ -363,7 +363,8 @@ def test_bank_phase_rehearsal(monkeypatch):
                  a=dataclasses.replace(main, shards=None, backend="block"),
                  serial=dataclasses.replace(main, shards=None,
                                             backend="serial"))
-    streams = {name: bounded_stream(700, 0.5, universe=1 << 12, seed=seed)
+    streams = {name: zipf_interleaved_stream(700, 0.5, universe=1 << 12,
+                                             seed=seed)
                for seed, name in enumerate(("main", "lazy", "a", "serial"))}
     twins = {}
     for name in ("main", "lazy", "a"):
@@ -373,7 +374,7 @@ def test_bank_phase_rehearsal(monkeypatch):
     runs, last = cs.bank_phase(specs, streams, twins, BLOCK, cpu)
     n = len(cs.padded_blocks(streams["main"], BLOCK)[0])
     q = SketchSpec(kind="quantile", bits=12, eps=1e-3, alpha=2.0)
-    nq = len(cs.padded_blocks(bounded_stream(
+    nq = len(cs.padded_blocks(zipf_interleaved_stream(
         cs.SERIAL_QUANTILE_BLOCKS * BLOCK * 2 // 3, 0.5, universe=1 << 12,
         skew=1.0, seed=9), BLOCK)[0])
     assert [c[1:] for c in checked] == [
@@ -549,7 +550,7 @@ def test_double_truth_and_the_sampled_rows(monkeypatch):
     cpu = torch.device("cpu")
     spec = SketchSpec(eps=0.02, alpha=2.0, shards=4, bits=12,
                       variant="double")
-    stream = bounded_stream(1500, 0.5, universe=1 << 12, seed=8)
+    stream = zipf_interleaved_stream(1500, 0.5, universe=1 << 12, seed=8)
     sess = StreamSession(spec, block=BLOCK, device=cpu)
     sess.ingest(stream[:, 0], stream[:, 1])
     out = cs.check_double_truth("double", spec, sess.state, stream, cpu)
@@ -981,7 +982,7 @@ def test_analysis_phase_rehearsal():
     CPU), the main cell's two sessions in one cell, the ast layer with
     ``--ci``; no finding."""
     cs = _chip_smoke()
-    stream = bounded_stream(4096, 0.5, universe=1 << 16, seed=1)
+    stream = zipf_interleaved_stream(4096, 0.5, universe=1 << 16, seed=1)
     spec = SketchSpec(kind="frequency", k=512, shards=4, bits=16)
     out = cs.analysis_phase(torch.device("cpu"), stream, 256, spec)
     assert out["findings"] == {"recompile": 0, "donation": 0,
@@ -990,3 +991,139 @@ def test_analysis_phase_rehearsal():
     assert out["recompile"]["cells"] == 7 and out["recompile"]["grid"] == 9
     assert out["donation"]["donate=True"] is False
     assert out["launches"] == {}
+
+
+# -- the paper phase and the examples phase -------------------------------
+
+SMALL_PAPER = dict(n_insert=1000, bits=10, eps=0.02, eps_alpha16=0.16,
+                   seed=1)
+SMALL_PAPER_MAIN = dict(n_insert=1500, bits=12, eps=0.02, shards=4, seed=2)
+PAPER_BLOCK = 512
+
+
+def test_paper_cases_are_the_papers_grid():
+    """40 paper-scale runs: 4 distributions x 2 patterns x 2 orders at
+    ratio 0.5, Zipf at 0.9375 with both patterns, the serial backend on
+    both Zipf inserts_first streams, each for SS± and Lazy SS±; 2,000
+    SS± counters at alpha 2 and 16; the main run's 96 blocks, the last 32
+    deletions only."""
+    from repro_torch.core.streams import bounded_stream
+
+    cs = _chip_smoke()
+    cases = cs.paper_cases()
+    assert len(cases) == len({c["label"] for c in cases}) == 40
+    grid = {(c["stream"]["distribution"], c["stream"]["delete_pattern"],
+             c["stream"]["order"], c["stream"]["delete_ratio"],
+             c["spec"]["backend"], c["spec"]["variant"]) for c in cases}
+    assert {(d, p, o) for d, p, o, r, b, v in grid if r == 0.5
+            and b == "bank"} == {(d, p, o) for d in cs.PAPER_DISTS
+                                 for p in cs.PAPER_PATTERNS
+                                 for o in cs.PAPER_ORDERS}
+    assert {(d, p, o, b) for d, p, o, r, b, v in grid if r == 0.9375} == {
+        ("zipf", p, "inserts_first", "bank") for p in cs.PAPER_PATTERNS}
+    assert {(d, p, o, r) for d, p, o, r, b, v in grid if b == "serial"} == {
+        ("zipf", p, "inserts_first", 0.5) for p in cs.PAPER_PATTERNS}
+    assert {v for *_, v in grid} == {"sspm", "lazy"}
+    for c in cases:
+        spec = SketchSpec(**c["spec"])
+        assert spec.capacity == (2000 if spec.variant == "sspm" else 1000)
+        assert c["stream"]["n_insert"] == 100_000
+        assert c["stream"]["universe"] == 1 << 16 == 1 << spec.bits
+    m = cs.PAPER_MAIN
+    main = SketchSpec(kind="frequency", eps=m["eps"], alpha=2.0,
+                      shards=m["shards"], bits=m["bits"])
+    assert main.capacity == 400_000
+    n = m["n_insert"] * 3 // 2
+    assert (n % 65536, n // 65536, m["n_insert"] // 2 // 65536) == (0, 96, 32)
+    # a small stream of the grid is the reference's order: inserts first
+    s = bounded_stream("zipf", 500, 0.5, delete_pattern="targeted")
+    assert (s[:500, 1] == 1).all() and (s[500:, 1] == -1).all()
+
+
+def test_paper_phase_rehearsal(monkeypatch):
+    """The paper phase on the CPU at a small size: every run equal to its
+    plain twin and its eager twin, within Thm 4 / Thm 2 and eps·(I - D),
+    kernel 1 once a block on the bank runs (session and eager), kernel 4
+    on the serial runs, kernel 3 on the main spec's block run; the bank
+    run equal to the kernel run."""
+    cs = _chip_smoke()
+    checked = _on_the_cpu(monkeypatch, cs)
+    out = cs.paper_phase(torch.device("cpu"), c=SMALL_PAPER,
+                         main=SMALL_PAPER_MAIN, block=PAPER_BLOCK, workers=0)
+    runs = out["runs"]
+    assert len(runs) == 43 and out["deletion_only_blocks"] == 1
+    by_kernel = {}
+    for label, name, blocks, layout in checked:
+        by_kernel.setdefault(name, []).append(label)
+        assert blocks == 2 * runs[label]["blocks"]
+    assert len(by_kernel["sketch_update_kernel_serial"]) == 4
+    assert by_kernel["sketch_residual_kernel"] == [
+        "paper main adversarial block"]
+    assert len(by_kernel["sketch_update_kernel_fused"]) == 38
+    for r in runs.values():
+        assert r["max_abs_err"] <= r["eps_mass"]
+        assert r["worst_err_over_bound"] <= 1.0
+        assert {"mse", "recall_phi=eps", "precision_phi=10eps",
+                "eager_ms_per_block"} <= set(r)
+
+
+def test_paper_checks_reject_a_corrupted_state(monkeypatch):
+    """A bank whose counts are off fails the Thm 4 check; a bank that is
+    not its twin's fails the twin check."""
+    from repro_torch.core.streams import bounded_stream
+    from repro_torch.sketch.session import StreamSession
+
+    cs = _chip_smoke()
+    _on_the_cpu(monkeypatch, cs)
+    cpu = torch.device("cpu")
+    case = cs.paper_cases(SMALL_PAPER)[0]
+    spec = SketchSpec(**case["spec"])
+    stream = bounded_stream(**case["stream"])
+    sess = StreamSession(spec, block=PAPER_BLOCK, device=cpu)
+    sess.ingest(stream[:, 0], stream[:, 1])
+    bank = cs._bank_of(sess.state)
+    cs.paper_truth("ok", spec, bank, stream, cpu, 2.0)
+    top = int(torch.argmax(bank.counts))
+    counts = bank.counts.clone().reshape(-1)
+    counts[top] += 1000
+    bad = bank._replace(counts=counts.reshape(bank.counts.shape))
+    with pytest.raises(SystemExit, match="error .* > bound"):
+        cs.paper_truth("corrupted", spec, bad, stream, cpu, 2.0)
+    twin = [t.numpy() for t in bad]
+    with pytest.raises(SystemExit, match="plain twin"):
+        cs.paper_run("twin", spec, stream, PAPER_BLOCK, cpu,
+                     "sketch_update_kernel_fused", "staged", lambda: twin,
+                     2.0)
+
+
+def test_the_examples_phase_runs_the_four_files():
+    cs = _chip_smoke()
+    cmds = cs.example_commands("ckpt")
+    files = {pathlib.Path(argv[3]).name for _, argv in cmds}
+    assert files == {"quickstart.py", "quantile_monitor.py", "serve_h2o.py",
+                     "train_lm.py"}
+    assert all(argv[1:3] == [str(ROOT / "chip_smoke.py"), "--example-child"]
+               for _, argv in cmds)
+    args = {label: argv[4:] for label, argv in cmds}
+    assert args["quantile_monitor --shards 0"] == ["--shards", "0"]
+    assert args["quantile_monitor --shards 4"] == ["--shards", "4"]
+    assert args["quickstart"] == args["serve_h2o"] == []
+    train = next(a for label, a in args.items() if label.startswith("train"))
+    assert train == ["--steps", str(cs.TRAIN_LM_STEPS), "--ckpt-dir", "ckpt"]
+
+
+def test_the_kernels_line_lists_all_seven_kernels():
+    """The six ported kernels and the port's own unbiased kernel: the
+    counted wrappers, and the entries main builds of them."""
+    import inspect
+
+    cs = _chip_smoke()
+    assert set(cs.counted_kernels()) == {*cs.KERNELS, cs.UNBIASED, cs.FLASH,
+                                         cs.DECODE}
+    assert len(cs.counted_kernels()) == 7
+    main = inspect.getsource(cs.main)
+    assert "} for name in KERNELS]" in main
+    assert '"name": UNBIASED' in main
+    assert "kernels += attention_entries" in main
+    phase = inspect.getsource(cs.attention_phase)
+    assert "(FLASH, wgmma," in phase and "(DECODE, DECODE," in phase

@@ -3,8 +3,9 @@
 (``repro.core``), exactly.
 
 Every case is deterministic: the updates are seeded numpy arrays
-(``repro_torch.core.streams.bounded_stream``, a Zipf(1.1) bounded-deletion
-stream, interleaved), fed as they are to both packages. Held equal:
+(``repro_torch.core.streams.zipf_interleaved_stream``, a Zipf(1.1)
+bounded-deletion stream, interleaved), fed as they are to both packages.
+Held equal:
 
 - the §3.3 and §3.5 worked examples (Figures 1 and 2), at their stated
   entries too;
@@ -35,7 +36,7 @@ from repro_torch.core import baselines as tbase
 from repro_torch.core import heaps as theaps
 from repro_torch.core import quantiles as tq
 from repro_torch.core import spacesaving as tss
-from repro_torch.core.streams import bounded_stream
+from repro_torch.core.streams import zipf_interleaved_stream
 
 A, B, C = "A", "B", "C"
 PAPER_STREAM = [(A, 1), (A, 1), (A, 1), (C, 1), (A, -1), (B, 1), (A, 1),
@@ -47,7 +48,8 @@ QBITS = 10
 
 
 def _stream(seed, n=3000, ratio=0.5, universe=UNIVERSE):
-    return bounded_stream(n, ratio, universe=universe, skew=1.1, seed=seed)
+    return zipf_interleaved_stream(n, ratio, universe=universe, skew=1.1,
+                                   seed=seed)
 
 
 def _state(sk):
@@ -274,8 +276,8 @@ def test_csss(seed):
 # ---------------------------------------------------------------------------
 
 def _qstream(seed):
-    return bounded_stream(3000, 0.5, universe=1 << QBITS, skew=0.8,
-                          seed=seed)
+    return zipf_interleaved_stream(3000, 0.5, universe=1 << QBITS, skew=0.8,
+                                   seed=seed)
 
 
 def _values(stream):

@@ -17,7 +17,7 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
-from repro_torch.core.streams import bounded_stream
+from repro_torch.core.streams import zipf_interleaved_stream
 from repro_torch.kernels.sketch_update.kernel import (
     banked_layout, fused_layout, residual_layout, sketch_residual_kernel,
     sketch_residual_kernel_banked, sketch_update_kernel_fused,
@@ -45,7 +45,7 @@ def cuda():
 
 def _warm_bank(R, K, device, seed):
     """A bank after two blocks of a bounded-deletion stream."""
-    s = bounded_stream(4 * R * K, 0.5, universe=1 << 16, seed=seed)
+    s = zipf_interleaved_stream(4 * R * K, 0.5, universe=1 << 16, seed=seed)
     bank = bk.init(K, R, device=device)
     router = bk.HashShardRouter(R, 16)
     for part in np.array_split(s, 2):
@@ -71,7 +71,7 @@ def test_kernel_equals_plain_version(cuda, variant, R, K, state):
         live = bank.ids >= 0
         bank = bank._replace(counts=torch.where(
             live, sat_add(bank.counts, 2**31 - 20), bank.counts))
-    s = bounded_stream(2048, 0.5, universe=1 << 16, seed=seed + 1)
+    s = zipf_interleaved_stream(2048, 0.5, universe=1 << 16, seed=seed + 1)
     it = torch.as_tensor(s[:2048, 0], dtype=torch.int32, device=cuda)
     w = torch.as_tensor(s[:2048, 1], dtype=torch.int32, device=cuda)
     ri, rw = bk.HashShardRouter(R, 16).route_dense(it, w)
@@ -94,7 +94,7 @@ def _case(R, K, variant, state, device, n=2048):
         live = bank.ids >= 0
         bank = bank._replace(counts=torch.where(
             live, sat_add(bank.counts, 2**31 - 20), bank.counts))
-    s = bounded_stream(n, 0.5, universe=1 << 16, seed=seed + 1)
+    s = zipf_interleaved_stream(n, 0.5, universe=1 << 16, seed=seed + 1)
     it = torch.as_tensor(s[:n, 0], dtype=torch.int32, device=device)
     w = torch.as_tensor(s[:n, 1], dtype=torch.int32, device=device)
     return bank, bk.HashShardRouter(R, 16).route_dense(it, w), (it, w)
@@ -283,7 +283,7 @@ def test_serial_scans_on_the_card_equal_the_cpu(cuda, variant, k):
     block after block, the last at the INT_MAX rail."""
     from repro_torch.sketch import blocks
 
-    s = bounded_stream(1500, 0.5, universe=1 << 12, seed=k + variant)
+    s = zipf_interleaved_stream(1500, 0.5, universe=1 << 12, seed=k + variant)
     for scan in (blocks.block_update_serial, blocks.process_stream):
         cpu = SketchState(*(t[0] for t in bk.init(k, 1, device="cpu")))
         gpu = SketchState(*(t.to(cuda) for t in cpu))
@@ -311,7 +311,7 @@ def test_serial_backend_through_the_captured_ingest(cuda):
     from repro_torch.kernels.sketch_update import kernel
 
     spec = SketchSpec(k=1000, bits=16, backend="serial")
-    s = bounded_stream(8000, 0.5, universe=1 << 16, seed=18)
+    s = zipf_interleaved_stream(8000, 0.5, universe=1 << 16, seed=18)
     gpu = StreamSession(spec, block=2048, device=cuda)
     cpu = StreamSession(spec, block=2048, device="cpu")
     c0 = kernel.launch_counts()
@@ -332,7 +332,7 @@ def test_bank_session_equals_the_kernel_session(cuda, shards, variant):
     state and the CPU's, one kernel-1 launch a block."""
     from repro_torch.kernels.sketch_update import kernel
 
-    s = bounded_stream(30000, 0.5, universe=1 << 16, seed=17)
+    s = zipf_interleaved_stream(30000, 0.5, universe=1 << 16, seed=17)
     states = {}
     for backend, device in (("bank", cuda), ("kernel", cuda),
                             ("bank", "cpu")):
@@ -359,7 +359,7 @@ def test_block_session_on_the_card_equals_the_cpu_session(cuda):
 
 def _sharded_session_on_the_card_equals_the_cpu(cuda, backend):
     spec = SketchSpec(k=3000, shards=8, bits=16, backend=backend)
-    s = bounded_stream(30000, 0.5, universe=1 << 16, seed=9)
+    s = zipf_interleaved_stream(30000, 0.5, universe=1 << 16, seed=9)
     gpu = StreamSession(spec, block=4096, device=cuda)
     cpu = StreamSession(spec, block=4096, device="cpu")
     gpu.ingest(s[:, 0], s[:, 1])
@@ -370,7 +370,7 @@ def _sharded_session_on_the_card_equals_the_cpu(cuda, backend):
 
 def test_unsharded_block_backend_on_the_card_equals_the_cpu(cuda):
     spec = SketchSpec(k=5000, bits=16, backend="block")
-    s = bounded_stream(30000, 0.5, universe=1 << 16, seed=10)
+    s = zipf_interleaved_stream(30000, 0.5, universe=1 << 16, seed=10)
     gpu = StreamSession(spec, block=4096, device=cuda)
     cpu = StreamSession(spec, block=4096, device="cpu")
     gpu.ingest(s[:, 0], s[:, 1])
@@ -387,7 +387,7 @@ def test_session_and_update_take_cuda_tensors(cuda):
     from repro_torch.sketch import api
 
     spec = SketchSpec(k=500, shards=4, bits=16)
-    s = bounded_stream(6000, 0.5, universe=1 << 16, seed=11)
+    s = zipf_interleaved_stream(6000, 0.5, universe=1 << 16, seed=11)
     items, weights = s[:, 0], s[:, 1]
     t = lambda a: torch.as_tensor(a, device=cuda)
     host = StreamSession(spec, block=1024, device=cuda)
@@ -436,7 +436,7 @@ def test_graph_replay_equals_the_eager_update(cuda, shards, backend):
     from repro_torch.sketch import api
 
     spec = SketchSpec(k=3000, shards=shards, bits=16, backend=backend)
-    s = bounded_stream(20000, 0.5, universe=1 << 16, seed=12)
+    s = zipf_interleaved_stream(20000, 0.5, universe=1 << 16, seed=12)
     sess = StreamSession(spec, block=2048, device=cuda)
     eager = api.make(spec, cuda)
     name = ("sketch_residual_kernel" if backend == "block"
@@ -489,7 +489,7 @@ def test_donation_and_kept_states(cuda, donate):
     way the session's own state is right, and two sessions sharing the
     cached graph never see each other's blocks."""
     spec = SketchSpec(k=777, shards=4, bits=16)
-    s = bounded_stream(9000, 0.5, universe=1 << 16, seed=13)
+    s = zipf_interleaved_stream(9000, 0.5, universe=1 << 16, seed=13)
     blocks = [(s[lo:lo + 1024, 0], s[lo:lo + 1024, 1])
               for lo in range(0, 6144, 1024)]
     a = StreamSession(spec, block=1024, donate=donate, device=cuda)
@@ -532,7 +532,7 @@ def test_block_feeder_and_stream_on_the_card(cuda, depth):
     from repro_torch.sketch.session import BlockFeeder
 
     spec = SketchSpec(k=3000, shards=8, bits=16)
-    s = bounded_stream(30000, 0.5, universe=1 << 16, seed=14)
+    s = zipf_interleaved_stream(30000, 0.5, universe=1 << 16, seed=14)
     n = len(s) // 2048
     items = s[:n * 2048, 0].reshape(n, 2048)
     weights = s[:n * 2048, 1].reshape(n, 2048)
@@ -566,7 +566,7 @@ def test_quantile_graph_carries_the_mass_leaf(cuda, shards, backend, donate):
 
     spec = SketchSpec(kind="quantile", k=8 * 400, bits=12, shards=shards,
                       backend=backend)
-    s = bounded_stream(12000, 0.5, universe=1 << 12, seed=15)
+    s = zipf_interleaved_stream(12000, 0.5, universe=1 << 12, seed=15)
     sess = StreamSession(spec, block=2048, donate=donate, device=cuda)
     ref = StreamSession(spec, block=2048, device="cpu")
     name = {"kernel": "sketch_update_kernel_fused",
@@ -600,7 +600,7 @@ def test_dyadic_stream_entry_on_the_card(cuda):
         sketch_block_update_stream
 
     spec = SketchSpec(kind="quantile", k=12 * 400, bits=12)
-    s = bounded_stream(12000, 0.5, universe=1 << 12, seed=16)
+    s = zipf_interleaved_stream(12000, 0.5, universe=1 << 12, seed=16)
     n = len(s) // 2048
     items = s[:n * 2048, 0].reshape(n, 2048)
     weights = s[:n * 2048, 1].reshape(n, 2048)
@@ -620,7 +620,7 @@ def test_dyadic_stream_entry_on_the_card(cuda):
 
 def _tenant_stream(T, bits, n, seed):
     """A bounded-deletion stream of composite keys over T tenants."""
-    s = bounded_stream(n, 0.5, universe=T << bits, seed=seed)
+    s = zipf_interleaved_stream(n, 0.5, universe=T << bits, seed=seed)
     return s[:, 0], s[:, 1]
 
 
@@ -1146,7 +1146,8 @@ def _unbiased_operands(R, Ki, Kd, state, device, B=4096, seed=0):
     router = bk.HashShardRouter(R, 16)
     ins = bk.init(Ki, R, device=device)
     dels = bk.init(Kd, R, device=device)
-    s = bounded_stream(3 * B, 0.5, universe=1 << 16, seed=seed + R + Ki)
+    s = zipf_interleaved_stream(3 * B, 0.5, universe=1 << 16,
+                                seed=seed + R + Ki)
     key = torch.tensor([0, seed], dtype=torch.int64).to(torch.uint32)
     parts = np.array_split(s[:3 * B], 3)
     for i, part in enumerate(parts):
@@ -1219,7 +1220,7 @@ def test_family_session_on_the_card_equals_the_cpu_session(cuda, variant,
 
     spec = SketchSpec(k=2000, bits=16, variant=variant, backend=backend,
                       shards=shards)
-    s = bounded_stream(20000, 0.5, universe=1 << 16, seed=31)
+    s = zipf_interleaved_stream(20000, 0.5, universe=1 << 16, seed=31)
     gpu = StreamSession(spec, block=4096, device=cuda)
     cpu = StreamSession(spec, block=4096, device="cpu")
     c0 = kernel.launch_counts()
@@ -1255,7 +1256,7 @@ def test_recovery_on_the_card_keeps_the_rows_it_does_not_splice(cuda,
     from repro_torch.sketch import elastic, faults
 
     spec = SketchSpec(k=4096, bits=16, shards=8)
-    s = bounded_stream(40000, 0.5, universe=1 << 16, seed=33)
+    s = zipf_interleaved_stream(40000, 0.5, universe=1 << 16, seed=33)
     plan = faults.FaultPlan(events=(
         faults.FaultEvent(step=3, row=2, kind="corrupt"),
         faults.FaultEvent(step=4, row=5, kind="drop")))

@@ -28,7 +28,7 @@ from repro.sketch import bank as jbk
 from repro.sketch import sharded as jshd
 from repro.sketch import state as jst
 from repro.sketch.session import StreamSession as JSession
-from repro_torch.core.streams import bounded_stream
+from repro_torch.core.streams import zipf_interleaved_stream
 from repro_torch.sketch import api as tapi
 from repro_torch.sketch import bank as tbk
 from repro_torch.sketch import sharded as tshd
@@ -138,7 +138,7 @@ def _sharded_pair(S, ktot, seeds, variant=2):
     """Two sharded banks fed by the port on bounded-deletion streams."""
     out = []
     for seed in seeds:
-        s = bounded_stream(1500, 0.25, universe=1 << BITS, seed=seed)
+        s = zipf_interleaved_stream(1500, 0.25, universe=1 << BITS, seed=seed)
         state = tshd.init(ktot, S, device="cpu")
         out.append(tshd.update_block(state, torch.from_numpy(s[:, 0]),
                                      torch.from_numpy(s[:, 1]), variant,
@@ -286,7 +286,7 @@ def test_merge_lazy_bounded_deletion():
     spec = tapi.SketchSpec(k=k, variant="lazy", bits=BITS)
     states, streams = [], []
     for seed in (1, 2):
-        s = bounded_stream(1000, 0.4, universe=64, seed=seed)
+        s = zipf_interleaved_stream(1000, 0.4, universe=64, seed=seed)
         order = np.argsort(s[:, 1] < 0, kind="stable")   # inserts first
         s = s[order]
         streams.append(s)
@@ -372,7 +372,8 @@ def test_session_merge_from_and_consolidated_match_reference(shards, variant):
                                                          **kw))):
         host = [make(spec, block=BLOCK) for _ in range(2)]
         for seed, sess in enumerate(host):
-            s = bounded_stream(1200, 0.5, universe=1 << BITS, seed=seed + 3)
+            s = zipf_interleaved_stream(1200, 0.5, universe=1 << BITS,
+                                        seed=seed + 3)
             sess.extend(s[:, 0], s[:, 1])
         host[0].merge_from(host[1])
         got.append((host[0].state, host[0].consolidated()))

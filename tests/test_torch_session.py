@@ -40,8 +40,8 @@ BLOCK = 256
 
 
 def _stream(seed=0, n_insert=1500, ratio=0.5):
-    s = tstreams.bounded_stream(n_insert, ratio, universe=1 << BITS,
-                                skew=1.1, seed=seed)
+    s = tstreams.zipf_interleaved_stream(n_insert, ratio, universe=1 << BITS,
+                                         skew=1.1, seed=seed)
     return s[:, 0], s[:, 1]
 
 
@@ -191,7 +191,8 @@ def test_unported_spec_values_name_their_roadmap_item(fields, item):
     assert tapi.spec_axis(tspec) == japi.spec_axis(jspec) == item
     js, ts = JSession(jspec, block=128), TSession(tspec, block=128,
                                                   device="cpu")
-    s = tstreams.bounded_stream(600, 0.4, universe=512, skew=1.1, seed=3)
+    s = tstreams.zipf_interleaved_stream(600, 0.4, universe=512, skew=1.1,
+                                         seed=3)
     js.extend(s[:, 0], s[:, 1])
     ts.extend(s[:, 0], s[:, 1])
     if item == "unbiased":     # restore and queries, not ingest parity
@@ -218,8 +219,8 @@ def test_tenant_spec_values_run_as_the_reference(fields):
     assert tspec.capacity == jspec.capacity
     js, ts = JSession(jspec, block=128), TSession(tspec, block=128,
                                                   device="cpu")
-    s = tstreams.bounded_stream(500, 0.5, universe=tspec.tenants << 8,
-                                skew=1.1, seed=tspec.tenants)
+    s = tstreams.zipf_interleaved_stream(500, 0.5, universe=tspec.tenants << 8,
+                                         skew=1.1, seed=tspec.tenants)
     js.extend(s[:, 0], s[:, 1])
     ts.extend(s[:, 0], s[:, 1])
     _assert_same(*_state_dicts(js, ts), str(fields))
@@ -243,8 +244,8 @@ def test_bank_and_serial_specs_run_as_the_reference(fields):
     jspec, tspec = japi.SketchSpec(**fields), tapi.SketchSpec(**fields)
     js, ts = JSession(jspec, block=128), TSession(tspec, block=128,
                                                   device="cpu")
-    s = tstreams.bounded_stream(400, 0.5, universe=1 << bits, skew=1.1,
-                                seed=len(fields))
+    s = tstreams.zipf_interleaved_stream(400, 0.5, universe=1 << bits,
+                                         skew=1.1, seed=len(fields))
     js.extend(s[:, 0], s[:, 1])
     ts.extend(s[:, 0], s[:, 1])
     _assert_same(*_state_dicts(js, ts), str(fields))
@@ -406,7 +407,7 @@ def test_entry_points_default_to_cuda():
 
 
 def test_port_streams_are_valid_and_counted_like_the_reference():
-    s = tstreams.bounded_stream(3000, 0.5, universe=1 << 10, seed=4)
+    s = tstreams.zipf_interleaved_stream(3000, 0.5, universe=1 << 10, seed=4)
     got = tstreams.exact_stats(s)           # raises if not strict turnstile
     want = jstreams.exact_stats(s)
     assert (got.insertions, got.deletions) == (3000, 1500)
@@ -435,8 +436,8 @@ def _qspecs(shards=None, variant="sspm", backend="kernel", **size):
 
 
 def _qstream(seed=0, n_insert=1500):
-    s = tstreams.bounded_stream(n_insert, 0.5, universe=1 << QBITS, skew=1.1,
-                                seed=seed)
+    s = tstreams.zipf_interleaved_stream(n_insert, 0.5, universe=1 << QBITS,
+                                         skew=1.1, seed=seed)
     return s[:, 0], s[:, 1]
 
 
